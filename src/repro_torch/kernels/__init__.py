@@ -1,0 +1,9 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch
+version. Importing this package compiles nothing: the library is built the
+first time a wrapper is given a CUDA tensor."""
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+
+__all__ = ["flash_attention", "flash_attention_plain", "rmsnorm",
+           "rmsnorm_plain"]

@@ -1,0 +1,111 @@
+"""Flash attention (causal or not, GQA): CUDA kernels, wrapper, plain version.
+
+Replaces the Pallas kernel ``repro/kernels/flash_attention.py``
+(``flash_attention``). On an H100 the function is bound by operations: at the
+serving shapes the two matrix products dwarf the bytes of q, k, v and the
+output. The kernels (``csrc/flash_attention.cu``) keep the score matrix out of
+device memory with an online softmax; the walk over the keys, a sequential
+grid dimension in the kernel it replaces, is a loop inside each block, cut at
+the diagonal under the causal mask; q, k and v are read through their strides
+in the ``(B, S, H, D)`` layout, so no transposed or padded copy is made; a
+query head reads its kv head directly, so k and v are never repeated.
+
+Because operations are the bound, bfloat16 inputs take both products to the
+tensor cores (``mma.sync`` with float32 accumulation; the probabilities are
+rounded to bfloat16 before the second product, as the plain
+``full_attention`` rounds them), while float32 inputs keep plain float32
+FMAs, exact to rounding. ``wgmma``, TMA and asynchronous copies are the work
+that remains.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True) -> torch.Tensor:
+    """Plain PyTorch version. q: (B,Sq,H,D); k, v: (B,Skv,Hkv,D). Arithmetic
+    in float32, output in q.dtype; the causal mask is qpos >= kpos."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, D).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(D)
+    if causal:
+        qpos = torch.arange(Sq, device=q.device)[:, None]
+        kpos = torch.arange(Skv, device=q.device)[None, :]
+        s = s.masked_fill(~(qpos >= kpos), NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return o.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def _check_strides(name: str, t: torch.Tensor) -> None:
+    per16 = 16 // t.element_size()
+    # the stride of a dimension of size 1 is never used
+    if (t.shape[3] > 1 and t.stride(3) != 1) or t.data_ptr() % 16 or \
+            any(t.stride(i) % per16 for i in range(3) if t.shape[i] > 1):
+        raise ValueError(
+            f"flash_attention: {name} needs a contiguous last dimension, "
+            f"16-byte aligned rows and base address; got strides "
+            f"{t.stride()}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q: (B,Sq,H,D); k, v: (B,Skv,Hkv,D) -> (B,Sq,H,D) in q.dtype.
+
+    A CPU tensor goes to the plain version. A CUDA tensor goes to the kernel,
+    or the call raises: there is no other path for it.
+    """
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("flash_attention: q (B,Sq,H,D); k, v (B,Skv,Hkv,D)")
+    B, Sq, H, D = q.shape
+    Bk, Skv, Hkv, Dk = k.shape
+    if Bk != B or Dk != D or Hkv == 0 or H % Hkv != 0:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} do not go together")
+    if not (q.dtype == k.dtype == v.dtype) or \
+            not (q.device == k.device == v.device):
+        raise ValueError("flash_attention: q, k, v differ in dtype or device")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+    if str(q.dtype) not in build.DTYPE_CODES:
+        raise TypeError(f"flash_attention kernel takes float32 and bfloat16, "
+                        f"got {q.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes D in {HEAD_DIMS}, "
+                         f"got {D}")
+    if min(B, Sq, Skv, H) == 0:
+        raise ValueError("flash_attention: empty q, k or v")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_strides(name, t)
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        code = lib.rt_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, Sq, Skv, H, Hkv, D,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            int(bool(causal)), 1.0 / math.sqrt(D),
+            build.DTYPE_CODES[str(q.dtype)],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(code, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+# number of kernel launches made through the wrapper
+flash_attention.launches = 0

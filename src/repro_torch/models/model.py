@@ -1,0 +1,196 @@
+"""Model API of the port, dense decoder-only family.
+
+  model = build_model(cfg, run, device="cpu", seed=0)   # device=None: the GPU
+  logits = model.forward({"tokens": tokens})
+  logits, caches = model.prefill({"tokens": tokens}, max_len)
+  logits, caches = model.decode_step({"tokens": tokens}, caches)
+
+``Model`` is an ``nn.Module`` that owns its parameters. Their names
+(``state_dict()`` keys) are the paths of the JAX package's parameter tree
+joined by dots, and their layouts are the same, layers stacked on a leading
+axis: ``embed``, ``head``, ``norm``, ``layers.ln1``, ``layers.attn.wq``,
+``layers.mlp.gate`` ... Inference only: every entry point runs under
+``torch.no_grad()``.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Union
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device, resolve_dtype
+from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors as nested modules of parameters, so that
+    ``state_dict()`` keys are the dict's paths joined by dots."""
+
+    def __init__(self, tree: Dict):
+        super().__init__()
+        for name, value in tree.items():
+            if isinstance(value, dict):
+                self.add_module(name, ParamTree(value))
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(value, requires_grad=False))
+
+    def as_dict(self) -> Dict:
+        out = {name: p for name, p in self._parameters.items()}
+        for name, child in self._modules.items():
+            out[name] = child.as_dict()
+        return out
+
+
+class Model(nn.Module):
+    def __init__(self, cfg: ModelConfig, run: Optional[RunConfig] = None,
+                 device: Optional[Union[str, torch.device]] = None):
+        """Parameters are allocated on `device` in `run.param_dtype` and left
+        UNINITIALISED: call `init`, or load weights (`convert.py`,
+        `load_state_dict`). device=None is the GPU, and raises without one."""
+        super().__init__()
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet (ROADMAP.md, "
+                f"Queue 1); the port holds the dense decoder-only family")
+        self.cfg = cfg
+        self.run = run or RunConfig()
+        self.device = torch.device(device) if str(device) == "meta" \
+            else resolve_device(device)
+        self.compute_dtype = resolve_dtype(self.run.compute_dtype)
+        self.param_dtype = resolve_dtype(self.run.param_dtype)
+        # pad the vocabulary to a multiple of 128; padded logit columns are
+        # masked to -1e30 in _logits
+        v = cfg.vocab_size
+        self.padded_vocab = v if v % 128 == 0 else (v // 128 + 1) * 128
+        self.tree = ParamTree(self._param_shapes()).to_empty(
+            device=self.device)
+
+    # ------------------------------------------------------------------ init
+    def _param_shapes(self) -> Dict:
+        """The parameter tree on the meta device: names, shapes, dtype."""
+        cfg = self.cfg
+        kw = dict(dtype=self.param_dtype, device="meta")
+        table = torch.empty((self.padded_vocab, cfg.d_model), **kw)
+        p = {"embed": table, "norm": torch.empty((cfg.d_model,), **kw)}
+        if not cfg.tie_embeddings:
+            p["head"] = table.clone()
+        p["layers"] = T.init_stack(None, cfg, cfg.n_layers, "dense", **kw)
+        return p
+
+    @torch.no_grad()
+    def init(self, generator: Optional[torch.Generator] = None,
+             seed: int = 0) -> "Model":
+        """Fill the parameters in place from `generator` (which must live on
+        the model's device), or from a new one seeded with `seed`. Weights
+        are drawn straight onto the device, leaf by leaf and layer by layer,
+        and stored in `param_dtype`."""
+        if generator is None:
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(seed)
+        cfg, params = self.cfg, self.params
+        kw = dict(dtype=self.param_dtype, device=self.device)
+        params["embed"].copy_(L.init_embed(generator, self.padded_vocab,
+                                           cfg.d_model, **kw))
+        params["norm"].fill_(1.0)
+        if "head" in params:
+            params["head"].copy_(L.dense_init(
+                generator, (self.padded_vocab, cfg.d_model),
+                in_axis_size=cfg.d_model, **kw))
+        T.fill_stack(params["layers"], generator, cfg, "dense")
+        return self
+
+    @property
+    def params(self) -> Dict:
+        """The parameters as the nested dict the layer functions take."""
+        return self.tree.as_dict()
+
+    def state_dict(self, *args, **kwargs):
+        """Keys are the parameter tree's paths joined by dots, without the
+        name of the module that holds them."""
+        return self.tree.state_dict(*args, **kwargs)
+
+    def load_state_dict(self, state_dict, *args, **kwargs):
+        return self.tree.load_state_dict(state_dict, *args, **kwargs)
+
+    # --------------------------------------------------------------- forward
+    def _tokens(self, batch) -> torch.Tensor:
+        return torch.as_tensor(batch["tokens"]).to(self.device).long()
+
+    def _embed(self, params, tokens):
+        return L.embed(params["embed"], tokens, self.compute_dtype)
+
+    def _logits(self, params, x):
+        x = L.rms_norm(x, params["norm"], self.cfg.norm_eps)
+        head = params["embed"] if self.cfg.tie_embeddings else params["head"]
+        lg = L.logits(head, x)
+        if self.padded_vocab != self.cfg.vocab_size:
+            lg[..., self.cfg.vocab_size:] = -1e30
+        return lg
+
+    @torch.no_grad()
+    def forward(self, batch) -> torch.Tensor:
+        """Full-sequence forward -> logits (B, S, padded_vocab)."""
+        params = self.params
+        tokens = self._tokens(batch)
+        x = self._embed(params, tokens)
+        positions = torch.arange(tokens.shape[1], device=self.device)
+        x = T.stack(params["layers"], x, self.cfg, self.run, kind="dense",
+                    positions=positions)
+        return self._logits(params, x)
+
+    # --------------------------------------------------------------- serving
+    def init_caches(self, batch: int, max_len: int) -> Dict:
+        """Zeroed KV caches stacked on a leading layer axis:
+        k, v (L, B, max_len, K, D) in the compute dtype, pos (L, B) int32."""
+        one = A.init_gqa_cache(self.cfg, batch, max_len, self.compute_dtype,
+                               device=self.device,
+                               quant=self.run.kv_cache_dtype == "int8")
+        n = self.cfg.n_layers
+        return {name: a.new_zeros((n, *a.shape)) for name, a in one.items()}
+
+    @torch.no_grad()
+    def prefill(self, batch, max_len: int):
+        """Process a prompt, return (last-position logits (B, 1, V), filled
+        caches)."""
+        params = self.params
+        tokens = self._tokens(batch)
+        B, S = tokens.shape
+        x = self._embed(params, tokens)
+        positions = torch.arange(S, device=self.device)
+        x, (k, v) = T.stack_prefill(params["layers"], x, self.cfg, self.run,
+                                    kind="dense", positions=positions,
+                                    pad_to=max_len)
+        pos = torch.full((self.cfg.n_layers, B), S, dtype=torch.int32,
+                         device=self.device)
+        return self._logits(params, x[:, -1:]), {"k": k, "v": v, "pos": pos}
+
+    @torch.no_grad()
+    def decode_step(self, batch, caches):
+        """One token for every sequence in the batch -> (logits (B, 1, V),
+        caches). The caches are updated in place and handed back."""
+        params = self.params
+        tokens = self._tokens(batch)                     # (B, 1)
+        x = self._embed(params, tokens)
+        x, caches = T.stack_decode(params["layers"], x, caches, self.cfg,
+                                   self.run, kind="dense")
+        return self._logits(params, x), caches
+
+
+def build_model(cfg: ModelConfig, run: Optional[RunConfig] = None, *,
+                device: Optional[Union[str, torch.device]] = None,
+                seed: int = 0) -> Model:
+    """A model on `device` (None: the GPU) with weights drawn from `seed`."""
+    return Model(cfg, run, device=device).init(seed=seed)
+
+
+def analytic_param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Exact parameter count from the shapes of the model's parameters on
+    the meta device: nothing is allocated. `active_only` counts the
+    parameters one token uses, which for a dense model is all of them."""
+    model = Model(cfg, RunConfig(), device="meta")
+    return sum(p.numel() for p in model.tree.parameters())

@@ -1,0 +1,139 @@
+"""The plain versions of the port's kernels against the Pallas kernel bodies
+of the JAX package (interpret mode on the CPU), on the same numpy inputs; and
+the wrappers' contract. The CUDA kernels themselves are held against the
+plain versions on the card by chip_smoke.py."""
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops
+
+import repro_torch
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+from test_torch_parity import as_f32, to_jax, to_torch
+
+
+def tol(dtype):
+    return dict(atol=2e-2, rtol=2e-2) if dtype == "bfloat16" \
+        else dict(atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D", [
+    (1, 32, 32, 2, 2, 16),
+    (2, 64, 64, 4, 2, 32),
+    (1, 96, 48, 4, 1, 64),     # ragged + MQA
+    (2, 33, 65, 2, 2, 16),     # non-divisible block sizes
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_matches_pallas(B, Sq, Sk, H, Hkv, D, causal,
+                                              dtype):
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((B, Sq, H, D), dtype=np.float32)
+    k = rng.standard_normal((B, Sk, Hkv, D), dtype=np.float32)
+    v = rng.standard_normal((B, Sk, Hkv, D), dtype=np.float32)
+    want = ops.flash_attention(to_jax(q, dtype), to_jax(k, dtype),
+                               to_jax(v, dtype), causal=causal, block_q=32,
+                               block_kv=16)
+    got = flash_attention_plain(to_torch(q, dtype), to_torch(k, dtype),
+                                to_torch(v, dtype), causal=causal)
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(as_f32(got), as_f32(want), **tol(dtype))
+
+
+@pytest.mark.parametrize("shape", [(4, 64), (3, 17, 96), (2, 5, 7, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_plain_matches_pallas(shape, dtype):
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal(shape, dtype=np.float32)
+    sc = 1.0 + 0.1 * rng.standard_normal(shape[-1:], dtype=np.float32)
+    want = ops.rmsnorm(to_jax(x, dtype), jnp.asarray(sc), block_rows=4)
+    got = rmsnorm_plain(to_torch(x, dtype), to_torch(sc))
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(as_f32(got), as_f32(want), **tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_plain_residual_matches_pallas(dtype):
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((8, 64), dtype=np.float32)
+    r = rng.standard_normal((8, 64), dtype=np.float32)
+    sc = np.ones((64,), np.float32)
+    want = ops.rmsnorm(to_jax(x, dtype), jnp.asarray(sc),
+                       residual=to_jax(r, dtype), block_rows=8)
+    got = rmsnorm_plain(to_torch(x, dtype), to_torch(sc),
+                        residual=to_torch(r, dtype))
+    np.testing.assert_allclose(as_f32(got), as_f32(want), **tol(dtype))
+
+
+def test_flash_attention_plain_fully_visible_first_row():
+    """Causal with Sq > Skv is aligned top-left: row 0 sees key 0 only."""
+    rng = np.random.default_rng(9)
+    q = to_torch(rng.standard_normal((1, 8, 2, 16), dtype=np.float32))
+    k = to_torch(rng.standard_normal((1, 4, 2, 16), dtype=np.float32))
+    v = to_torch(rng.standard_normal((1, 4, 2, 16), dtype=np.float32))
+    out = flash_attention_plain(q, k, v, causal=True)
+    np.testing.assert_allclose(as_f32(out[:, 0]), as_f32(v[:, 0]), atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the wrappers' contract
+# ---------------------------------------------------------------------------
+
+
+def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
+    rng = np.random.default_rng(10)
+    x = to_torch(rng.standard_normal((5, 64), dtype=np.float32))
+    sc = to_torch(rng.standard_normal((64,), dtype=np.float32))
+    q = to_torch(rng.standard_normal((1, 8, 2, 16), dtype=np.float32))
+    before = (rmsnorm.launches, flash_attention.launches)
+    assert torch.equal(rmsnorm(x, sc), rmsnorm_plain(x, sc))
+    assert torch.equal(rmsnorm(x, sc, residual=x),
+                       rmsnorm_plain(x, sc, residual=x))
+    assert torch.equal(flash_attention(q, q, q, causal=True),
+                       flash_attention_plain(q, q, q, causal=True))
+    assert (rmsnorm.launches, flash_attention.launches) == before
+
+
+def test_wrappers_refuse_what_does_not_fit():
+    x = torch.zeros((4, 64))
+    with pytest.raises(ValueError):
+        rmsnorm(x, torch.ones((32,)))
+    with pytest.raises(ValueError):
+        rmsnorm(x, torch.ones((64,)), residual=torch.zeros((4, 32)))
+    q = torch.zeros((1, 8, 4, 16))
+    with pytest.raises(ValueError):                 # H % Hkv != 0
+        flash_attention(q, torch.zeros((1, 8, 3, 16)),
+                        torch.zeros((1, 8, 3, 16)))
+    with pytest.raises(ValueError):                 # dtypes differ
+        flash_attention(q, q.bfloat16(), q.bfloat16())
+
+
+def test_kernel_package_imports_without_nvcc_or_card(monkeypatch):
+    """Importing compiles nothing; the build is asked for only when a CUDA
+    tensor arrives, and says what is missing when it cannot be made."""
+    import repro_torch.kernels  # noqa: F401
+    assert build._lib is None
+    assert {p.name for p in build.sources()} == {"rmsnorm.cu",
+                                                 "flash_attention.cu"}
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    if not Path("/usr/local/cuda/bin/nvcc").is_file():
+        with pytest.raises(build.KernelBuildError, match="nvcc not found"):
+            build.find_nvcc()
+
+
+def test_default_device_is_the_gpu_and_raises_without_one():
+    if torch.cuda.is_available():
+        assert repro_torch.resolve_device(None).type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            repro_torch.resolve_device(None)
+    assert repro_torch.resolve_device("cpu").type == "cpu"
