@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``src/repro_torch/kernels/csrc/``, holds each
-against its plain PyTorch version on the card, and drives the serving path
-of deepseek-7b at full width and depth (random weights from a seed) through
+Builds the CUDA kernels from ``src/repro_torch/kernels/csrc/`` (rmsnorm,
+flash_attention, wkv6, ssd), holds each against its plain PyTorch version on
+the card, and drives the serving paths of deepseek-7b, rwkv6-7b and
+zamba2-7b at full width and depth (random weights from a seed) through
 ``Model.forward``, ``Model.prefill``, ``Model.decode_step`` and the
 ``repro_torch.launch.serve`` command line. Every line of standard output is
 one JSON object, except the line before the last, which is the card's name
@@ -51,7 +52,28 @@ ATTN_GRID = [(1, 32, 32, 2, 2, 16), (2, 64, 64, 4, 2, 32),
 NORM_GRID = [(4, 64), (3, 17, 96), (2, 5, 7, 128)]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}    # atol = rtol
 
-N_LAYERS, NORMS_PER_CALL = 30, 61                    # deepseek-7b: 2*30 + 1
+WKV_TOL = {torch.float32: (1e-4, 5e-4), torch.bfloat16: (2e-2, 2e-2)}  # atol, rtol
+WKV_STATE_TOL = 1e-3
+KERNELS = ("rmsnorm", "flash_attention", "wkv6", "ssd")
+
+# Launches a forward (or prefill) and a decode step make, from the configs:
+#   deepseek-7b: 30 layers, 2 norms each + the final one; attention each layer
+#   rwkv6-7b:    32 layers, 2 norms each + 1; wkv6 each layer, also at decode
+#   zamba2-7b:   81 // 6 = 13 groups of 6 Mamba2 blocks (78), 2 norms each
+#                (ln, ssm_norm), 13 shared attention blocks with 2 norms each,
+#                + 1 = 183; ssd each Mamba2 block and flash attention each
+#                shared block, neither at decode
+PER_CALL = {
+    "deepseek-7b": {"rmsnorm": 61, "flash_attention": 30, "wkv6": 0, "ssd": 0},
+    "rwkv6-7b": {"rmsnorm": 65, "flash_attention": 0, "wkv6": 32, "ssd": 0},
+    "zamba2-7b": {"rmsnorm": 183, "flash_attention": 13, "wkv6": 0, "ssd": 78},
+}
+PER_STEP = {
+    "deepseek-7b": {"rmsnorm": 61, "flash_attention": 0, "wkv6": 0, "ssd": 0},
+    "rwkv6-7b": {"rmsnorm": 65, "flash_attention": 0, "wkv6": 32, "ssd": 0},
+    "zamba2-7b": {"rmsnorm": 183, "flash_attention": 0, "wkv6": 0, "ssd": 0},
+}
+N_LAYERS = {"deepseek-7b": 30, "rwkv6-7b": 32, "zamba2-7b": 81}
 
 
 class SmokeFailure(RuntimeError):
@@ -149,11 +171,60 @@ def norm_bound(rows, d, dtype, scale_dtype):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations", nbytes
 
 
+def bound(nbytes, flops, dtype):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
+
+
+def wkv6_bound(B, S, H, K, dtype, state_in):
+    """r, k, v read once in their type, lw read and y written once in
+    float32, u read once, the state read (if given) and written once. The
+    operations of the chunked form with chunks of 16 rows (the TPU kernel's
+    and this one's): per chunk of q rows, q(q-1)/2 decayed r.k sums of 3K
+    (an exp among them), the bonus r.(u k) of 3K a row, A V over q(q+1)/2
+    pairs, (r exp(cum)) S, the state update, and the 2qK + K exps of the
+    decay factors; at the peak rate of the inputs' type."""
+    size = torch.empty((), dtype=dtype).element_size()
+    n = B * S * H * K
+    nbytes = 3 * n * size + 2 * 4 * n + 4 * H * K + \
+        4 * B * H * K * K * (2 if state_in else 1)
+    flops = 0
+    for c0 in range(0, S, 16):
+        q = min(16, S - c0)
+        flops += (q * (q - 1) // 2) * 3 * K + q * 3 * K \
+            + (q * (q + 1) // 2) * 2 * K + 2 * q * K * K \
+            + K * K * (2 * q + 1) + 2 * q * K + K
+    flops *= B * H
+    return (*bound(nbytes, flops, dtype), nbytes, flops)
+
+
+def ssd_bound(B, S, H, P, N, dtype, n_groups):
+    """xs read once in its type, dt read once and y written once in float32,
+    A read once, Bm and Cm read once per group (mamba2 hands the kernel one
+    group expanded over the heads). The operations of the chunked form with
+    the kernel's tile of 64 rows: per tile of q rows, the q(q+1)/2 entries
+    of M (C.B of 2N, a decay and dt_j), M x, C h and its decay, and the
+    state update; at the peak rate of the inputs' type."""
+    size = torch.empty((), dtype=dtype).element_size()
+    nbytes = B * S * H * P * size + 4 * B * S * H + 4 * H + \
+        2 * B * S * n_groups * N * size + 4 * B * S * H * P
+    flops = 0
+    for c0 in range(0, S, 64):
+        q = min(64, S - c0)
+        tri = q * (q + 1) // 2
+        flops += tri * (2 * N + 3) + tri * 2 * P + q * N * P * 2 + 2 * q * P \
+            + N * P * (2 * q + 1) + q * (N + 2)
+    flops *= B * H
+    return (*bound(nbytes, flops, dtype), nbytes, flops)
+
+
 def phase_kernels(state):
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+    from repro_torch.kernels.ssd import TILE, ssd, ssd_plain
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
 
     t0 = time.monotonic()
     lib_path = build.build(verbose=state["verbose"])
@@ -166,13 +237,13 @@ def phase_kernels(state):
     gen = torch.Generator(device=dev)
     gen.manual_seed(state["seed"])
 
-    def randn(shape, dtype):
+    def randn(shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev,
                            dtype=torch.float32).to(dtype)
 
     checks = []
     # --- the reference's test grid -----------------------------------------
-    for (B, Sq, Skv, H, Hkv, D) in ATTN_GRID:
+    for (B, Sq, Skv, H, Hkv, D) in ATTN_GRID + [(2, 150, 150, 4, 2, 112)]:
         for causal in (True, False):
             for dtype in (torch.float32, torch.bfloat16):
                 q, k, v = (randn((B, Sq, H, D), dtype),
@@ -209,10 +280,87 @@ def phase_kernels(state):
                        "dtype": str(dtype), "residual": True,
                        "max_abs_err": err, "tol": TOL[dtype], "ok": ok})
 
-    # --- the model's shapes, checked and timed -------------------------------
-    bf16 = torch.bfloat16
+    def check_wkv6(shape, dtype, r, k, v, lw, u, st, y, st_out):
+        want_y, want_st = wkv6_plain(r, k, v, lw, u, state=st)
+        torch.cuda.synchronize()
+        atol, rtol = WKV_TOL[dtype]
+        err = (y - want_y).abs()
+        ok = bool((err <= atol + rtol * want_y.abs()).all()) and \
+            bool(torch.isfinite(y).all())
+        st_diff = (st_out - want_st).abs()
+        st_err = float(st_diff.max())
+        ok = ok and bool((st_diff <= WKV_STATE_TOL * (1.0 + want_st.abs())).all())
+        checks.append({"kernel": "wkv6", "shape": list(shape), "dtype": str(dtype),
+                       "state_in": st is not None, "max_abs_err": float(err.max()),
+                       "state_max_abs_err": st_err, "tol": [atol, rtol],
+                       "state_tol": WKV_STATE_TOL, "ok": ok})
+        return float(err.max())
+
+    def wkv_inputs(B, S, H, K, dtype, realistic=False):
+        r, k, v = (randn((B, S, H, K), dtype) for _ in range(3))
+        if realistic:   # the model's decay: w0 = -0.6 plus a small LoRA term
+            lw = -torch.exp(-0.6 + 0.5 * randn((B, S, H, K)))
+            u = 0.1 * randn((H, K))
+        else:           # the reference's kernel test (tests/test_kernels.py)
+            lw = -torch.exp(randn((B, S, H, K)))
+            u = 0.3 * randn((H, K))
+        return r, k, v, lw, u
+
+    for (B, S, H, K) in ((1, 16, 1, 8), (2, 40, 3, 16), (1, 33, 2, 32),
+                         (2, 100, 4, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for with_state in (False, True):
+                r, k, v, lw, u = wkv_inputs(B, S, H, K, dtype)
+                st = randn((B, H, K, K)) if with_state else None
+                y, st_out = wkv6(r, k, v, lw, u, state=st)
+                check_wkv6((B, S, H, K), dtype, r, k, v, lw, u, st, y, st_out)
+
+    def ssd_inputs(B, S, H, P, N, dtype, groups=None, realistic=False):
+        xs = randn((B, S, H, P), dtype)
+        if realistic:   # mamba2's: dt = softplus(proj + dt_bias), A = -(1..16)
+            bias = torch.log(torch.expm1(torch.exp(
+                math.log(1e-3) + (math.log(1e-1) - math.log(1e-3)) *
+                torch.rand((H,), generator=gen, device=dev))))
+            dt = F.softplus(0.5 * randn((B, S, H)) + bias)
+            A = -torch.linspace(1.0, 16.0, H, device=dev)
+        else:           # the reference's kernel test
+            dt = F.softplus(randn((B, S, H)))
+            A = -torch.exp(randn((H,)))
+        if groups:      # one group of B, C shared by every head, as mamba2 gives
+            Bm = randn((B, S, 1, N), dtype).expand(B, S, H, N)
+            Cm = randn((B, S, 1, N), dtype).expand(B, S, H, N)
+        else:
+            Bm, Cm = randn((B, S, H, N), dtype), randn((B, S, H, N), dtype)
+        return xs, dt, A, Bm, Cm
+
+    def check_ssd(shape, dtype, inputs, y, expanded):
+        # the plain version over the kernel's tile: the same rows summed
+        want, _ = ssd_plain(*inputs, chunk=TILE)
+        torch.cuda.synchronize()
+        err, ok = close(y, want, dtype)
+        checks.append({"kernel": "ssd", "shape": list(shape), "dtype": str(dtype),
+                       "bm_cm_expanded": expanded, "max_abs_err": err,
+                       "tol": TOL[dtype], "ok": ok})
+        return err
+
+    # the reference's grid, then three tiles of the model's widths with the
+    # model's dt and A: with the reference test's (dt ~ 0.8, |A| down to
+    # ~0.1) the state grows to hundreds over 130 rows and y becomes a sum of
+    # such terms that cancel, where float32 rounding alone passes 2e-5
+    for (B, S, H, P, N) in ((1, 32, 2, 16, 8), (2, 50, 3, 8, 16),
+                            (1, 16, 1, 32, 4), (2, 130, 6, 64, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for expanded in (False, True):
+                inputs = ssd_inputs(B, S, H, P, N, dtype, groups=expanded,
+                                    realistic=S > TILE)
+                y, _ = ssd(*inputs)
+                check_ssd((B, S, H, P, N), dtype, inputs, y, expanded)
+
+    # --- the models' shapes, checked and timed -------------------------------
+    bf16, f32 = torch.bfloat16, torch.float32
     timed = []
-    for rows, d in ((8192, 4096), (8, 4096)):
+    # deepseek-7b and rwkv6-7b (4096), zamba2-7b (3584, and 7168 for ssm_norm)
+    for rows, d in ((8192, 4096), (8, 4096), (8192, 3584), (8192, 7168)):
         x = randn((rows, d), bf16)
         sc = (1.0 + 0.1 * randn((d,), torch.float32)).to(bf16)
         got = rmsnorm(x, sc)
@@ -226,13 +374,14 @@ def phase_kernels(state):
             "plain_ms": lambda: rmsnorm_plain(x, sc),
             "library_ms": lambda: F.rms_norm(x, (d,), weight=sc, eps=1e-5),
         }, iters=50)
-        bound, by, nbytes = norm_bound(rows, d, bf16, bf16)
+        bnd, by, nbytes = norm_bound(rows, d, bf16, bf16)
         timed.append({"name": "rmsnorm", "shape": [rows, d], "dtype": str(bf16),
-                      "max_abs_err": err, **t, "bound_ms": bound,
+                      "max_abs_err": err, **t, "bound_ms": bnd,
                       "bound_by": by, "gbytes_per_s": nbytes / t["ms"] / 1e6})
         del x, got
-    B, S, H, D = 4, 2048, 32, 128
-    for Hkv in (32, 8, 2):
+    B, S = 4, 2048
+    # deepseek-7b (D=128, three kv-head counts) and zamba2-7b (D=112)
+    for H, Hkv, D in ((32, 32, 128), (32, 8, 128), (32, 2, 128), (32, 32, 112)):
         q, k, v = (randn((B, S, H, D), bf16), randn((B, S, Hkv, D), bf16),
                    randn((B, S, Hkv, D), bf16))
         got = flash_attention(q, k, v, causal=True)
@@ -249,12 +398,52 @@ def phase_kernels(state):
             "library_ms": lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=Hkv != H),
         }, iters=5)
-        bound, by, flops = attn_bound(B, S, S, H, Hkv, D, True, bf16)
+        bnd, by, flops = attn_bound(B, S, S, H, Hkv, D, True, bf16)
         timed.append({"name": "flash_attention", "shape": [B, S, S, H, Hkv, D],
                       "causal": True, "dtype": str(bf16), "max_abs_err": err,
-                      **t, "bound_ms": bound, "bound_by": by,
+                      **t, "bound_ms": bnd, "bound_by": by,
                       "tflops": flops / t["ms"] / 1e9})
         del q, k, v, qt, kt, vt, got
+    # wkv6 at rwkv6-7b's prefill (B=4, S=2048, H=64, K=64) and decode step
+    # (B=8 slots, S=1, the state read and written in place)
+    for (B, S, dtype, with_state) in ((4, 2048, bf16, False), (4, 2048, f32, False),
+                                      (8, 1, bf16, True)):
+        H, K = 64, 64
+        r, k, v, lw, u = wkv_inputs(B, S, H, K, dtype, realistic=True)
+        st = randn((B, H, K, K)) if with_state else None
+        st0 = st.clone() if with_state else None
+        y, st_out = wkv6(r, k, v, lw, u, state=st, state_out=st)
+        require(st_out is st if with_state else True, "wkv6: not in place")
+        err = check_wkv6((B, S, H, K), dtype, r, k, v, lw, u, st0, y, st_out)
+        t = time_in_turns({
+            "ms": lambda: wkv6(r, k, v, lw, u, state=st, state_out=st),
+            "plain_ms": lambda: wkv6_plain(r, k, v, lw, u, state=st),
+        }, iters=5 if S > 1 else 50)
+        bnd, by, nbytes, flops = wkv6_bound(B, S, H, K, dtype, with_state)
+        timed.append({"name": "wkv6", "shape": [B, S, H, K], "dtype": str(dtype),
+                      "state_in_place": with_state, "max_abs_err": err, **t,
+                      "library_ms": None, "bound_ms": bnd, "bound_by": by,
+                      "gflop": flops / 1e9, "gbytes": nbytes / 1e9,
+                      "tflops": flops / t["ms"] / 1e9})
+        del r, k, v, lw, y, st, st0, st_out
+    # ssd at zamba2-7b's prefill: B=4, S=2048, H=112, P=N=64, one group
+    for dtype in (bf16, f32):
+        B, S, H, P, N = 4, 2048, 112, 64, 64
+        inputs = ssd_inputs(B, S, H, P, N, dtype, groups=True, realistic=True)
+        y, _ = ssd(*inputs)
+        err = check_ssd((B, S, H, P, N), dtype, inputs, y, True)
+        t = time_in_turns({
+            "ms": lambda: ssd(*inputs),
+            # the plain version at the model's chunk, as its plain path runs it
+            "plain_ms": lambda: ssd_plain(*inputs, chunk=256),
+        }, iters=5)
+        bnd, by, nbytes, flops = ssd_bound(B, S, H, P, N, dtype, 1)
+        timed.append({"name": "ssd", "shape": [B, S, H, P, N], "dtype": str(dtype),
+                      "tile": TILE, "plain_chunk": 256, "max_abs_err": err, **t,
+                      "library_ms": None, "bound_ms": bnd, "bound_by": by,
+                      "gflop": flops / 1e9, "gbytes": nbytes / 1e9,
+                      "tflops": flops / t["ms"] / 1e9})
+        del inputs, y
     torch.cuda.empty_cache()
 
     bad = [c for c in checks if not c["ok"]]
@@ -263,13 +452,13 @@ def phase_kernels(state):
           "timing": "CUDA events around repeated launches after a warm-up, "
                     "kernel, plain and library call in turns, least of 2 rounds",
           "n_checks": len(checks), "n_failed": len(bad), "checks": checks,
-          "timed": timed})
+          "timed": timed, "gpu": state["smi"]})
     require(not bad, f"kernels disagree with their plain versions: {bad}")
     state["timed"] = timed
     state["worst_err"] = {
         name: max(c["max_abs_err"] for c in checks
                   if c["kernel"] == name and c["dtype"] == str(bf16))
-        for name in ("rmsnorm", "flash_attention")}
+        for name in KERNELS}
 
 
 def numpy_weights(model, seed):
@@ -298,7 +487,10 @@ def numpy_weights(model, seed):
 
 def phase_parity(state):
     """The card's kernel path against the same model on the CPU (plain
-    versions), float32, deepseek-7b at full width and 2 layers."""
+    versions), float32, each model at full width and cut in depth:
+    deepseek-7b at 2 layers (weights from numpy), rwkv6-7b at 2 layers and
+    zamba2-7b at 6 (one group of Mamba2 blocks and one shared attention
+    block; weights drawn on the card by the model's own init)."""
     from dataclasses import replace
     from repro_torch.configs import RunConfig, get_arch
     from repro_torch.convert import params_from_numpy
@@ -307,50 +499,85 @@ def phase_parity(state):
     # full float32 products on the card, said and set
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = replace(get_arch("deepseek-7b"), n_layers=2)
     run = RunConfig(param_dtype="float32", compute_dtype="float32",
                     attn_impl="kernel")
     B, S = 2, 256
-    cpu = Model(cfg, run, device="cpu")
-    tree = numpy_weights(cpu, state["seed"])
-    params_from_numpy(tree, cpu)
-    gpu = params_from_numpy(tree, Model(cfg, run))
-    del tree
-    tokens = np.random.default_rng(state["seed"] + 1).integers(
-        0, cfg.vocab_size, size=(B, S))
-    t0 = time.monotonic()
-    want = cpu.forward({"tokens": tokens})
-    cpu_s = time.monotonic() - t0
-    got = gpu.forward({"tokens": tokens}).cpu()
-    err = float((got - want).abs().max())
     gate = 1e-3
-    emit({"phase": "parity", "arch": cfg.name, "n_layers": cfg.n_layers,
-          "cut": "depth 30 -> 2; width and vocabulary full", "dtype": "float32",
-          "allow_tf32": False, "batch": B, "seq": S,
-          "logits_max_abs_err": err, "logits_max_abs": float(want.abs().max()),
-          "gate": gate,
-          "gate_reason": "same float32 arithmetic, sums over d=4096 and "
-                         "ff=11008 taken in another order on the card",
-          "cpu_forward_seconds": cpu_s})
-    require(bool(torch.isfinite(got).all()), "parity: logits not finite")
-    require(err < gate, f"parity: logits differ by {err} (gate {gate})")
-    del cpu, gpu, got, want
-    gc.collect()
-    torch.cuda.empty_cache()
+    for arch, n_layers, cut in (
+            ("deepseek-7b", 2, "depth 30 -> 2; width and vocabulary full"),
+            ("rwkv6-7b", 2, "depth 32 -> 2; width and vocabulary full"),
+            ("zamba2-7b", 6, "depth 81 -> 6: one group of 6 Mamba2 blocks and "
+                             "one shared attention block; width and "
+                             "vocabulary full")):
+        cfg = replace(get_arch(arch), n_layers=n_layers)
+        cpu = Model(cfg, run, device="cpu")
+        if arch == "deepseek-7b":
+            tree = numpy_weights(cpu, state["seed"])
+            params_from_numpy(tree, cpu)
+            gpu = params_from_numpy(tree, Model(cfg, run))
+            del tree
+        else:
+            gpu = Model(cfg, run).init(seed=state["seed"])
+            cpu.load_state_dict(gpu.state_dict())
+        tokens = np.random.default_rng(state["seed"] + 1).integers(
+            0, cfg.vocab_size, size=(B, S))
+        t0 = time.monotonic()
+        want = cpu.forward({"tokens": tokens})
+        cpu_s = time.monotonic() - t0
+        reset_counts()
+        got_gpu = gpu.forward({"tokens": tokens})
+        got = got_gpu.cpu()
+        counts = read_counts()
+        err = float((got - want).abs().max())
+        decode_errs = []
+        if cfg.family != "dense":
+            # the decode path (wkv6 at S=1 with the state in place; Mamba2's
+            # carried window and state) against the card's own forward, at
+            # the reference's gate (tests/test_models.py)
+            caches = gpu.init_caches(B, S)
+            for t in range(8):
+                lg, caches = gpu.decode_step({"tokens": tokens[:, t:t + 1]}, caches)
+                decode_errs.append(float((lg[:, 0] - got_gpu[:, t]).abs().max()))
+            del caches
+        decode_gate = 5e-4
+        emit({"phase": "parity", "arch": cfg.name, "n_layers": cfg.n_layers,
+              "cut": cut, "dtype": "float32", "allow_tf32": False, "batch": B,
+              "seq": S, "logits_max_abs_err": err,
+              "logits_max_abs": float(want.abs().max()), "gate": gate,
+              "gate_reason": "same float32 arithmetic, sums over the width and "
+                             "the recurrences taken in another order on the card",
+              "decode_vs_forward_max_abs_err": decode_errs,
+              "decode_gate": decode_gate,
+              "launches": counts, "cpu_forward_seconds": cpu_s})
+        require(bool(torch.isfinite(got).all()), f"parity {arch}: logits not finite")
+        require(err < gate, f"parity {arch}: logits differ by {err} (gate {gate})")
+        require(all(e < decode_gate for e in decode_errs),
+                f"parity {arch}: decode vs forward {decode_errs} (gate {decode_gate})")
+        require(all(counts[name] > 0 for name in KERNELS
+                    if PER_CALL[arch][name] > 0),
+                f"parity {arch}: a kernel of the path was not launched: {counts}")
+        del cpu, gpu, got, got_gpu, want
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def reset_counts():
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rmsnorm import rmsnorm
-    rmsnorm.launches = 0
-    flash_attention.launches = 0
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv6 import wkv6
+    for fn in (rmsnorm, flash_attention, wkv6, ssd):
+        fn.launches = 0
 
 
 def read_counts():
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv6 import wkv6
     return {"rmsnorm": rmsnorm.launches,
-            "flash_attention": flash_attention.launches}
+            "flash_attention": flash_attention.launches,
+            "wkv6": wkv6.launches, "ssd": ssd.launches}
 
 
 def timed_call(fn):
@@ -361,126 +588,192 @@ def timed_call(fn):
     return out, (time.monotonic() - t0) * 1e3
 
 
-def phase_prefill(state):
-    """deepseek-7b, full width and depth, bfloat16: forward, prefill and
-    decode_step through the kernels, held against each other."""
-    from repro_torch.configs import RunConfig, get_arch
-    from repro_torch.models.model import build_model
+def leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in leaves(v)]
+    return [tree]
 
-    cfg = get_arch("deepseek-7b")
-    require(cfg.n_layers == N_LAYERS, "deepseek-7b depth changed")
+
+def prefill_path(state, arch):
+    """One model at full width and depth, bfloat16: forward, prefill and
+    decode_step through the kernels, held against each other, with the
+    kernels' launches counted and asserted."""
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.models.model import Model, build_model
+
+    cfg = get_arch(arch)
+    require(cfg.n_layers == N_LAYERS[arch], f"{arch} depth changed")
     run = RunConfig(param_dtype="bfloat16", compute_dtype="bfloat16",
                     attn_impl="kernel")
     B, S, max_len, n_decode = 4, 2048, 2304, 8
+    per_call, per_step = PER_CALL[arch], PER_STEP[arch]
     torch.cuda.reset_peak_memory_stats()
     model, init_ms = timed_call(lambda: build_model(cfg, run, seed=state["seed"]))
     tokens = torch.from_numpy(np.random.default_rng(state["seed"] + 2).integers(
         0, cfg.vocab_size, size=(B, S)))
     model.forward({"tokens": tokens[:, :64]})        # warm-up of the libraries
 
-    launches = {"rmsnorm": 0, "flash_attention": 0}
+    launches = dict.fromkeys(KERNELS, 0)
 
     def counted(fn, want):
         reset_counts()
         out, ms = timed_call(fn)
         got = read_counts()
-        require(got == want, f"launch counts {got}, expected {want}")
+        require(got == want, f"{arch}: launch counts {got}, expected {want}")
         for name in launches:
             launches[name] += got[name]
         return out, ms
 
-    per_call = {"rmsnorm": NORMS_PER_CALL, "flash_attention": N_LAYERS}
     lg_f, forward_ms = counted(lambda: model.forward({"tokens": tokens}), per_call)
+    require(lg_f.shape == (B, S, model.padded_vocab), f"forward shape {lg_f.shape}")
+    require(bool(torch.isfinite(lg_f).all()), f"{arch} forward: logits not finite")
     last_f = lg_f[:, -1].float()
-    require(lg_f.shape == (B, S, cfg.vocab_size), f"forward shape {lg_f.shape}")
-    require(bool(torch.isfinite(lg_f).all()), "forward: logits not finite")
+    head_f = lg_f[:, :n_decode].float()
+    logits_max_abs = float(lg_f.abs().max())
     del lg_f
     (lg_p, caches), prefill_ms = counted(
         lambda: model.prefill({"tokens": tokens}, max_len), per_call)
-    require(lg_p.shape == (B, 1, cfg.vocab_size), f"prefill shape {lg_p.shape}")
-    require(caches["k"].shape == (N_LAYERS, B, max_len, cfg.n_kv_heads, cfg.d_head),
-            f"cache shape {caches['k'].shape}")
+    require(lg_p.shape == (B, 1, model.padded_vocab), f"prefill shape {lg_p.shape}")
     prefill_err = float((lg_p[:, 0].float() - last_f).abs().max())
 
     # bfloat16 keeps 8 bits: a logit of size 4 moves by 0.016 a rounding, and
-    # the decode path rounds at other places than the sequence path (softmax
-    # weights in bfloat16 before PV, other shapes of matrix product) through
-    # 30 layers. The gate is on the largest of 4 x 102400 logits.
+    # the decode path rounds at other places than the sequence path (other
+    # shapes of matrix product; for deepseek-7b the softmax weights in
+    # bfloat16 before PV) through every layer. The gate is on the largest of
+    # 4 x vocabulary logits.
     gate = 0.25
-    seq = tokens.to(model.device)
-    nxt = last_f.argmax(-1, keepdim=True)
     decode_errs, decode_ms, agree = [], [], []
-    for _ in range(n_decode):
-        seq = torch.cat([seq, nxt], dim=1)
-        (lg_d, caches), ms = counted(
-            lambda: model.decode_step({"tokens": nxt}, caches),
-            {"rmsnorm": NORMS_PER_CALL, "flash_attention": 0})
-        decode_ms.append(ms)
-        ref = model.forward({"tokens": seq})[:, -1].float()
-        got = lg_d[:, 0].float()
-        require(bool(torch.isfinite(got).all()), "decode: logits not finite")
-        decode_errs.append(float((got - ref).abs().max()))
-        agree.append(float((got.argmax(-1) == ref.argmax(-1)).float().mean()))
-        nxt = ref.argmax(-1, keepdim=True)
+    if cfg.family == "dense":
+        require(caches["k"].shape == (cfg.n_layers, B, max_len, cfg.n_kv_heads,
+                                      cfg.d_head), f"cache shape {caches['k'].shape}")
+        # decode continues the prefill: each step against forward over the
+        # grown sequence
+        seq = tokens.to(model.device)
+        nxt = last_f.argmax(-1, keepdim=True)
+        for _ in range(n_decode):
+            seq = torch.cat([seq, nxt], dim=1)
+            (lg_d, caches), ms = counted(
+                lambda: model.decode_step({"tokens": nxt}, caches), per_step)
+            decode_ms.append(ms)
+            ref = model.forward({"tokens": seq})[:, -1].float()
+            got = lg_d[:, 0].float()
+            require(bool(torch.isfinite(got).all()), f"{arch} decode: logits not finite")
+            decode_errs.append(float((got - ref).abs().max()))
+            agree.append(float((got.argmax(-1) == ref.argmax(-1)).float().mean()))
+            nxt = ref.argmax(-1, keepdim=True)
+        del seq
+    else:
+        # prefill hands back zeroed caches, as the reference's does for this
+        # family; decode feeds the prompt token by token from them (the
+        # engine's teacher forcing), each step against forward's row
+        require(all(float(leaf.abs().max()) == 0.0 for leaf in leaves(caches)),
+                f"{arch}: prefill caches are not zero")
+        for t in range(n_decode):
+            (lg_d, caches), ms = counted(
+                lambda: model.decode_step({"tokens": tokens[:, t:t + 1]}, caches),
+                per_step)
+            decode_ms.append(ms)
+            got, ref = lg_d[:, 0].float(), head_f[:, t]
+            require(bool(torch.isfinite(got).all()), f"{arch} decode: logits not finite")
+            decode_errs.append(float((got - ref).abs().max()))
+            agree.append(float((got.argmax(-1) == ref.argmax(-1)).float().mean()))
     peak = torch.cuda.max_memory_allocated()
-    emit({"phase": "prefill", "arch": cfg.name, "n_layers": cfg.n_layers,
-          "cut": "none", "dtype": "bfloat16", "batch": B, "seq": S,
-          "max_len": max_len, "params": sum(p.numel() for p in model.tree.parameters()),
+    f32_errs, f32_gate = [], 1e-2
+    if cfg.family != "dense":
+        # Random-init RWKV6 amplifies rounding through its depth: at full
+        # depth its two bfloat16 paths (matrix products of other shapes, the
+        # recurrence stepped or chunked) part by more than a bfloat16 logit
+        # rounds, and are no check of each other (recorded above, not
+        # gated). The check is the same weights with float32 arithmetic:
+        # decode against forward over the first tokens. The gate leaves room
+        # for float32 rounding through 32 layers; a wrong path moves logits
+        # by whole units.
+        exact = Model(cfg, run.with_(compute_dtype="float32"))
+        exact.load_state_dict(model.state_dict())
+        del model, caches
+        want = exact.forward({"tokens": tokens[:, :n_decode]}).float()
+        caches = exact.init_caches(B, n_decode)
+        for t in range(n_decode):
+            lg_d, caches = exact.decode_step({"tokens": tokens[:, t:t + 1]}, caches)
+            f32_errs.append(float((lg_d[:, 0] - want[:, t]).abs().max()))
+        model = exact
+        del want
+    emit({"phase": "prefill", "arch": cfg.name, "family": cfg.family,
+          "n_layers": cfg.n_layers, "cut": "none", "dtype": "bfloat16",
+          "batch": B, "seq": S, "max_len": max_len,
+          "params": sum(p.numel() for p in model.tree.parameters()),
           "init_ms": init_ms, "forward_ms": forward_ms, "prefill_ms": prefill_ms,
           "decode_step_ms": decode_ms,
           "prefill_vs_forward_max_abs_err": prefill_err,
           "decode_vs_forward_max_abs_err": decode_errs,
-          "decode_argmax_agreement": agree, "gate": gate,
+          "decode_argmax_agreement": agree, "logits_max_abs": logits_max_abs,
+          "gate": gate,
           "gate_reason": "bfloat16 rounding at other places on the two paths, "
-                         "through 30 layers; largest of 4 x 102400 logits",
-          "launches_per_call": per_call,
-          "launches_per_decode_step": {"rmsnorm": NORMS_PER_CALL, "flash_attention": 0},
+                         "through every layer; largest of 4 x vocabulary logits"
+                         + ("" if cfg.family == "dense" else
+                            "; gates prefill only: decode is gated in float32"),
+          "f32_decode_vs_forward_max_abs_err": f32_errs, "f32_gate": f32_gate,
+          "launches_per_call": per_call, "launches_per_decode_step": per_step,
           "launches": dict(launches),
           "peak_memory_bytes": peak, "gpu": state["smi"]})
-    require(prefill_err < gate, f"prefill vs forward {prefill_err} (gate {gate})")
-    require(max(decode_errs) < gate,
-            f"decode vs forward {max(decode_errs)} (gate {gate})")
-    state["launches"] = launches
-    del model, caches, seq
+    require(prefill_err < gate, f"{arch} prefill vs forward {prefill_err} (gate {gate})")
+    if cfg.family == "dense":
+        require(max(decode_errs) < gate,
+                f"{arch} decode vs forward {max(decode_errs)} (gate {gate})")
+    else:
+        require(max(f32_errs) < f32_gate,
+                f"{arch} float32 decode vs forward {f32_errs} (gate {f32_gate})")
+    for name in launches:
+        state["launches"][name] += launches[name]
+    del model, caches, last_f, head_f
     gc.collect()
     torch.cuda.empty_cache()
 
 
-def phase_serve(state):
-    """The command line a user would call, deepseek-7b at full size."""
+def phase_prefill(state):
+    for arch in ("deepseek-7b", "rwkv6-7b", "zamba2-7b"):
+        prefill_path(state, arch)
+
+
+def serve_path(state, arch, slots, n_req, prompt_len, max_new, max_len):
+    """The command line a user would call, one model at full size."""
+    from repro_torch.configs import get_arch
     from repro_torch.launch import serve
-    slots, n_req, prompt_len, max_new, max_len = 8, 16, 32, 32, 256
-    argv = ["--arch", "deepseek-7b", "--dtype", "bfloat16",
+    argv = ["--arch", arch, "--dtype", "bfloat16",
             "--slots", str(slots), "--requests", str(n_req),
             "--prompt-len", str(prompt_len), "--max-new", str(max_new),
             "--max-len", str(max_len), "--seed", str(state["seed"])]
+    per_step = PER_STEP[arch]
     reset_counts()
     text = io.StringIO()
     torch.cuda.reset_peak_memory_stats()
     with contextlib.redirect_stdout(text):
         done, wall_ms = timed_call(lambda: serve.main(argv))
     counts = read_counts()
-    require(len(done) == n_req, f"serve: {len(done)} of {n_req} finished")
+    require(len(done) == n_req, f"serve {arch}: {len(done)} of {n_req} finished")
     require(all(len(r.out_tokens) == max_new for r in done),
-            "serve: a request ended short")
-    vocab = 102400
+            f"serve {arch}: a request ended short")
+    vocab = get_arch(arch).vocab_size
     require(all(0 <= t < vocab for r in done for t in r.out_tokens),
-            "serve: token out of range")
-    require(counts["rmsnorm"] > 0 and counts["rmsnorm"] % NORMS_PER_CALL == 0,
-            f"serve: {counts['rmsnorm']} rmsnorm launches, no multiple of "
-            f"{NORMS_PER_CALL}")
-    ticks = counts["rmsnorm"] // NORMS_PER_CALL
-    # two waves of 8 requests, each prompt_len + max_new - 1 ticks long
-    require(ticks == (n_req // slots) * (prompt_len + max_new - 1),
-            f"serve: {ticks} ticks")
+            f"serve {arch}: token out of range")
+    norms = per_step["rmsnorm"]
+    require(counts["rmsnorm"] > 0 and counts["rmsnorm"] % norms == 0,
+            f"serve {arch}: {counts['rmsnorm']} rmsnorm launches, no multiple "
+            f"of {norms}")
+    ticks = counts["rmsnorm"] // norms
+    # waves of `slots` requests, each prompt_len + max_new - 1 ticks long
+    require(ticks == -(-n_req // slots) * (prompt_len + max_new - 1),
+            f"serve {arch}: {ticks} ticks")
+    want = {name: n * ticks for name, n in per_step.items()}
+    require(counts == want, f"serve {arch}: launches {counts}, expected {want}")
     run_s = max(r.finished_at for r in done) - min(r.submitted_at for r in done)
     n_tokens = sum(len(r.out_tokens) for r in done)
-    emit({"phase": "serve", "argv": argv, "requests": len(done),
+    emit({"phase": "serve", "arch": arch, "argv": argv, "requests": len(done),
           "new_tokens": n_tokens, "ticks": ticks,
           "engine_seconds": run_s, "tokens_per_s": n_tokens / run_s,
           "tick_ms": run_s * 1e3 / ticks,
           "with_model_init_ms": wall_ms,
-          "rmsnorm_launches_per_tick": counts["rmsnorm"] / ticks,
+          "launches_per_tick": per_step,
           "launches": counts,
           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
           "stdout": text.getvalue().strip().splitlines(), "gpu": state["smi"]})
@@ -490,9 +783,19 @@ def phase_serve(state):
     torch.cuda.empty_cache()
 
 
+def phase_serve(state):
+    serve_path(state, "deepseek-7b", slots=8, n_req=16, prompt_len=32,
+               max_new=32, max_len=256)
+    # one wave of 8 requests each: every tick of rwkv6-7b launches wkv6
+    serve_path(state, "rwkv6-7b", slots=8, n_req=8, prompt_len=16, max_new=16,
+               max_len=64)
+    serve_path(state, "zamba2-7b", slots=8, n_req=8, prompt_len=16, max_new=16,
+               max_len=64)
+
+
 def kernels_line(state):
-    """One entry for each kernel at the shape deepseek-7b's prefill gives
-    it; `launches` counts the prefill and serve phases."""
+    """One entry for each kernel at the prefill shape of the model that
+    carries it; `launches` counts the prefill and serve phases."""
     meta = {
         "rmsnorm": {"source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
                     "replaces": "src/repro/kernels/rmsnorm.py:28",
@@ -501,11 +804,18 @@ def kernels_line(state):
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:86",
             "shape": [4, 2048, 2048, 32, 32, 128]},
+        "wkv6": {"source": "src/repro_torch/kernels/csrc/wkv6.cu",
+                 "replaces": "src/repro/kernels/wkv6.py:69",
+                 "shape": [4, 2048, 64, 64]},
+        "ssd": {"source": "src/repro_torch/kernels/csrc/ssd.cu",
+                "replaces": "src/repro/kernels/ssd.py:53",
+                "shape": [4, 2048, 112, 64, 64]},
     }
     out = []
+    bf16 = str(torch.bfloat16)
     for name, m in meta.items():
-        t = next(x for x in state["timed"]
-                 if x["name"] == name and x["shape"] == m["shape"])
+        t = next(x for x in state["timed"] if x["name"] == name
+                 and x["shape"] == m["shape"] and x["dtype"] == bf16)
         launches = state["launches"][name]
         require(launches > 0, f"{name}: the main path never launched it")
         out.append({"name": name, "route": "cuda", "source": m["source"],
@@ -537,17 +847,20 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
 
     state = {"seed": args.seed, "verbose": args.verbose, "smi": smi_line(),
-             "launches": {"rmsnorm": 0, "flash_attention": 0}}
+             "launches": dict.fromkeys(KERNELS, 0)}
     run = {"env": phase_env, "kernels": phase_kernels, "parity": phase_parity,
            "prefill": phase_prefill, "serve": phase_serve}
     t0 = time.monotonic()
     for name in PHASES:
         if name in phases:
+            t1 = time.monotonic()
             run[name](state)
+            emit({"phase_done": name, "seconds": time.monotonic() - t1})
     if phases != list(PHASES):
         emit({"ok": False, "partial": phases,
               "seconds": time.monotonic() - t0})
         return 2
+    emit({"seconds": time.monotonic() - t0})
     kernels_line(state)
     print(state["smi"], flush=True)
     emit({"ok": True,

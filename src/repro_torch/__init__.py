@@ -1,10 +1,12 @@
 """PyTorch and CUDA port of the `repro` package, for one NVIDIA H100.
 
-Ported so far: the dense decoder-only family through ``Model.forward``,
-``Model.prefill``, ``Model.decode_step``, ``ServeEngine`` and the
-``launch.serve`` command line, with hand-written CUDA kernels for RMSNorm and
-flash attention. Entry points run on the GPU and raise when there is none;
-pass ``device="cpu"`` to run the plain PyTorch versions on the CPU.
+Ported so far: the dense decoder-only family, RWKV6 (rwkv6-7b) and the
+Zamba2 hybrid (zamba2-7b) through ``Model.forward``, ``Model.prefill``,
+``Model.decode_step``, ``ServeEngine`` and the ``launch.serve`` command line,
+with hand-written CUDA kernels for RMSNorm, flash attention, the RWKV6
+recurrence (wkv6) and the Mamba2 scan (ssd). Entry points run on the GPU and
+raise when there is none; pass ``device="cpu"`` to run the plain PyTorch
+versions on the CPU.
 """
 from __future__ import annotations
 

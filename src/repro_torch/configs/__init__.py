@@ -1,7 +1,8 @@
 """Architecture registry of the PyTorch package: --arch <id> resolves here.
 
-Holds the dense decoder-only architectures. The other families of the JAX
-package (MoE, hybrid, SSM, VLM, audio) join as their models are ported.
+Holds the dense decoder-only architectures, rwkv6-7b (``family == "ssm"``)
+and zamba2-7b (``family == "hybrid"``). The other families of the JAX package
+(MoE, VLM, audio) join as their models are ported.
 """
 from repro_torch.configs.base import (ModelConfig, MoEConfig, MLAConfig,
                                       SSMConfig, HybridConfig, EncDecConfig,
@@ -15,8 +16,11 @@ from repro_torch.configs.mistral_large_123b import CONFIG as _mistral
 from repro_torch.configs.deepseek_7b import CONFIG as _ds7b
 from repro_torch.configs.nemotron_4_15b import CONFIG as _nemotron
 from repro_torch.configs.chatglm3_6b import CONFIG as _chatglm
+from repro_torch.configs.rwkv6_7b import CONFIG as _rwkv
+from repro_torch.configs.zamba2_7b import CONFIG as _zamba2
 
-ARCHS = {c.name: c for c in (_mistral, _ds7b, _nemotron, _chatglm)}
+ARCHS = {c.name: c for c in (_mistral, _ds7b, _nemotron, _chatglm, _rwkv,
+                             _zamba2)}
 
 
 def get_arch(name: str) -> ModelConfig:

@@ -16,7 +16,15 @@ import torch
 
 from repro_torch.models.model import Model
 
-CACHE_LEAVES = ("k", "v", "pos")
+# the cache leaves of each ported family, as paths joined by dots
+CACHE_LEAVES = {
+    "dense": ("k", "v", "pos"),
+    "ssm": ("wkv", "tm_last", "cm_last"),
+    "hybrid": ("mamba.h", "mamba.conv", "attn.k", "attn.v", "attn.pos"),
+}
+# (leaf, its batch axis, leaf whose axis 2 is the cache length or None)
+_CACHE_SIZES = {"dense": ("k", 1, "k"), "ssm": ("wkv", 1, None),
+                "hybrid": ("mamba.h", 2, "attn.k")}
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -91,27 +99,49 @@ def params_to_numpy(model: Model) -> Dict:
                        for path, p in model.state_dict().items()})
 
 
+def _wanted_caches(flat: Mapping, model: Model) -> Dict[str, torch.Tensor]:
+    """The model's caches on the meta device, flattened, at the batch size
+    and cache length that `flat` carries."""
+    family = model.cfg.family
+    _check_leaves("caches", flat, CACHE_LEAVES[family])
+    leaf, b_axis, len_leaf = _CACHE_SIZES[family]
+    shape = np.shape(flat[leaf])
+    if len(shape) <= b_axis:
+        raise ValueError(f"caches: {leaf} has shape {shape}, no batch axis")
+    max_len = 1
+    if len_leaf is not None:
+        len_shape = np.shape(flat[len_leaf])
+        if len(len_shape) < 3:
+            raise ValueError(f"caches: {len_leaf} has shape {len_shape}, no "
+                             f"length axis")
+        max_len = len_shape[2]
+    return flatten_tree(model.init_caches(shape[b_axis], max_len,
+                                          device="meta"))
+
+
 def caches_from_numpy(tree: Mapping, model: Model) -> Dict:
-    """A KV-cache tree of the JAX package ({"k", "v": (L,B,Smax,K,D),
-    "pos": (L,B)}) as the port's caches, on the model's device."""
-    _check_leaves("caches", tree, CACHE_LEAVES)
-    cfg = model.cfg
-    k_shape = tuple(np.shape(tree["k"]))
-    if len(k_shape) != 5 or k_shape[0] != cfg.n_layers or \
-            k_shape[3:] != (cfg.n_kv_heads, cfg.d_head):
-        raise ValueError(f"caches: k has shape {k_shape}, the model wants "
-                         f"({cfg.n_layers}, B, Smax, {cfg.n_kv_heads}, "
-                         f"{cfg.d_head})")
-    if tuple(np.shape(tree["v"])) != k_shape:
-        raise ValueError("caches: v does not match k in shape")
-    if tuple(np.shape(tree["pos"])) != k_shape[:2]:
-        raise ValueError(f"caches: pos has shape {np.shape(tree['pos'])}, "
-                         f"wanted {k_shape[:2]}")
-    return {"k": _to_tensor(tree["k"], model.compute_dtype, model.device),
-            "v": _to_tensor(tree["v"], model.compute_dtype, model.device),
-            "pos": _to_tensor(tree["pos"], torch.int32, model.device)}
+    """A cache tree of the JAX package as the port's caches, on the model's
+    device, in the dtypes the model's own caches have:
+      dense:  {"k", "v": (L,B,Smax,K,D), "pos": (L,B)};
+      ssm:    {"wkv": (L,B,H,K,K) float32, "tm_last", "cm_last": (L,B,d)};
+      hybrid: {"mamba": {"h": (G,P,B,H,N,Pd) float32, "conv": (G,P,B,W-1,C)},
+               "attn": {"k", "v": (G,B,Smax,K,D), "pos": (G,B)}}."""
+    flat = flatten_tree(tree)
+    want = _wanted_caches(flat, model)
+    for path, w in want.items():
+        shape = tuple(np.shape(flat[path]))
+        if shape != tuple(w.shape):
+            raise ValueError(f"caches: leaf {path} has shape {shape}, the "
+                             f"model wants {tuple(w.shape)}")
+    return unflatten_tree({path: _to_tensor(flat[path], w.dtype, model.device)
+                           for path, w in want.items()})
 
 
 def caches_to_numpy(caches: Mapping) -> Dict:
-    _check_leaves("caches", caches, CACHE_LEAVES)
-    return {name: _to_numpy(caches[name]) for name in CACHE_LEAVES}
+    """The port's caches as nested dicts of numpy arrays (bfloat16 leaves
+    come back as float32). The leaves must be those of a ported family."""
+    flat = flatten_tree(caches)
+    if set(flat) not in [set(v) for v in CACHE_LEAVES.values()]:
+        raise KeyError(f"caches: leaves {sorted(flat)} are no ported "
+                       f"family's ({CACHE_LEAVES})")
+    return unflatten_tree({path: _to_numpy(t) for path, t in flat.items()})

@@ -35,6 +35,11 @@
 //    and K and V take turns in one buffer so that two blocks fit on a
 //    multiprocessor, 64 query rows a block.
 //
+// The head dim D is a template parameter: 16, 32, 64, 112 or 128. Every
+// loop over D steps by 16 (bf16 k-steps; 8-column output blocks in pairs) or
+// by 4 (float32), and 112 = 7 x 16, so 112 takes the same code with no
+// padded copy of q, k or v.
+//
 // Neither kernel uses wgmma or TMA yet.
 #include "common.cuh"
 
@@ -613,6 +618,8 @@ extern "C" int rt_flash_attention(
       return launch_head_dim<32>(a, dtype);
     case 64:
       return launch_head_dim<64>(a, dtype);
+    case 112:  // zamba2-7b: 3584 / 32 heads
+      return launch_head_dim<112>(a, dtype);
     case 128:
       return launch_head_dim<128>(a, dtype);
     default:

@@ -42,6 +42,26 @@ def dense_init(generator: Optional[torch.Generator], shape: Sequence[int],
     return w.to(dtype)
 
 
+def normal_init(generator: Optional[torch.Generator], shape: Sequence[int],
+                *, device=None) -> torch.Tensor:
+    """Standard normal draws in float32 (nothing is drawn on the meta
+    device). `generator` lives on `device`."""
+    w = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    if w.device.type != "meta":
+        w.normal_(generator=generator)
+    return w
+
+
+def uniform_init(generator: Optional[torch.Generator], shape: Sequence[int],
+                 low: float, high: float, *, device=None) -> torch.Tensor:
+    """Uniform draws on [low, high) in float32 (nothing is drawn on the meta
+    device). `generator` lives on `device`."""
+    w = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    if w.device.type != "meta":
+        w.uniform_(low, high, generator=generator)
+    return w
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------

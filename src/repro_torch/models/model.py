@@ -1,4 +1,5 @@
-"""Model API of the port, dense decoder-only family.
+"""Model API of the port: the dense decoder-only family, RWKV6
+(``family == "ssm"``) and the Zamba2 hybrid (``family == "hybrid"``).
 
   model = build_model(cfg, run, device="cpu", seed=0)   # device=None: the GPU
   logits = model.forward({"tokens": tokens})
@@ -9,8 +10,10 @@
 (``state_dict()`` keys) are the paths of the JAX package's parameter tree
 joined by dots, and their layouts are the same, layers stacked on a leading
 axis: ``embed``, ``head``, ``norm``, ``layers.ln1``, ``layers.attn.wq``,
-``layers.mlp.gate`` ... Inference only: every entry point runs under
-``torch.no_grad()``.
+``layers.mlp.gate`` ...; for RWKV6 ``layers.wr``, ``layers.cm_k`` ...; for the
+hybrid ``layers.mamba.in_proj`` (groups, then layers in a group) and
+``layers.shared.attn.wq`` (weight sets). Inference only: every entry point
+runs under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -23,7 +26,11 @@ from repro_torch import resolve_device, resolve_dtype
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv as R
+from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
+
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 class ParamTree(nn.Module):
@@ -53,10 +60,10 @@ class Model(nn.Module):
         UNINITIALISED: call `init`, or load weights (`convert.py`,
         `load_state_dict`). device=None is the GPU, and raises without one."""
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP.md, "
-                f"Queue 1); the port holds the dense decoder-only family")
+                f"Queue 1); the port holds the families {PORTED_FAMILIES}")
         self.cfg = cfg
         self.run = run or RunConfig()
         self.device = torch.device(device) if str(device) == "meta" \
@@ -79,7 +86,12 @@ class Model(nn.Module):
         p = {"embed": table, "norm": torch.empty((cfg.d_model,), **kw)}
         if not cfg.tie_embeddings:
             p["head"] = table.clone()
-        p["layers"] = T.init_stack(None, cfg, cfg.n_layers, "dense", **kw)
+        if cfg.family == "dense":
+            p["layers"] = T.init_stack(cfg, cfg.n_layers, "dense", **kw)
+        elif cfg.family == "ssm":
+            p["layers"] = T.init_rwkv_stack(cfg, **kw)
+        else:
+            p["layers"] = T.init_hybrid(cfg, **kw)
         return p
 
     @torch.no_grad()
@@ -101,7 +113,12 @@ class Model(nn.Module):
             params["head"].copy_(L.dense_init(
                 generator, (self.padded_vocab, cfg.d_model),
                 in_axis_size=cfg.d_model, **kw))
-        T.fill_stack(params["layers"], generator, cfg, "dense")
+        if cfg.family == "dense":
+            T.fill_stack(params["layers"], generator, cfg, "dense")
+        elif cfg.family == "ssm":
+            T.fill_rwkv_stack(params["layers"], generator, cfg)
+        else:
+            T.fill_hybrid(params["layers"], generator, cfg)
         return self
 
     @property
@@ -139,27 +156,60 @@ class Model(nn.Module):
         tokens = self._tokens(batch)
         x = self._embed(params, tokens)
         positions = torch.arange(tokens.shape[1], device=self.device)
-        x = T.stack(params["layers"], x, self.cfg, self.run, kind="dense",
-                    positions=positions)
+        cfg, run = self.cfg, self.run
+        if cfg.family == "dense":
+            x = T.stack(params["layers"], x, cfg, run, kind="dense",
+                        positions=positions)
+        elif cfg.family == "ssm":
+            x = T.rwkv_stack(params["layers"], x, cfg, run)
+        else:
+            x = T.hybrid_stack(params["layers"], x, cfg, run,
+                               positions=positions)
         return self._logits(params, x)
 
     # --------------------------------------------------------------- serving
-    def init_caches(self, batch: int, max_len: int) -> Dict:
-        """Zeroed KV caches stacked on a leading layer axis:
-        k, v (L, B, max_len, K, D) in the compute dtype, pos (L, B) int32."""
-        one = A.init_gqa_cache(self.cfg, batch, max_len, self.compute_dtype,
-                               device=self.device,
-                               quant=self.run.kv_cache_dtype == "int8")
-        n = self.cfg.n_layers
-        return {name: a.new_zeros((n, *a.shape)) for name, a in one.items()}
+    def init_caches(self, batch: int, max_len: int, *, device=None) -> Dict:
+        """Zeroed caches on `device` (default: the model's), stacked on a
+        leading layer axis:
+          dense:  k, v (L, B, max_len, K, D) in the compute dtype, pos (L, B)
+                  int32;
+          ssm:    wkv (L, B, H, K, K) float32, tm_last, cm_last (L, B, d);
+          hybrid: {"mamba": {h (G, period, B, H, N, P) float32,
+                   conv (G, period, B, W-1, conv_dim)}, "attn": the dense
+                   tree with G in place of L}."""
+        cfg, dt = self.cfg, self.compute_dtype
+        device = self.device if device is None else device
+
+        def stacked(n, one):
+            return T.tree_map(lambda a: a.new_zeros((n, *a.shape)), one)
+
+        def kv():
+            return A.init_gqa_cache(cfg, batch, max_len, dt, device=device,
+                                    quant=self.run.kv_cache_dtype == "int8")
+
+        if cfg.family == "dense":
+            return stacked(cfg.n_layers, kv())
+        if cfg.family == "ssm":
+            return stacked(cfg.n_layers,
+                           R.init_rwkv_cache(cfg, batch, dt, device=device))
+        G, period = T.hybrid_groups(cfg), cfg.hybrid.period
+        m = SSM.init_mamba2_cache(cfg, batch, dt, device=device)
+        return {"mamba": T.tree_map(
+                    lambda a: a.new_zeros((G, period, *a.shape)), m),
+                "attn": stacked(G, kv())}
 
     @torch.no_grad()
     def prefill(self, batch, max_len: int):
-        """Process a prompt, return (last-position logits (B, 1, V), filled
-        caches)."""
-        params = self.params
+        """Process a prompt, return (last-position logits (B, 1, V), caches).
+        The dense family fills its KV caches. For ssm and hybrid the
+        reference runs `forward` and returns ZEROED caches (its serving
+        engine teacher-forces prompts through `decode_step`), and so does
+        the port."""
         tokens = self._tokens(batch)
         B, S = tokens.shape
+        if self.cfg.family != "dense":
+            return self.forward(batch)[:, -1:], self.init_caches(B, max_len)
+        params = self.params
         x = self._embed(params, tokens)
         positions = torch.arange(S, device=self.device)
         x, (k, v) = T.stack_prefill(params["layers"], x, self.cfg, self.run,
@@ -176,8 +226,16 @@ class Model(nn.Module):
         params = self.params
         tokens = self._tokens(batch)                     # (B, 1)
         x = self._embed(params, tokens)
-        x, caches = T.stack_decode(params["layers"], x, caches, self.cfg,
-                                   self.run, kind="dense")
+        cfg, run = self.cfg, self.run
+        if cfg.family == "dense":
+            x, caches = T.stack_decode(params["layers"], x, caches, cfg, run,
+                                       kind="dense")
+        elif cfg.family == "ssm":
+            x, caches = T.rwkv_stack_decode(params["layers"], x, caches, cfg,
+                                            run)
+        else:
+            x, caches = T.hybrid_stack_decode(params["layers"], x, caches,
+                                              cfg, run)
         return self._logits(params, x), caches
 
 
@@ -191,6 +249,7 @@ def build_model(cfg: ModelConfig, run: Optional[RunConfig] = None, *,
 def analytic_param_count(cfg: ModelConfig, active_only: bool = False) -> int:
     """Exact parameter count from the shapes of the model's parameters on
     the meta device: nothing is allocated. `active_only` counts the
-    parameters one token uses, which for a dense model is all of them."""
+    parameters one token uses, which for every ported family is all of
+    them."""
     model = Model(cfg, RunConfig(), device="meta")
     return sum(p.numel() for p in model.tree.parameters())

@@ -1,8 +1,11 @@
-"""Dense decoder stack over parameters stacked on a leading layer axis.
+"""Layer stacks over parameters stacked on a leading layer axis: the dense
+decoder, the RWKV6 stack and the Zamba2 hybrid (Mamba2 groups with shared
+attention blocks).
 
 Every leaf of a stack's parameters has the layer count as its first
-dimension; the stack is applied by a plain Python loop over that axis, each
-layer reading its slice as a view.
+dimension (the hybrid's Mamba2 leaves: groups, then layers in a group); the
+stack is applied by a plain Python loop over that axis, each layer reading
+its slice as a view. Decode caches are updated in place.
 """
 from __future__ import annotations
 
@@ -13,6 +16,8 @@ import torch
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv as R
+from repro_torch.models import ssm as SSM
 
 
 def _require_dense(kind: str) -> None:
@@ -28,11 +33,14 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def first_leaf(tree) -> torch.Tensor:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
 def n_stacked(params) -> int:
-    leaf = params
-    while isinstance(leaf, dict):
-        leaf = next(iter(leaf.values()))
-    return leaf.shape[0]
+    return first_leaf(params).shape[0]
 
 
 # ---------------------------------------------------------------------------
@@ -110,28 +118,38 @@ def copy_tree(dst, src) -> None:
             dst[name].copy_(value)
 
 
-def fill_stack(stacked, generator, cfg: ModelConfig, kind="dense", d_ff=None):
-    """Draw the blocks of a stack, IN PLACE: layer by layer, so the largest
-    temporary is one layer's parameters."""
-    leaf = stacked["ln1"]
+def fill_stacked(stacked, make):
+    """Draw the layers of a stacked tree IN PLACE, layer by layer, so the
+    largest temporary is one layer's parameters. `make(dtype=, device=)`
+    gives one layer's tree."""
+    leaf = first_leaf(stacked)
     for i in range(leaf.shape[0]):
         copy_tree(tree_map(lambda a: a[i], stacked),
-                  init_block(generator, cfg, kind, d_ff, dtype=leaf.dtype,
-                             device=leaf.device))
+                  make(dtype=leaf.dtype, device=leaf.device))
     return stacked
 
 
-def init_stack(generator, cfg: ModelConfig, n: int, kind="dense", d_ff=None,
-               *, dtype=torch.float32, device=None):
-    """Parameters of n blocks, stacked on a leading axis. On the meta device
-    only the shapes are made."""
-    shapes = init_block(None, cfg, kind, d_ff, dtype=dtype, device="meta")
-    stacked = tree_map(
+def init_stacked(n: int, make, *, dtype=torch.float32, device=None):
+    """UNINITIALISED parameters of n layers of `make(dtype=, device=)`,
+    stacked on a leading axis (on the meta device: the shapes only);
+    `fill_stacked` draws them."""
+    shapes = make(dtype=dtype, device="meta")
+    return tree_map(
         lambda a: torch.empty((n, *a.shape), dtype=dtype, device=device),
         shapes)
-    if torch.device(device or "cpu").type == "meta":
-        return stacked
-    return fill_stack(stacked, generator, cfg, kind, d_ff)
+
+
+def fill_stack(stacked, generator, cfg: ModelConfig, kind="dense", d_ff=None):
+    """Draw the blocks of a stack, IN PLACE."""
+    return fill_stacked(stacked, lambda **kw: init_block(generator, cfg, kind,
+                                                         d_ff, **kw))
+
+
+def init_stack(cfg: ModelConfig, n: int, kind="dense", d_ff=None, *,
+               dtype=torch.float32, device=None):
+    """Uninitialised parameters of n blocks, stacked on a leading axis."""
+    return init_stacked(n, lambda **kw: init_block(None, cfg, kind, d_ff, **kw),
+                        dtype=dtype, device=device)
 
 
 def stack(params, x, cfg, run, *, kind="dense", positions=None, causal=True):
@@ -171,3 +189,127 @@ def stack_prefill(params, x, cfg, run, *, kind="dense", positions=None,
         ks[i].copy_(k)
         vs[i].copy_(v)
     return x, (ks, vs)
+
+
+# ---------------------------------------------------------------------------
+# RWKV stack
+# ---------------------------------------------------------------------------
+
+
+def init_rwkv_layer(generator, cfg: ModelConfig, *, dtype=torch.float32,
+                    device=None):
+    p = R.init_rwkv6(generator, cfg, dtype=dtype, device=device)
+    p["ln1"] = torch.ones((cfg.d_model,), dtype=dtype, device=device)
+    p["ln2"] = torch.ones((cfg.d_model,), dtype=dtype, device=device)
+    return p
+
+
+def init_rwkv_stack(cfg: ModelConfig, *, dtype=torch.float32, device=None):
+    """Uninitialised parameters of the RWKV6 stack."""
+    return init_stacked(cfg.n_layers,
+                        lambda **kw: init_rwkv_layer(None, cfg, **kw),
+                        dtype=dtype, device=device)
+
+
+def fill_rwkv_stack(stacked, generator, cfg: ModelConfig):
+    return fill_stacked(stacked,
+                        lambda **kw: init_rwkv_layer(generator, cfg, **kw))
+
+
+def _norms(lp):
+    return {"ln1": lp["ln1"], "ln2": lp["ln2"]}
+
+
+def rwkv_stack(params, x, cfg, run):
+    for i in range(n_stacked(params)):
+        lp = tree_map(lambda a: a[i], params)
+        x = R.rwkv_block(lp, x, cfg, run, _norms(lp))
+    return x
+
+
+def rwkv_stack_decode(params, x, caches, cfg, run):
+    """One token through the stack; caches {"wkv", "tm_last", "cm_last"}
+    stacked on axis 0 are updated in place and handed back."""
+    for i in range(n_stacked(params)):
+        lp = tree_map(lambda a: a[i], params)
+        x, _ = R.rwkv_block_decode(lp, x, tree_map(lambda a: a[i], caches),
+                                   cfg, run, _norms(lp))
+    return x, caches
+
+
+# ---------------------------------------------------------------------------
+# Zamba2 hybrid stack: groups of `period` Mamba2 blocks + a shared attention
+# block (n_shared_sets alternating weight sets: group g uses set g % n_sets,
+# true weight sharing across depth).
+# ---------------------------------------------------------------------------
+
+
+def hybrid_groups(cfg: ModelConfig) -> int:
+    return max(1, cfg.n_layers // cfg.hybrid.period)
+
+
+def init_mamba_layer(generator, cfg: ModelConfig, *, dtype=torch.float32,
+                     device=None):
+    p = SSM.init_mamba2(generator, cfg, dtype=dtype, device=device)
+    p["ln"] = torch.ones((cfg.d_model,), dtype=dtype, device=device)
+    return p
+
+
+def _shared_d_ff(cfg: ModelConfig) -> int:
+    return cfg.hybrid.shared_d_ff or cfg.d_ff
+
+
+def init_hybrid(cfg: ModelConfig, *, dtype=torch.float32, device=None):
+    """Uninitialised parameters of the hybrid stack: {"mamba": leaves
+    (G, period, ...), "shared": leaves (n_sets, ...)}."""
+    hy = cfg.hybrid
+    G = hybrid_groups(cfg)
+    mamba = init_stacked(G * hy.period,
+                         lambda **kw: init_mamba_layer(None, cfg, **kw),
+                         dtype=dtype, device=device)
+    mamba = tree_map(lambda a: a.reshape(G, hy.period, *a.shape[1:]), mamba)
+    shared = init_stack(cfg, hy.n_shared_sets, "dense", _shared_d_ff(cfg),
+                        dtype=dtype, device=device)
+    return {"mamba": mamba, "shared": shared}
+
+
+def fill_hybrid(params, generator, cfg: ModelConfig):
+    """Draw a hybrid stack's parameters IN PLACE."""
+    flat = tree_map(lambda a: a.view(-1, *a.shape[2:]), params["mamba"])
+    fill_stacked(flat, lambda **kw: init_mamba_layer(generator, cfg, **kw))
+    fill_stack(params["shared"], generator, cfg, "dense", _shared_d_ff(cfg))
+    return params
+
+
+def hybrid_stack(params, x, cfg, run, *, positions=None):
+    mamba, shared = params["mamba"], params["shared"]
+    G, period = first_leaf(mamba).shape[:2]
+    n_sets = n_stacked(shared)
+    for g in range(G):
+        for i in range(period):
+            lp = tree_map(lambda a: a[g, i], mamba)
+            x = x + SSM.mamba2(lp, L.rms_norm(x, lp["ln"], cfg.norm_eps),
+                               cfg, run)
+        x = block(tree_map(lambda a: a[g % n_sets], shared), x, cfg, run,
+                  kind="dense", positions=positions)
+    return x
+
+
+def hybrid_stack_decode(params, x, caches, cfg, run):
+    """caches: {"mamba": (G, period, ...) Mamba2 caches, "attn": (G, ...) KV
+    caches}, updated in place and handed back."""
+    mamba, shared = params["mamba"], params["shared"]
+    G, period = first_leaf(mamba).shape[:2]
+    n_sets = n_stacked(shared)
+    for g in range(G):
+        for i in range(period):
+            lp = tree_map(lambda a: a[g, i], mamba)
+            y, _ = SSM.mamba2_decode(
+                lp, L.rms_norm(x, lp["ln"], cfg.norm_eps),
+                tree_map(lambda a: a[g, i], caches["mamba"]), cfg, run)
+            x = x + y
+        x, new = block_decode(tree_map(lambda a: a[g % n_sets], shared), x,
+                              tree_map(lambda a: a[g], caches["attn"]), cfg,
+                              run, kind="dense")
+        caches["attn"]["pos"][g].copy_(new["pos"])
+    return x, caches

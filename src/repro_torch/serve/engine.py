@@ -110,13 +110,18 @@ class ServeEngine:
 
 
 # base rank of each cache leaf kind; batch axis = ndim - base_rank
-_BATCH_RANK = {"k": 4, "v": 4, "pos": 1}
+_BATCH_RANK = {"k": 4, "v": 4, "ckv": 3, "kr": 3, "pos": 1,
+               "h": 4, "conv": 3, "wkv": 4, "tm_last": 2, "cm_last": 2}
 
 
 def _reset_slot(caches: Dict, slot: int) -> Dict:
-    """Zero one slot's state across all (stacked) cache leaves, IN PLACE:
-    per-row `pos` goes to 0 so stale KV beyond it is never attended."""
+    """Zero one slot's state across all (stacked, nested) cache leaves, IN
+    PLACE: per-row `pos` goes to 0 so stale KV beyond it is never attended;
+    recurrent states (wkv, h, conv, tm_last, cm_last) are cleared."""
     for name, leaf in caches.items():
+        if isinstance(leaf, dict):
+            _reset_slot(leaf, slot)
+            continue
         rank = _BATCH_RANK.get(name)
         if rank is None or leaf.dim() < rank:
             continue

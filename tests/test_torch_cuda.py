@@ -12,11 +12,15 @@ from repro_torch.configs import RunConfig, get_arch
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+from repro_torch.kernels.ssd import TILE, ssd, ssd_plain
+from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
 from repro_torch.models import Model
 
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# wkv6 in float32: the chunked recurrence re-associated (tests/test_kernels.py)
+WKV_TOL = {torch.float32: (1e-4, 5e-4), torch.bfloat16: (2e-2, 2e-2)}
 
 
 @pytest.fixture
@@ -40,7 +44,7 @@ def assert_close(got, want, dtype):
 
 @pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D", [
     (1, 32, 32, 2, 2, 16), (2, 64, 64, 4, 2, 32), (1, 96, 48, 4, 1, 64),
-    (2, 33, 65, 2, 2, 16), (1, 200, 130, 8, 2, 128)])
+    (2, 33, 65, 2, 2, 16), (1, 200, 130, 8, 2, 128), (2, 150, 150, 4, 2, 112)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel(card, B, Sq, Sk, H, Hkv, D, causal, dtype):
@@ -86,6 +90,131 @@ def test_rmsnorm_kernel(card, shape, dtype, residual, scale_dtype):
     assert rmsnorm.launches == before + 1
     assert got.dtype == dtype and got.shape == x.shape
     assert_close(got, rmsnorm_plain(x, sc, residual=r), dtype)
+
+
+@pytest.mark.parametrize("B,S,H,K", [(1, 16, 1, 8), (2, 40, 3, 16),
+                                     (1, 33, 2, 32), (2, 100, 4, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_wkv6_kernel(card, B, S, H, K, dtype, with_state):
+    r, k, v = (randn(card, 10 + i, (B, S, H, K), dtype) for i in range(3))
+    lw = -torch.exp(randn(card, 13, (B, S, H, K), torch.float32))
+    u = 0.3 * randn(card, 14, (H, K), torch.float32)
+    state = randn(card, 15, (B, H, K, K), torch.float32) if with_state else None
+    before = wkv6.launches
+    y, st = wkv6(r, k, v, lw, u, state=state)
+    assert wkv6.launches == before + 1
+    want_y, want_st = wkv6_plain(r, k, v, lw, u, state=state)
+    atol, rtol = WKV_TOL[dtype]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, want_y, atol=atol, rtol=rtol)
+    torch.testing.assert_close(st, want_st, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_decode_step_in_place(card, dtype):
+    """S = 1 with the state read and written in place, as every decode step
+    of rwkv6 does with its cache; then a strided (B, S, H, K) view."""
+    B, H, K = 8, 4, 64
+    r, k, v = (randn(card, 20 + i, (B, 1, H, K), dtype) for i in range(3))
+    lw = -torch.exp(randn(card, 23, (B, 1, H, K), torch.float32))
+    u = 0.3 * randn(card, 24, (H, K), torch.float32)
+    state = randn(card, 25, (B, H, K, K), torch.float32)
+    want_y, want_st = wkv6_plain(r, k, v, lw, u, state=state.clone())
+    y, st = wkv6(r, k, v, lw, u, state=state, state_out=state)
+    assert st is state
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, want_y, atol=1e-4, rtol=5e-4)
+    torch.testing.assert_close(state, want_st, atol=1e-4, rtol=5e-4)
+    rkv = randn(card, 26, (2, 30, 3, H, K), dtype)      # fused r, k, v
+    lw = -torch.exp(randn(card, 27, (2, 30, H, K), torch.float32))
+    parts = rkv[:, :, 0], rkv[:, :, 1], rkv[:, :, 2]
+    assert not parts[0].is_contiguous()
+    y, st = wkv6(*parts, lw, u)
+    want_y, want_st = wkv6_plain(*parts, lw, u)
+    atol, rtol = WKV_TOL[dtype]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, want_y, atol=atol, rtol=rtol)
+    torch.testing.assert_close(st, want_st, atol=1e-3, rtol=1e-3)
+
+
+def ssd_inputs(card, B, S, H, P, N, dtype, seed=0):
+    """The reference test's distributions up to one tile; past it, mamba2's
+    (dt = softplus(proj + dt_bias) small, A from -1 to -16): with the
+    reference's over hundreds of rows y becomes a sum of terms of a few
+    hundred that cancel, and float32 rounding alone passes 2e-5."""
+    xs = randn(card, seed, (B, S, H, P), dtype)
+    if S > TILE:
+        dt = torch.nn.functional.softplus(
+            0.5 * randn(card, seed + 1, (B, S, H), torch.float32) - 4.0)
+        A = -torch.linspace(1.0, 16.0, H, device=card)
+    else:
+        dt = torch.nn.functional.softplus(
+            randn(card, seed + 1, (B, S, H), torch.float32))
+        A = -torch.exp(randn(card, seed + 2, (H,), torch.float32))
+    Bm = randn(card, seed + 3, (B, S, H, N), dtype)
+    Cm = randn(card, seed + 4, (B, S, H, N), dtype)
+    return xs, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("B,S,H,P,N", [(1, 32, 2, 16, 8), (2, 50, 3, 8, 16),
+                                       (1, 16, 1, 32, 4), (2, 200, 4, 64, 64),
+                                       (1, 1, 2, 64, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel(card, B, S, H, P, N, dtype):
+    xs, dt, A, Bm, Cm = ssd_inputs(card, B, S, H, P, N, dtype)
+    before = ssd.launches
+    got, none = ssd(xs, dt, A, Bm, Cm, chunk=256)
+    assert ssd.launches == before + 1 and none is None
+    # against the plain version over the kernel's tile, so that both sum the
+    # decay over the same rows: over 200 rows the running sum of dt * A
+    # reaches a few hundred and its float32 rounding alone moves y by ~1e-4
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ssd_plain(xs, dt, A, Bm, Cm, chunk=TILE)[0],
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_reads_one_group_expanded(card, dtype):
+    """Bm / Cm of one group as expand()ed views (zero head stride), as
+    mamba2 hands them over, against the repeated tensors."""
+    B, S, H, P, N = 2, 130, 6, 64, 64
+    xs, dt, A, _, _ = ssd_inputs(card, B, S, H, P, N, dtype, seed=30)
+    bg, cg = (randn(card, 40 + i, (B, S, 1, N), dtype) for i in range(2))
+    Bx, Cx = bg.expand(B, S, H, N), cg.expand(B, S, H, N)
+    assert Bx.stride(2) == 0
+    got, _ = ssd(xs, dt, A, Bx, Cx)
+    want, _ = ssd_plain(xs, dt, A, Bx.contiguous(), Cx.contiguous(), chunk=TILE)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b"])
+def test_recurrent_models_kernel_path_matches_plain_path(card, arch):
+    """Reduced rwkv6-7b / zamba2-7b, float32: the card's kernels against
+    the plain path on the card and the model on the CPU, forward and
+    decode."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(arch).reduced()
+    run = RunConfig(param_dtype="float32", compute_dtype="float32")
+    gpu = Model(cfg, run).init(seed=0)
+    cpu = Model(cfg, run, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    full = Model(cfg, run.with_(attn_impl="full"))
+    full.load_state_dict(gpu.state_dict())
+    toks = np.random.default_rng(9).integers(0, cfg.vocab_size, size=(2, 40))
+    got = gpu.forward({"tokens": toks})
+    torch.testing.assert_close(got, full.forward({"tokens": toks}),
+                               atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got.cpu(), cpu.forward({"tokens": toks}),
+                               atol=1e-4, rtol=1e-4)
+    caches = gpu.init_caches(2, 48)
+    steps = []
+    for t in range(8):
+        lg, caches = gpu.decode_step({"tokens": toks[:, t:t + 1]}, caches)
+        steps.append(lg[:, 0])
+    ref = gpu.forward({"tokens": toks[:, :8]})
+    assert float((torch.stack(steps, 1) - ref).abs().max()) < 5e-4
 
 
 def test_model_kernel_path_matches_plain_path(card):

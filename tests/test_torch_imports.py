@@ -31,6 +31,10 @@ def test_sources_are_found():
     assert {"src/repro_torch/models/model.py",
             "src/repro_torch/kernels/rmsnorm.py",
             "src/repro_torch/kernels/flash_attention.py",
+            "src/repro_torch/kernels/wkv6.py",
+            "src/repro_torch/kernels/ssd.py",
+            "src/repro_torch/models/rwkv.py",
+            "src/repro_torch/models/ssm.py",
             "src/repro_torch/serve/engine.py",
             "src/repro_torch/launch/serve.py", "chip_smoke.py"} <= names
 
@@ -91,7 +95,8 @@ def test_chip_smoke_swallows_no_failure():
 
 def test_kernel_wrappers_have_no_fallback():
     """On a CUDA tensor a wrapper launches its kernel or raises."""
-    for name in ("rmsnorm.py", "flash_attention.py", "build.py"):
+    for name in ("rmsnorm.py", "flash_attention.py", "wkv6.py", "ssd.py",
+                 "build.py"):
         tree = ast.parse((PACKAGE / "kernels" / name).read_text())
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], name
 

@@ -121,7 +121,8 @@ def test_kernel_package_imports_without_nvcc_or_card(monkeypatch):
     import repro_torch.kernels  # noqa: F401
     assert build._lib is None
     assert {p.name for p in build.sources()} == {"rmsnorm.cu",
-                                                 "flash_attention.cu"}
+                                                 "flash_attention.cu",
+                                                 "wkv6.cu", "ssd.cu"}
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.delenv("CUDA_PATH", raising=False)
     monkeypatch.setattr(build.shutil, "which", lambda name: None)

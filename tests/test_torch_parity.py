@@ -37,6 +37,14 @@ def numpy_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
+def layer_of(tree, *index):
+    """One layer of a stacked JAX parameter tree, as (numpy tree, torch
+    tree of float32 tensors)."""
+    np_tree = jax.tree.map(lambda a: np.asarray(a)[index], tree)
+    return np_tree, jax.tree.map(lambda a: torch.from_numpy(np.array(a)),
+                                 np_tree)
+
+
 def jax_run(attn_impl: str = "pallas") -> JRunConfig:
     return JRunConfig(attn_impl=attn_impl, remat="nothing",
                       compute_dtype="float32", attn_block_q=16,
