@@ -243,7 +243,10 @@ def phase_kernels(state):
 
     checks = []
     # --- the reference's test grid -----------------------------------------
-    for (B, Sq, Skv, H, Hkv, D) in ATTN_GRID + [(2, 150, 150, 4, 2, 112)]:
+    # + ragged 128-row tiles of the bf16 kernel, Sq > Skv and a single query row
+    for (B, Sq, Skv, H, Hkv, D) in ATTN_GRID + [(2, 150, 150, 4, 2, 112),
+                                                (1, 200, 130, 8, 2, 128),
+                                                (2, 1, 300, 4, 1, 128)]:
         for causal in (True, False):
             for dtype in (torch.float32, torch.bfloat16):
                 q, k, v = (randn((B, Sq, H, D), dtype),
@@ -377,7 +380,8 @@ def phase_kernels(state):
         bnd, by, nbytes = norm_bound(rows, d, bf16, bf16)
         timed.append({"name": "rmsnorm", "shape": [rows, d], "dtype": str(bf16),
                       "max_abs_err": err, **t, "bound_ms": bnd,
-                      "bound_by": by, "gbytes_per_s": nbytes / t["ms"] / 1e6})
+                      "bound_by": by, "share_of_bound": bnd / t["ms"],
+                      "gbytes_per_s": nbytes / t["ms"] / 1e6})
         del x, got
     B, S = 4, 2048
     # deepseek-7b (D=128, three kv-head counts) and zamba2-7b (D=112)
@@ -397,11 +401,12 @@ def phase_kernels(state):
             "plain_ms": lambda: flash_attention_plain(q, k, v, causal=True),
             "library_ms": lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=Hkv != H),
-        }, iters=5)
+        }, iters=20)       # steady enough to compare with SDPA
         bnd, by, flops = attn_bound(B, S, S, H, Hkv, D, True, bf16)
         timed.append({"name": "flash_attention", "shape": [B, S, S, H, Hkv, D],
                       "causal": True, "dtype": str(bf16), "max_abs_err": err,
                       **t, "bound_ms": bnd, "bound_by": by,
+                      "share_of_bound": bnd / t["ms"],
                       "tflops": flops / t["ms"] / 1e9})
         del q, k, v, qt, kt, vt, got
     # wkv6 at rwkv6-7b's prefill (B=4, S=2048, H=64, K=64) and decode step
@@ -423,6 +428,7 @@ def phase_kernels(state):
         timed.append({"name": "wkv6", "shape": [B, S, H, K], "dtype": str(dtype),
                       "state_in_place": with_state, "max_abs_err": err, **t,
                       "library_ms": None, "bound_ms": bnd, "bound_by": by,
+                      "share_of_bound": bnd / t["ms"],
                       "gflop": flops / 1e9, "gbytes": nbytes / 1e9,
                       "tflops": flops / t["ms"] / 1e9})
         del r, k, v, lw, y, st, st0, st_out
@@ -441,6 +447,7 @@ def phase_kernels(state):
         timed.append({"name": "ssd", "shape": [B, S, H, P, N], "dtype": str(dtype),
                       "tile": TILE, "plain_chunk": 256, "max_abs_err": err, **t,
                       "library_ms": None, "bound_ms": bnd, "bound_by": by,
+                      "share_of_bound": bnd / t["ms"],
                       "gflop": flops / 1e9, "gbytes": nbytes / 1e9,
                       "tflops": flops / t["ms"] / 1e9})
         del inputs, y

@@ -136,7 +136,8 @@ def check(code: int, name: str) -> None:
     if code == 0:
         return
     if code < 0:
-        what = {-1: "unsupported dtype", -2: "unsupported shape"}.get(
+        what = {-1: "unsupported dtype", -2: "unsupported shape",
+                -3: "no TMA tensor map for this layout"}.get(
             code, "rejected arguments")
         raise KernelLaunchError(f"{name}: {what} (code {code})")
     raise KernelLaunchError(

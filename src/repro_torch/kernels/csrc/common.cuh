@@ -16,6 +16,8 @@ constexpr int kBFloat16 = 1;
 // own codes are positive, so these are negative.
 constexpr int kBadDtype = -1;
 constexpr int kBadShape = -2;
+// cuTensorMapEncodeTiled is missing or refused the tensor's layout.
+constexpr int kNoTensorMap = -3;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {

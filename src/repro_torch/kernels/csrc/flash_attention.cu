@@ -3,45 +3,49 @@
 //
 //   q (B, Sq, H, D), k and v (B, Skv, Hkv, D)  ->  out (B, Sq, H, D)
 //
-// Query head h reads kv head h / (H / Hkv). The causal mask is
-// qpos >= kpos, aligned top-left when Sq != Skv. A row with no visible key
-// gives zeros. Inputs are float32 or bfloat16; the running maximum, the
-// denominator and the accumulator are float32; the output has the inputs'
-// type.
+// Replaces the Pallas kernel src/repro/kernels/flash_attention.py
+// (flash_attention). Query head h reads kv head h / (H / Hkv). The causal
+// mask is qpos >= kpos, aligned top-left when Sq != Skv. A row with no
+// visible key gives zeros. Inputs are float32 or bfloat16; the running
+// maximum, the denominator and the accumulator are float32; the output has
+// the inputs' type. q, k and v are read through their strides, so no
+// transposed or padded copy is made. Under the causal mask the walk over the
+// keys stops at the diagonal, and the query tiles with the longest walks
+// start first.
 //
-// Common to both kernels below: one block owns a tile of query rows of one
-// (batch, head) and walks over the keys in tiles of 64, which is the
-// loop that takes the place of a sequential grid dimension. Under the causal
-// mask the loop stops at the diagonal. q, k and v are read through their
-// strides, so no transposed or padded copy is made; ragged edges are masked
-// here. The function is bound by operations, so the two element types get
-// the arithmetic that suits them:
+// The function is bound by operations, so the two element types get the
+// arithmetic that suits them:
 //
-//  * bfloat16 (flash_attention_mma_kernel): both products run on the tensor
-//    cores as mma.sync m16n8k16 with float32 accumulation. Eight warps, 16
-//    query rows each (128 rows a block, so that a K and V tile fetched
-//    through the L2 cache serves twice the rows); K and V tiles arrive by
-//    cp.async into two stages, the next tile loading while this one is
-//    computed on; a warp keeps its Q fragments in registers for the
-//    whole loop, reads K fragments straight from the shared-memory tile and
-//    V fragments through ldmatrix.trans; the scores never leave registers:
-//    the accumulator layout of Q K^T is the A-operand layout of P V, so the
-//    probabilities are rounded to bfloat16 in place (as the plain
-//    full_attention rounds them before P V).
+//  * bfloat16 (flash_attention_wgmma_kernel), for Hopper: one block owns 128
+//    query rows of one (batch, head). A producer warp loads Q once and then
+//    K and V tiles of 128 keys by TMA into a ring of stages in shared
+//    memory, each stage guarded by a full and an empty mbarrier; it gives
+//    its registers to the two consumer warpgroups (setmaxnreg), which own
+//    64 query rows each. A consumer computes S = Q K^T with wgmma
+//    m64n128k16 (Q and K from shared memory, both K-major), the online
+//    softmax in exp2 with scale * log2(e) folded into one multiply (masks
+//    only on tiles that cross the diagonal or the end of Skv), and
+//    O += P V with wgmma whose A operand is the score accumulator itself,
+//    rounded to bfloat16 in registers (as the plain full_attention rounds
+//    the probabilities before P V), and whose B operand is the V tile read
+//    MN-major through the transpose bit. A consumer issues tile t's S
+//    together with tile t - 1's P V and runs tile t's softmax while P V is
+//    on the tensor cores; the two consumers take turns to issue (two named
+//    barriers), so that one's softmax runs beside the other's products.
+//    The softmax's exp2 (16 a clock an SM) costs about half the time of the
+//    products of a tile at D = 128. Tiles are 64 columns (128 bytes)
+//    wide with the 128-byte swizzle; TMA fills columns past D and rows past
+//    S with zeros, so every D of HEAD_DIMS takes the same code: D = 112 runs
+//    7 k-steps of Q K^T and P V with N = 112.
 //  * float32 (flash_attention_fma_kernel): plain float32 FMAs from
-//    shared-memory tiles, exact to rounding. 256 threads; each keeps a 4x4
-//    piece of the scores and a 4 x (D/16) piece of the output in registers,
-//    rows are reduced with shuffles across the 16 threads that share them,
-//    and K and V take turns in one buffer so that two blocks fit on a
-//    multiprocessor, 64 query rows a block.
-//
-// The head dim D is a template parameter: 16, 32, 64, 112 or 128. Every
-// loop over D steps by 16 (bf16 k-steps; 8-column output blocks in pairs) or
-// by 4 (float32), and 112 = 7 x 16, so 112 takes the same code with no
-// padded copy of q, k or v.
-//
-// Neither kernel uses wgmma or TMA yet.
+//    shared-memory tiles, exact to rounding (the parity checks at 2e-5 rule
+//    out TF32). 256 threads; each keeps a 4x4 piece of the scores and a
+//    4 x (D/16) piece of the output in registers, rows are reduced with
+//    shuffles across the 16 threads that share them, and K and V take turns
+//    in one buffer so that two blocks fit on a multiprocessor, 64 query rows
+//    a block, keys in tiles of 64.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace rt {
 
@@ -276,33 +280,50 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+
 // ---------------------------------------------------------------------------
-// bfloat16 on the tensor cores
+// bfloat16 on Hopper: TMA, mbarrier ring, wgmma, warp specialisation
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaWarps = 8;
-constexpr int kMmaBQ = 16 * kMmaWarps;      // query rows per block
-constexpr int kMmaThreads = 32 * kMmaWarps;
+namespace wg {
 
-// D (16x8, float32) += A (16x16, bf16, row-major) * B (16x8, bf16, "col").
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+constexpr int kBQ = 128;           // query rows per block, 64 per consumer warpgroup
+constexpr int kBK = 128;           // keys per stage
+constexpr int kThreads = 384;      // consumer warpgroups 0 and 1, producer 2
+constexpr int kRowBytes = 128;     // a swizzled row: 64 bf16
+constexpr int kBox = 64;           // columns of one TMA box
+constexpr int kHalfBytes = kBQ * kRowBytes;  // 128 rows of one 64-column box
+constexpr int kSmemLimit = 232448;           // a block's shared memory on an H100
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kTurn = 1;           // named barriers kTurn, kTurn + 1
+
+template <int D>
+struct Cfg {
+  static constexpr int kBoxes = (D + kBox - 1) / kBox;  // 64-column boxes per row
+  static constexpr int kKSteps = (D + 15) / 16;         // k-steps of Q K^T
+  static constexpr int kTileBytes = kBoxes * kHalfBytes;  // Q, K or V tile
+  static constexpr int kBarBytes = 8 * 16;  // room for 1 + 3 x kStages barriers
+  static constexpr int kFit =
+      (kSmemLimit - 1024 - kBarBytes - kTileBytes) / (2 * kTileBytes);
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  // + 1024: the dynamic shared memory is aligned up to 1024 bytes in the kernel
+  static constexpr int kSmem =
+      1024 + kTileBytes * (1 + 2 * kStages) + kBarBytes;
+  static_assert(kStages >= 2, "a ring needs two stages");
+  static_assert(1 + 3 * kStages <= kBarBytes / 8, "barrier room");
+};
+
+// Key tiles a block walks; the producer and both consumers use this count.
+__device__ __forceinline__ int kv_tiles(int q0, int Skv, int causal) {
+  const int end = causal ? min(Skv, q0 + kBQ) : Skv;
+  return (end + kBK - 1) / kBK;
 }
 
-// Four 8x8 bf16 matrices from shared memory, each transposed on the way:
-// lane i gives the address of row i % 8 of matrix i / 8.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* row) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -310,240 +331,287 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// 16 bytes from device memory to shared memory without passing through
-// registers; completion is awaited with cp_async_wait.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-// Wait until at most kPending of this thread's committed groups are in flight.
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+// What a consumer thread needs to know of its two rows (qpos0 and
+// qpos0 + 8) and of the mask.
+struct Rows {
+  int quad;          // the thread's column pairs: 8 j + 2 quad, + 1
+  int qpos0, qpos1;  // its rows
+  int first;         // the warpgroup's first row
+  int Skv, causal;
+  float scale_log2;  // scale * log2(e)
+};
+
+// Online softmax of one tile of scores, in place: the masks (only where the
+// tile crosses the diagonal or the end of Skv), row maxima over the 4 lanes
+// of a quad, p = exp2(s * scale_log2 - m) in sc, the running maximum m and
+// denominator share l updated, and in corr the factor for what the output
+// accumulated before this tile.
+__device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             int k0, const Rows& r) {
+  if (k0 + kBK > r.Skv || (r.causal && k0 + kBK - 1 > r.first)) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + 8 * j + 2 * r.quad + (e & 1);
+        const int qpos = e < 2 ? r.qpos0 : r.qpos1;
+        if (kpos >= r.Skv || (r.causal && kpos > qpos)) sc[4 * j + e] = -INFINITY;
+      }
+    }
+  }
+  // maxima and sums in 4 partial chains a row: two warps an SM sub-partition
+  // leave little to hide a long dependent chain behind
+  float pm[2][4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    pm[0][c] = fmaxf(sc[4 * c], sc[4 * c + 1]);
+    pm[1][c] = fmaxf(sc[4 * c + 2], sc[4 * c + 3]);
+  }
+#pragma unroll
+  for (int j = 4; j < 16; ++j) {
+    pm[0][j % 4] = fmaxf(pm[0][j % 4], fmaxf(sc[4 * j], sc[4 * j + 1]));
+    pm[1][j % 4] = fmaxf(pm[1][j % 4], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  float mx[2], m_use[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(fmaxf(pm[i][0], pm[i][1]), fmaxf(pm[i][2], pm[i][3]));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i] * r.scale_log2);
+    m_use[i] = m_new == -INFINITY ? 0.0f : m_new;  // a row masked so far
+    corr[i] = exp2_approx(m[i] - m_use[i]);
+    m[i] = m_new;
+  }
+  float ps[2][4] = {};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[4 * j + e] =
+          exp2_approx(fmaf(sc[4 * j + e], r.scale_log2, -m_use[e / 2]));
+      ps[e / 2][j % 4] += sc[4 * j + e];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] = l[i] * corr[i] + ((ps[i][0] + ps[i][1]) + (ps[i][2] + ps[i][3]));
+  }
 }
 
-// Start the copy of `rows` rows of D bf16 elements, from sequence position
-// row0 on, into a tile with padded rows. Positions at or past `limit`
-// become zeros.
-template <int D>
-__device__ __forceinline__ void copy_tile_async(
-    __nv_bfloat16* __restrict__ dst, const __nv_bfloat16* __restrict__ src,
-    long long stride_s, int row0, int limit, int rows) {
-  constexpr int kChunks = D / 8;
-  constexpr int DP = D + 8;
-  for (int idx = threadIdx.x; idx < rows * kChunks; idx += kMmaThreads) {
-    const int r = idx / kChunks;
-    const int c = idx % kChunks;
-    const int pos = row0 + r;
-    __nv_bfloat16* to = dst + r * DP + c * 8;
-    if (pos < limit) {
-      cp_async16(to, src + static_cast<long long>(pos) * stride_s + c * 8);
-    } else {
-      *reinterpret_cast<uint4*>(to) = make_uint4(0u, 0u, 0u, 0u);
-    }
+// P rounded to bf16 and packed: the accumulator layout of keys 16 kk ..
+// 16 kk + 15 is the A-register layout of k-step kk of P V.
+__device__ __forceinline__ void pack_p(const float (&sc)[64],
+                                       uint32_t (&pa)[kBK / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    pa[j / 2][2 * (j % 2)] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
+    pa[j / 2][2 * (j % 2) + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const float (&corr)[2]) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    o[4 * j] *= corr[0];
+    o[4 * j + 1] *= corr[0];
+    o[4 * j + 2] *= corr[1];
+    o[4 * j + 3] *= corr[1];
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                               const __nv_bfloat16* __restrict__ k,
-                               const __nv_bfloat16* __restrict__ v,
-                               __nv_bfloat16* __restrict__ out, int Sq,
-                               int Skv, int H, int Hkv, long long q_sb,
-                               long long q_ss, long long q_sh, long long k_sb,
-                               long long k_ss, long long k_sh, long long v_sb,
-                               long long v_ss, long long v_sh, int causal,
-                               float scale) {
-  // Rows padded by 8 elements (16 bytes): a fragment's 8 rows then fall on
-  // 8 different groups of banks, and every row stays 16-byte aligned.
-  constexpr int DP = D + 8;
-  constexpr int kKSteps = D / 16;     // k-steps of Q K^T
-  constexpr int kSBlocks = kBK / 8;   // 8-key blocks of the score tile
-  constexpr int kPSteps = kBK / 16;   // k-steps of P V
-  constexpr int kOBlocks = D / 8;     // 8-column blocks of the output
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kTile = kBK * DP;  // elements of one K or V tile
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // kMmaBQ x DP
-  // two stages, each a K tile then a V tile: one is computed on while the
-  // next is on its way
-  __nv_bfloat16* KVs = Qs + kMmaBQ * DP;
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                                 const __grid_constant__ CUtensorMap kmap,
+                                 const __grid_constant__ CUtensorMap vmap,
+                                 __nv_bfloat16* __restrict__ out, int Sq,
+                                 int Skv, int H, int Hkv, int causal,
+                                 float scale) {
+  using C = Cfg<D>;
+  using namespace hopper;
+  constexpr int S = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  unsigned char* Qs = base;
+  unsigned char* KV = base + C::kTileBytes;  // stage s: K, then V
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(KV + 2 * S * C::kTileBytes);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 1 + S;
+  uint64_t* empty = bars + 1 + 2 * S;
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;    // row of the fragment this lane holds (and g + 8)
-  const int tig = lane & 3;   // its pair of columns: 2 tig, 2 tig + 1
-  const int q_tile = gridDim.x - 1 - blockIdx.x;  // longest loops first
+  const int q_tile = gridDim.x - 1 - blockIdx.x;  // longest walks first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (H / Hkv);
-  const int q0 = q_tile * kMmaBQ;
+  const int q0 = q_tile * kBQ;
+  const int n_tiles = kv_tiles(q0, Skv, causal);
 
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + b * k_sb + hk * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + hk * v_sh;
-
-  int kv_end = Skv;
-  if (causal) kv_end = min(Skv, min(q0 + kMmaBQ, Sq));
-  const int n_tiles = (kv_end + kBK - 1) / kBK;
-
-  copy_tile_async<D>(Qs, qb, q_ss, q0, Sq, kMmaBQ);
-  if (n_tiles > 0) {
-    copy_tile_async<D>(KVs, kb, k_ss, 0, Skv, kBK);
-    copy_tile_async<D>(KVs + kTile, vb, v_ss, 0, Skv, kBK);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival from each consumer warp
+    }
+    mbar_fence_init();
   }
-  cp_async_commit();
-  cp_async_wait<0>();
   __syncthreads();
 
-  // This warp's 16 query rows as A fragments, kept for the whole loop.
-  uint32_t qa[kKSteps][4];
-  {
-    const __nv_bfloat16* r0 = Qs + (warp * 16 + g) * DP + tig * 2;
-    const __nv_bfloat16* r1 = r0 + 8 * DP;
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 2) {
+    // ---- producer: one thread issues every copy --------------------------
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 256) {
+      tma_prefetch_map(&qmap);
+      tma_prefetch_map(&kmap);
+      tma_prefetch_map(&vmap);
+      mbar_arrive_expect_tx(q_full, C::kTileBytes);
 #pragma unroll
-    for (int ks = 0; ks < kKSteps; ++ks) {
-      qa[ks][0] = *reinterpret_cast<const uint32_t*>(r0 + ks * 16);
-      qa[ks][1] = *reinterpret_cast<const uint32_t*>(r1 + ks * 16);
-      qa[ks][2] = *reinterpret_cast<const uint32_t*>(r0 + ks * 16 + 8);
-      qa[ks][3] = *reinterpret_cast<const uint32_t*>(r1 + ks * 16 + 8);
-    }
-  }
-
-  // Rows g and g + 8 of the warp's 16: running maximum, this lane's share of
-  // the denominator (summed over the 4 lanes of a row at the end), output.
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.0f, 0.0f};
-  float o[kOBlocks][4];
+      for (int x = 0; x < C::kBoxes; ++x) {
+        tma_load_4d(Qs + x * kHalfBytes, &qmap, q_full, x * kBox, q0, h, b);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % S;
+        // the consumers' release of this stage's previous fill
+        if (t >= S) mbar_wait(&empty[s], ((t / S) - 1) & 1);
+        unsigned char* Ks = KV + 2 * s * C::kTileBytes;
+        unsigned char* Vs = Ks + C::kTileBytes;
+        mbar_arrive_expect_tx(&k_full[s], C::kTileBytes);
 #pragma unroll
-  for (int nb = 0; nb < kOBlocks; ++nb) {
+        for (int x = 0; x < C::kBoxes; ++x) {
+          tma_load_4d(Ks + x * kHalfBytes, &kmap, &k_full[s], x * kBox,
+                      t * kBK, hk, b);
+        }
+        mbar_arrive_expect_tx(&v_full[s], C::kTileBytes);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[nb][e] = 0.0f;
-  }
-
-  const int qrow = q0 + warp * 16 + g;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBK;
-    const __nv_bfloat16* Ks = KVs + (t & 1) * 2 * kTile;
-    const __nv_bfloat16* Vs = Ks + kTile;
-    // Tile t is in place (awaited below, or before the loop for t = 0) and
-    // every warp is past tile t - 1, whose stage the next copy overwrites.
-    if (t + 1 < n_tiles) {
-      __nv_bfloat16* next = KVs + ((t + 1) & 1) * 2 * kTile;
-      copy_tile_async<D>(next, kb, k_ss, k0 + kBK, Skv, kBK);
-      copy_tile_async<D>(next + kTile, vb, v_ss, k0 + kBK, Skv, kBK);
-      cp_async_commit();
-    }
-
-    // scores: 16 rows x 64 keys, in 8 blocks of 8 keys
-    float s[kSBlocks][4];
-#pragma unroll
-    for (int nb = 0; nb < kSBlocks; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nb][e] = 0.0f;
-      // B fragment: key nb*8 + g, the pair of d at ks*16 + 2 tig (and + 8)
-      const __nv_bfloat16* krow = Ks + (nb * 8 + g) * DP + tig * 2;
-#pragma unroll
-      for (int ks = 0; ks < kKSteps; ++ks) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + ks * 16);
-        const uint32_t b1 =
-            *reinterpret_cast<const uint32_t*>(krow + ks * 16 + 8);
-        mma_bf16(s[nb], qa[ks], b0, b1);
+        for (int x = 0; x < C::kBoxes; ++x) {
+          tma_load_4d(Vs + x * kHalfBytes, &vmap, &v_full[s], x * kBox,
+                      t * kBK, hk, b);
+        }
       }
     }
+  } else {
+    // ---- consumers: warpgroup wgi owns query rows q0 + 64 wgi .. + 63 -----
+    // Tile t's S = Q K^T is issued together with tile t - 1's O += P V, and
+    // tile t's softmax runs while P V is on the tensor cores.
+    setmaxnreg_inc<kConsumerRegs>();
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    Rows rows;
+    rows.quad = lane % 4;
+    rows.qpos0 = q0 + 64 * wgi + 16 * (tid / 32) + lane / 4;
+    rows.qpos1 = rows.qpos0 + 8;
+    rows.first = q0 + 64 * wgi;
+    rows.Skv = Skv;
+    rows.causal = causal;
+    rows.scale_log2 = scale * 1.4426950408889634f;
+    const uint32_t q_addr = smem_addr(Qs) + wgi * 64 * kRowBytes;
+    auto k_addr = [&](int s) { return smem_addr(KV + 2 * s * C::kTileBytes); };
 
-    // online softmax; element e of a block: row g + 8 (e / 2), key 2 tig + e % 2
-    float mx[2] = {kNegInf, kNegInf};
+    // S = Q K^T for the K tile of stage s: 64 rows x 128 keys
+    auto issue_qk = [&](float (&sc)[64], int s) {
 #pragma unroll
-    for (int nb = 0; nb < kSBlocks; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kpos = k0 + nb * 8 + tig * 2 + (e & 1);
-        const int qpos = qrow + (e >> 1) * 8;
-        const bool visible = (kpos < Skv) && (!causal || qpos >= kpos);
-        s[nb][e] = visible ? s[nb][e] * scale : kNegInf;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nb][e]);
+      for (int ks = 0; ks < C::kKSteps; ++ks) {
+        const uint32_t off = (ks / 4) * kHalfBytes + (ks % 4) * 32;
+        wgmma_m64n128k16_ss(sc, make_desc_sw128(q_addr + off, 16, 1024),
+                            make_desc_sw128(k_addr(s) + off, 16, 1024), ks > 0);
       }
+      wgmma_commit();
+    };
+    // O += P V for the V tile of stage s: V is MN-major, 16 keys a k-step
+    auto issue_pv = [&](float (&o)[D / 2], const uint32_t (&pa)[kBK / 16][4],
+                        int s) {
+      const uint32_t v_addr = k_addr(s) + C::kTileBytes;
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        wgmma_m64k16_rs<D>(
+            o, pa[kk],
+            make_desc_sw128(v_addr + kk * 16 * kRowBytes, kHalfBytes, 1024));
+      }
+      wgmma_commit();
+    };
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    float m[2] = {-INFINITY, -INFINITY};  // running maximum, scaled by scale_log2
+    float l[2] = {0.0f, 0.0f};            // this thread's share of the denominator
+    float sc[64];
+    uint32_t pa[kBK / 16][4];
+    float corr[2];
+
+    // The two warpgroups take turns to issue their products (named barriers
+    // kTurn + 0 and + 1), so that one's softmax runs beside the other's
+    // products; warpgroup 0 starts.
+    const int my_turn = kTurn + wgi, other_turn = kTurn + 1 - wgi;
+    if (wgi == 1) named_bar_arrive(other_turn, 256);
+    mbar_wait(q_full, 0);
+    mbar_wait(&k_full[0], 0);
+    named_bar_sync(my_turn, 256);
+    wgmma_fence();
+    issue_qk(sc, 0);
+    named_bar_arrive(other_turn, 256);
+    wgmma_wait<0>();
+    fence_operands(sc);
+    softmax_tile(sc, m, l, corr, 0, rows);
+    pack_p(sc, pa);
+    for (int t = 1; t < n_tiles; ++t) {
+      const int s = t % S;
+      const int prev = (t - 1) % S;
+      mbar_wait(&k_full[s], (t / S) & 1);
+      mbar_wait(&v_full[prev], ((t - 1) / S) & 1);
+      named_bar_sync(my_turn, 256);
+      wgmma_fence();
+      issue_qk(sc, s);
+      issue_pv(o, pa, prev);
+      named_bar_arrive(other_turn, 256);
+      wgmma_wait<1>();  // S of tile t; P V of tile t - 1 runs on
+      fence_operands(sc);
+      softmax_tile(sc, m, l, corr, t * kBK, rows);
+      wgmma_wait<0>();
+      fence_operands(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[prev]);  // this warp is done with it
+      rescale(o, corr);
+      pack_p(sc, pa);
     }
-    float m_safe[2], corr[2];
+    const int last = (n_tiles - 1) % S;
+    mbar_wait(&v_full[last], ((n_tiles - 1) / S) & 1);
+    wgmma_fence();
+    issue_pv(o, pa, last);
+    wgmma_wait<0>();
+    fence_operands(o);
+
+    // out is contiguous (B, Sq, H, D)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      m_safe[r] = (m_new > kMasked) ? m_new : 0.0f;
-      corr[r] = (m[r] > kMasked) ? __expf(m[r] - m_safe[r]) : 0.0f;
-      m[r] = m_new;
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      l[r] = l[r] > 0.0f ? 1.0f / l[r] : 0.0f;
     }
-    float sum[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int nb = 0; nb < kSBlocks; ++nb) {
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = r == 0 ? rows.qpos0 : rows.qpos1;
+      if (qpos >= Sq) continue;
+      __nv_bfloat16* orow =
+          out + ((static_cast<long long>(b) * Sq + qpos) * H + h) * D;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p =
-            (s[nb][e] > kMasked) ? __expf(s[nb][e] - m_safe[e >> 1]) : 0.0f;
-        s[nb][e] = p;
-        sum[e >> 1] += p;
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * rows.quad) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] * l[r],
+                                  o[4 * j + 2 * r + 1] * l[r]);
       }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
-#pragma unroll
-    for (int nb = 0; nb < kOBlocks; ++nb) {
-      o[nb][0] *= corr[0];
-      o[nb][1] *= corr[0];
-      o[nb][2] *= corr[1];
-      o[nb][3] *= corr[1];
-    }
-
-    // out += P V. Two neighbouring score blocks are one A fragment.
-#pragma unroll
-    for (int kb2 = 0; kb2 < kPSteps; ++kb2) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kb2][0], s[2 * kb2][1]);
-      pa[1] = pack_bf16(s[2 * kb2][2], s[2 * kb2][3]);
-      pa[2] = pack_bf16(s[2 * kb2 + 1][0], s[2 * kb2 + 1][1]);
-      pa[3] = pack_bf16(s[2 * kb2 + 1][2], s[2 * kb2 + 1][3]);
-      // ldmatrix: lane -> matrix lane / 8, row lane % 8. Matrices 0, 1 are
-      // keys 0-7 and 8-15 of this k-step at column block nb, matrices 2, 3
-      // the same keys at column block nb + 1.
-      const int key = kb2 * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
-      const __nv_bfloat16* vrow = Vs + key * DP + (lane >> 4) * 8;
-#pragma unroll
-      for (int nb = 0; nb < kOBlocks; nb += 2) {
-        uint32_t vb4[4];
-        ldmatrix_x4_trans(vb4, vrow + nb * 8);
-        mma_bf16(o[nb], pa, vb4[0], vb4[1]);
-        mma_bf16(o[nb + 1], pa, vb4[2], vb4[3]);
-      }
-    }
-    cp_async_wait<0>();  // this thread's part of tile t + 1 has landed
-    __syncthreads();     // ... and everyone's; all warps are done with tile t
-  }
-
-  // out is contiguous (B, Sq, H, D)
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float total = l[r];
-    total += __shfl_xor_sync(0xffffffffu, total, 1);
-    total += __shfl_xor_sync(0xffffffffu, total, 2);
-    const int qpos = qrow + r * 8;
-    if (qpos >= Sq) continue;
-    const float inv = 1.0f / fmaxf(total, 1e-30f);
-    __nv_bfloat16* orow =
-        out + ((static_cast<long long>(b) * Sq + qpos) * H + h) * D;
-#pragma unroll
-    for (int nb = 0; nb < kOBlocks; ++nb) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + nb * 8 + tig * 2) =
-          __floats2bfloat162_rn(o[nb][2 * r] * inv, o[nb][2 * r + 1] * inv);
     }
   }
 }
+
+}  // namespace wg
 
 // ---------------------------------------------------------------------------
 // launch
@@ -559,43 +627,109 @@ struct AttnArgs {
   cudaStream_t stream;
 };
 
-template <typename T, typename Kernel>
-int launch(Kernel kernel, int block_q, int threads, size_t smem,
-           const AttnArgs& a) {
+template <int D>
+int launch_fma(const AttnArgs& a) {
+  const size_t smem =
+      (static_cast<size_t>(kBQ + kBK) * (D + 4) + kBQ * kBKP) * sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_attention_fma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.Sq + block_q - 1) / block_q, a.H, a.B);
-  kernel<<<grid, threads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.out), a.Sq, a.Skv, a.H,
-      a.Hkv, a.q_sb, a.q_ss, a.q_sh, a.k_sb, a.k_ss, a.k_sh, a.v_sb, a.v_ss,
-      a.v_sh, a.causal, a.scale);
+  const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.H, a.B);
+  flash_attention_fma_kernel<D><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.out), a.Sq, a.Skv,
+      a.H, a.Hkv, a.q_sb, a.q_ss, a.q_sh, a.k_sb, a.k_ss, a.k_sh, a.v_sb,
+      a.v_ss, a.v_sh, a.causal, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no link against libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// A 4-D map (D, S, heads, B) of a bf16 tensor with the given strides in
+// elements, read in boxes of 64 columns x 128 rows with the 128-byte swizzle.
+// TMA wants every stride a multiple of 16 bytes, also that of a dimension of
+// size 1 (the wrapper replaces such strides). Columns past D and rows past S
+// read as zeros.
+int make_map(CUtensorMap* map, const void* ptr, int D, int S, int heads,
+             int B, long long sb, long long ss, long long sh) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kNoTensorMap;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {wg::kBox, wg::kBQ, 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kNoTensorMap;
+}
+
+template <int D>
+int launch_wgmma(const AttnArgs& a) {
+  static_assert(wg::kBQ == wg::kBK, "one box shape for Q, K and V");
+  CUtensorMap qmap, kmap, vmap;
+  int code = make_map(&qmap, a.q, D, a.Sq, a.H, a.B, a.q_sb, a.q_ss, a.q_sh);
+  if (code == 0) {
+    code = make_map(&kmap, a.k, D, a.Skv, a.Hkv, a.B, a.k_sb, a.k_ss, a.k_sh);
+  }
+  if (code == 0) {
+    code = make_map(&vmap, a.v, D, a.Skv, a.Hkv, a.B, a.v_sb, a.v_ss, a.v_sh);
+  }
+  if (code != 0) return code;
+  constexpr int smem = wg::Cfg<D>::kSmem;
+  const cudaError_t err = cudaFuncSetAttribute(
+      wg::flash_attention_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.Sq + wg::kBQ - 1) / wg::kBQ, a.H, a.B);
+  wg::flash_attention_wgmma_kernel<D><<<grid, wg::kThreads, smem, a.stream>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(a.out), a.Sq, a.Skv, a.H,
+      a.Hkv, a.causal, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_head_dim(const AttnArgs& a, int dtype) {
-  if (dtype == kBFloat16) {
-    const size_t smem = static_cast<size_t>(kMmaBQ + 4 * kBK) * (D + 8) *
-                        sizeof(__nv_bfloat16);
-    return launch<__nv_bfloat16>(flash_attention_mma_kernel<D>, kMmaBQ,
-                                 kMmaThreads, smem, a);
-  }
-  const size_t smem =
-      (static_cast<size_t>(kBQ + kBK) * (D + 4) + kBQ * kBKP) * sizeof(float);
-  return launch<float>(flash_attention_fma_kernel<D>, kBQ, kThreads, smem, a);
+  return dtype == kBFloat16 ? launch_wgmma<D>(a) : launch_fma<D>(a);
 }
 
 }  // namespace rt
 
 // q (B, Sq, H, D), k and v (B, Skv, Hkv, D), all of `dtype`, read through
 // their batch, sequence and head strides (in elements; the last dimension is
-// contiguous, every stride a multiple of 16 bytes' worth of elements, every
-// base address 16-byte aligned). out is contiguous (B, Sq, H, D). Returns 0,
-// a CUDA error code, or a negative code for arguments the kernel does not
-// take.
+// contiguous, every stride a multiple of 16 bytes' worth of elements, also
+// for a dimension of size 1, every base address 16-byte aligned). out is
+// contiguous (B, Sq, H, D). Returns 0, a CUDA error code, or a negative code
+// for arguments the kernel does not take.
 extern "C" int rt_flash_attention(
     const void* q, const void* k, const void* v, void* out, int B, int Sq,
     int Skv, int H, int Hkv, int D, long long q_sb, long long q_ss,

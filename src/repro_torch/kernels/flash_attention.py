@@ -10,12 +10,12 @@ the diagonal under the causal mask; q, k and v are read through their strides
 in the ``(B, S, H, D)`` layout, so no transposed or padded copy is made; a
 query head reads its kv head directly, so k and v are never repeated.
 
-Because operations are the bound, bfloat16 inputs take both products to the
-tensor cores (``mma.sync`` with float32 accumulation; the probabilities are
-rounded to bfloat16 before the second product, as the plain
-``full_attention`` rounds them), while float32 inputs keep plain float32
-FMAs, exact to rounding. ``wgmma``, TMA and asynchronous copies are the work
-that remains.
+Because operations are the bound, bfloat16 inputs go to a Hopper kernel:
+K and V arrive by TMA into a ring of shared-memory stages fed by a producer
+warp, and two consumer warpgroups run both products as ``wgmma`` with
+float32 accumulation (the probabilities are rounded to bfloat16 before the
+second product, as the plain ``full_attention`` rounds them). Float32 inputs
+keep plain float32 FMAs, exact to rounding.
 """
 from __future__ import annotations
 
@@ -58,6 +58,21 @@ def _check_strides(name: str, t: torch.Tensor) -> None:
             f"{t.stride()}")
 
 
+def kernel_strides(t: torch.Tensor) -> tuple:
+    """Batch, sequence and head strides of a ``(B, S, H, D)`` tensor as the
+    kernels take them. A dimension of size 1 is never stepped along, so its
+    stride may be anything, but the bfloat16 kernel's TMA maps want every
+    stride a multiple of 16 bytes: such a stride becomes the span of the
+    dimension inside it."""
+    strides = list(t.stride()[:3])
+    inner = t.shape[3]                  # the span of the contiguous last dim
+    for i in (2, 1, 0):
+        if t.shape[i] == 1:
+            strides[i] = inner
+        inner = strides[i] * t.shape[i]
+    return tuple(strides)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q: (B,Sq,H,D); k, v: (B,Skv,Hkv,D) -> (B,Sq,H,D) in q.dtype.
@@ -96,9 +111,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         code = lib.rt_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, Sq, Skv, H, Hkv, D,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
+            *kernel_strides(q), *kernel_strides(k), *kernel_strides(v),
             int(bool(causal)), 1.0 / math.sqrt(D),
             build.DTYPE_CODES[str(q.dtype)],
             torch.cuda.current_stream(q.device).cuda_stream)

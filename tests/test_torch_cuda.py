@@ -42,18 +42,47 @@ def assert_close(got, want, dtype):
                                rtol=TOL[dtype])
 
 
-@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D", [
-    (1, 32, 32, 2, 2, 16), (2, 64, 64, 4, 2, 32), (1, 96, 48, 4, 1, 64),
-    (2, 33, 65, 2, 2, 16), (1, 200, 130, 8, 2, 128), (2, 150, 150, 4, 2, 112)])
+def laid_out(t, layout):
+    """t (B, S, H, D) as the kernel may be handed it: contiguous; stored
+    (B, H, S, D) and viewed as (B, S, H, D); or, for B = 1, with a batch
+    stride of 7 elements, which TMA would refuse were it passed on."""
+    if layout == "bhsd":
+        return t.transpose(1, 2).contiguous().transpose(1, 2)
+    if layout == "odd_batch_stride":
+        B, S, H, D = t.shape
+        assert B == 1
+        view = torch.empty(S * H * D, dtype=t.dtype, device=t.device) \
+            .as_strided((1, S, H, D), (7, H * D, D, 1))
+        view.copy_(t)
+        return view
+    return t
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,layout", [
+    (1, 32, 32, 2, 2, 16, "contiguous"), (2, 64, 64, 4, 2, 32, "contiguous"),
+    (1, 96, 48, 4, 1, 64, "contiguous"), (2, 33, 65, 2, 2, 16, "contiguous"),
+    (1, 200, 130, 8, 2, 128, "contiguous"),
+    (2, 150, 150, 4, 2, 112, "contiguous"),
+    # ragged tiles on both sides of the 128-row tiles, Sq < Skv and Sq > Skv
+    (1, 127, 129, 4, 1, 128, "contiguous"), (2, 129, 127, 4, 2, 64, "contiguous"),
+    (1, 255, 2049, 8, 8, 112, "contiguous"),
+    (1, 2049, 255, 4, 2, 128, "contiguous"),
+    (2, 1, 2049, 8, 2, 128, "contiguous"), (1, 2049, 1, 2, 1, 64, "contiguous"),
+    (1, 129, 255, 32, 32, 64, "contiguous"),
+    (2, 255, 129, 8, 2, 112, "bhsd"), (1, 129, 127, 4, 1, 128, "bhsd"),
+    (1, 127, 255, 8, 2, 128, "odd_batch_stride"),
+    (1, 1, 129, 4, 4, 112, "odd_batch_stride")])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_kernel(card, B, Sq, Sk, H, Hkv, D, causal, dtype):
-    q = randn(card, 0, (B, Sq, H, D), dtype)
-    k = randn(card, 1, (B, Sk, Hkv, D), dtype)
-    v = randn(card, 2, (B, Sk, Hkv, D), dtype)
+def test_flash_attention_kernel(card, B, Sq, Sk, H, Hkv, D, layout, causal,
+                                dtype):
+    q = laid_out(randn(card, 0, (B, Sq, H, D), dtype), layout)
+    k = laid_out(randn(card, 1, (B, Sk, Hkv, D), dtype), layout)
+    v = laid_out(randn(card, 2, (B, Sk, Hkv, D), dtype), layout)
     before = flash_attention.launches
     got = flash_attention(q, k, v, causal=causal)
     assert flash_attention.launches == before + 1
+    assert got.is_contiguous() and got.shape == (B, Sq, H, D)
     assert_close(got, flash_attention_plain(q, k, v, causal=causal), dtype)
 
 

@@ -14,7 +14,8 @@ from repro.kernels import ops
 import repro_torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (flash_attention,
-                                                 flash_attention_plain)
+                                                 flash_attention_plain,
+                                                 kernel_strides)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
 from test_torch_parity import as_f32, to_jax, to_torch
 
@@ -99,6 +100,23 @@ def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
     assert torch.equal(flash_attention(q, q, q, causal=True),
                        flash_attention_plain(q, q, q, causal=True))
     assert (rmsnorm.launches, flash_attention.launches) == before
+
+
+def test_kernel_strides_give_tma_a_multiple_of_16_bytes():
+    """The stride of a dimension of size 1 becomes the span of the dimension
+    inside it, so that every stride the bfloat16 kernel's TMA maps see is a
+    multiple of 16 bytes; the other strides pass unchanged."""
+    S, H, D = 5, 3, 112
+    odd = torch.empty(S * H * D, dtype=torch.bfloat16).as_strided(
+        (1, S, H, D), (7, H * D, D, 1))
+    assert kernel_strides(odd) == (S * H * D, H * D, D)
+    bhsd = torch.empty((2, H, S, D)).transpose(1, 2)       # (B, S, H, D) view
+    assert kernel_strides(bhsd) == bhsd.stride()[:3]
+    one_row = torch.empty(300, dtype=torch.bfloat16).as_strided(
+        (2, 1, 1, 128), (136, 3, 5, 1))
+    assert kernel_strides(one_row) == (136, 128, 128)
+    for t in (odd, bhsd, one_row):
+        assert all(s * t.element_size() % 16 == 0 for s in kernel_strides(t))
 
 
 def test_wrappers_refuse_what_does_not_fit():
