@@ -17,6 +17,11 @@ traceback and a non-zero exit code; no failure is caught.
 
 Phases, in order: env, kernels, parity, prefill, serve. ``--phases`` runs a
 subset while developing; such a run never prints the last line and exits 2.
+The kernels phase times each kernel on the device (CUDA events) beside its
+plain version and, where there is one, a PyTorch call; for rmsnorm at a
+decode step's rows it also prints the wrapper's cost on the host per call
+(``time.perf_counter`` around 1000 calls with no synchronisation), so that
+host time and device time are told apart.
 
 Peaks used for the bounds are the H100 SXM data sheet's: 989 TFLOP/s bf16
 dense, 67 TFLOP/s float32 outside the tensor cores, 3.35 TB/s of device
@@ -112,6 +117,24 @@ def time_in_turns(fns: dict, iters: int, rounds: int = 2) -> dict:
         for name, fn in fns.items():
             t = time_ms(fn, iters)
             best[name] = t if best[name] is None else min(best[name], t)
+    return best
+
+
+def host_us_in_turns(fns: dict, calls: int = 1000, rounds: int = 2) -> dict:
+    """Time on the host of one call, by time.perf_counter around `calls`
+    calls with no synchronisation between them, several functions in turns;
+    the least of the rounds for each."""
+    best = {name: None for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            us = (time.perf_counter() - t0) / calls * 1e6
+            torch.cuda.synchronize()
+            best[name] = us if best[name] is None else min(best[name], us)
     return best
 
 
@@ -271,9 +294,10 @@ def phase_kernels(state):
                            "max_abs_err": err, "tol": TOL[dtype], "ok": ok})
     for shape, dtype in (((8, 64), torch.float32), ((3, 17, 96), torch.bfloat16),
                          ((5, 70), torch.float32), ((5, 70), torch.bfloat16),
-                         ((2, 12288), torch.float32)):
+                         ((2, 12288), torch.float32), ((2, 20000), torch.float32)):
         # (5, 70): a row length that is no multiple of 16 bytes, scalar path;
-        # (2, 12288): mistral-large's width, a 48 KB row in shared memory
+        # (2, 12288): mistral-large's width, a row of 512 threads in registers;
+        # (2, 20000): no whole vectors a thread, an 80 KB row in shared memory
         x, r = randn(shape, dtype), randn(shape, dtype)
         sc = 1.0 + 0.1 * randn(shape[-1:], dtype)
         got = rmsnorm(x, sc, residual=r)
@@ -350,8 +374,11 @@ def phase_kernels(state):
     # model's dt and A: with the reference test's (dt ~ 0.8, |A| down to
     # ~0.1) the state grows to hundreds over 130 rows and y becomes a sum of
     # such terms that cancel, where float32 rounding alone passes 2e-5
+    # (+ a shape past one tile with P split in two blocks of the bf16
+    # kernel and N padded to 16 columns)
     for (B, S, H, P, N) in ((1, 32, 2, 16, 8), (2, 50, 3, 8, 16),
-                            (1, 16, 1, 32, 4), (2, 130, 6, 64, 64)):
+                            (1, 16, 1, 32, 4), (2, 130, 6, 64, 64),
+                            (2, 65, 3, 40, 24)):
         for dtype in (torch.float32, torch.bfloat16):
             for expanded in (False, True):
                 inputs = ssd_inputs(B, S, H, P, N, dtype, groups=expanded,
@@ -362,8 +389,11 @@ def phase_kernels(state):
     # --- the models' shapes, checked and timed -------------------------------
     bf16, f32 = torch.bfloat16, torch.float32
     timed = []
-    # deepseek-7b and rwkv6-7b (4096), zamba2-7b (3584, and 7168 for ssm_norm)
-    for rows, d in ((8192, 4096), (8, 4096), (8192, 3584), (8192, 7168)):
+    # deepseek-7b and rwkv6-7b (4096), zamba2-7b (3584, and 7168 for ssm_norm),
+    # at a prefill's rows and a decode step's
+    host = []
+    for rows, d in ((8192, 4096), (8, 4096), (8192, 3584), (8, 3584),
+                    (8192, 7168), (8, 7168)):
         x = randn((rows, d), bf16)
         sc = (1.0 + 0.1 * randn((d,), torch.float32)).to(bf16)
         got = rmsnorm(x, sc)
@@ -382,6 +412,11 @@ def phase_kernels(state):
                       "max_abs_err": err, **t, "bound_ms": bnd,
                       "bound_by": by, "share_of_bound": bnd / t["ms"],
                       "gbytes_per_s": nbytes / t["ms"] / 1e6})
+        if rows == 8:
+            host.append({"shape": [rows, d], **host_us_in_turns({
+                "us": lambda: rmsnorm(x, sc),
+                "library_us": lambda: F.rms_norm(x, (d,), weight=sc, eps=1e-5),
+            })})
         del x, got
     B, S = 4, 2048
     # deepseek-7b (D=128, three kv-head counts) and zamba2-7b (D=112)
@@ -453,6 +488,10 @@ def phase_kernels(state):
         del inputs, y
     torch.cuda.empty_cache()
 
+    emit({"rmsnorm_host_us_per_call": host,
+          "timing": "time.perf_counter around 1000 calls with no synchronisation "
+                    "(the host's cost of a call), wrapper and F.rms_norm in "
+                    "turns, least of 2 rounds", "gpu": state["smi"]})
     bad = [c for c in checks if not c["ok"]]
     emit({"phase": "kernels", "build_seconds": build_s,
           "library": str(lib_path.relative_to(ROOT)),

@@ -10,6 +10,11 @@ The library goes into ``build/repro_torch_kernels/<key>/`` at the root of the
 checkout, where ``<key>`` is a hash of the sources and the flags, so an edit
 to a source builds a new library. Each source is compiled by its own ``nvcc``
 process, all started together, and the objects are linked into the library.
+
+``launch`` is the one way the wrappers call a C entry: it appends the handle
+of the current stream, switches the device only when the tensors are not on
+the current one, and raises on an error code. It does as little as it can,
+since at a decode step a call costs more on the host than on the card.
 """
 from __future__ import annotations
 
@@ -17,10 +22,13 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import threading
 from pathlib import Path
-from typing import List, Optional
+from typing import Callable, List, Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # src/repro_torch/kernels/build.py -> the checkout's root
@@ -30,7 +38,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # element type codes of the C interface (csrc/common.cuh)
-DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -110,25 +118,97 @@ def build(verbose: bool = False) -> Path:
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.rt_rmsnorm.restype = i
-    lib.rt_rmsnorm.argtypes = [p, p, p, p, ll, i, f, i, i, i, p]
+    lib.rt_rmsnorm.argtypes = [p, p]
     lib.rt_flash_attention.restype = i
     lib.rt_flash_attention.argtypes = (
         [p, p, p, p] + [i] * 6 + [ll] * 9 + [i, f, i, p])
     lib.rt_wkv6.restype = i
     lib.rt_wkv6.argtypes = [p] * 8 + [i] * 4 + [ll] * 12 + [i, p]
     lib.rt_ssd.restype = i
-    lib.rt_ssd.argtypes = [p] * 6 + [i] * 5 + [ll] * 12 + [i, p]
+    lib.rt_ssd.argtypes = [p] * 6 + [i] * 5 + [ll] * 12 + [i, i, p]
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library; built on the first call."""
+    """The loaded kernel library; built on the first call. Once it is
+    loaded it is read without the lock."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             _bind(lib)
             _lib = lib
         return _lib
+
+
+# torch's own lookups of the current card and of its current stream's raw
+# handle, resolved at the first launch (the public forms where a build of
+# torch lacks them); with one card there is no other device to switch to
+_current_device: Optional[Callable[[], int]] = None
+_raw_stream: Optional[Callable[[int], int]] = None
+_one_card = False
+
+
+def _resolve() -> None:
+    global _current_device, _raw_stream, _one_card
+    _current_device = getattr(torch._C, "_cuda_getDevice", None) or \
+        torch.cuda.current_device
+    _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or \
+        (lambda i: torch.cuda.current_stream(i).cuda_stream)
+    _one_card = torch.cuda.device_count() == 1
+
+
+def current_stream(index: int) -> int:
+    """Raw handle of the current stream of card `index`: the one a
+    ``torch.cuda.stream(...)`` context has set, else the default stream. The
+    lookup is resolved once; the stream is read on every call."""
+    if _raw_stream is None:
+        _resolve()
+    return _raw_stream(index)
+
+
+def _call(name: str, device: torch.device, args: tuple) -> None:
+    entry = _entries.get(name)
+    if entry is None:
+        entry = _entries[name] = getattr(library(), "rt_" + name)
+        _resolve()
+    if _one_card:
+        index = current = 0
+    else:
+        index, current = device.index, _current_device()
+    if index is None or index == current:
+        code = entry(*args, _raw_stream(current))
+    else:
+        with torch.cuda.device(index):
+            code = entry(*args, _raw_stream(index))
+    if code:
+        check(code, name)
+
+
+_entries: dict = {}                # name -> the library's C entry rt_<name>
+_packed = threading.local()        # each thread's buffer for launch_packed
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the C entry ``rt_<name>`` with `args` and the current stream of
+    `device`, on that device; raise KernelLaunchError if it reports an
+    error. The device is switched only when it is not the current one."""
+    _call(name, device, args)
+
+
+def launch_packed(name: str, device: torch.device, layout: struct.Struct,
+                  *values) -> None:
+    """As `launch`, for a C entry that takes a pointer to its arguments
+    packed by `layout` into one struct: ctypes then converts one argument
+    instead of one for each value, which is most of a call's cost on the
+    host. Each thread packs into a buffer of its own."""
+    buf = getattr(_packed, "buf", None)
+    if buf is None or len(buf) < layout.size:
+        buf = _packed.buf = ctypes.create_string_buffer(max(layout.size, 256))
+        _packed.addr = (ctypes.addressof(buf),)
+    layout.pack_into(buf, 0, *values)
+    _call(name, device, _packed.addr)
 
 
 def check(code: int, name: str) -> None:

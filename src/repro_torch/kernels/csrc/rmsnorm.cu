@@ -1,18 +1,34 @@
-// RMSNorm with an optional residual add, one thread block per row.
+// RMSNorm with an optional residual add.
 //
 //   out = (x [+ residual]) * rsqrt(mean((x [+ residual])^2) + eps) * scale
 //
-// Statistics and arithmetic in float32, output in the type of x. The row is
-// read from device memory once, kept in shared memory as float32 while the
-// block reduces its sum of squares, and written once. Rows whose length and
-// addresses allow it move as 16-byte vectors; any other row length takes the
-// scalar path. The kernel is bound by bytes: nothing here is worth a tensor
-// core.
+// Statistics and arithmetic in float32, output in the type of x. The kernel
+// is bound by bytes: each element is read once and written once, and the
+// arithmetic is a handful of operations an element. Two kernels:
+//
+// - rmsnorm_reg_kernel, for rows that split into 16-byte vectors with no
+//   idle lane: a row is held in registers by `tpr` threads (a power of two
+//   up to kRegRowThreads),
+//   `nv` vectors each (at most kMaxVec), thread t holding the vectors
+//   t, t + tpr, ... so that a warp's loads are contiguous. A block holds
+//   `rpb` rows and walks over the rows with a stride of the grid; `scale`
+//   is read from device memory once a block into shared memory, for every
+//   row the block handles. The sum
+//   of squares is reduced with warp shuffles, and across the warps of a row
+//   through a named barrier of that row's threads only: no row waits for
+//   another. The host chooses tpr (kernels/rmsnorm.py, launch_shape); nv
+//   and rpb follow from it.
+// - rmsnorm_smem_kernel, for every other row: one block a row, the row in
+//   shared memory as float32 between the reduction and the scaling, 16-byte
+//   vectors where the length and the addresses allow, else scalars.
 #include "common.cuh"
 
 namespace rt {
 
-constexpr int kMaxThreads = 512;
+constexpr int kMaxThreads = 512;      // of the shared-memory kernel
+constexpr int kMaxVec = 8;            // 16-byte vectors a thread holds
+constexpr int kRegThreads = 256;     // threads of a block of the register kernel
+constexpr int kRegRowThreads = 512;  // threads of a float32 row at most (one a block)
 constexpr size_t kStaticSmem = 32 * sizeof(float);  // warp_sums
 constexpr size_t kMaxSmem = 227 * 1024;             // a block's share on sm_90
 
@@ -37,7 +53,7 @@ __device__ __forceinline__ float block_sum(float v, float* warp_sums) {
 
 template <typename T, typename TS, bool kVector>
 __global__ void __launch_bounds__(kMaxThreads)
-    rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ residual,
+    rmsnorm_smem_kernel(const T* __restrict__ x, const T* __restrict__ residual,
                    const TS* __restrict__ scale, T* __restrict__ out, int d,
                    float eps) {
   extern __shared__ __align__(16) float row[];  // d floats (padded to 4)
@@ -106,18 +122,244 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+// The scale of one 16-byte vector of x (Vec<T>::n elements of TS), kept as
+// 32-bit words: 2 to 8 registers instead of a float each.
+template <typename T, typename TS>
+struct ScaleVec {
+  static constexpr int V = Vec<T>::n;
+  static constexpr int W = V * static_cast<int>(sizeof(TS)) / 4;
+  uint32_t w[W];
+
+  // p is aligned to V * sizeof(TS) bytes
+  __device__ __forceinline__ void load(const TS* p) {
+    if constexpr (W == 2) {
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      w[0] = u.x;
+      w[1] = u.y;
+    } else {
+#pragma unroll
+      for (int k = 0; k < W / 4; ++k) {
+        const uint4 u = reinterpret_cast<const uint4*>(p)[k];
+        w[4 * k] = u.x;
+        w[4 * k + 1] = u.y;
+        w[4 * k + 2] = u.z;
+        w[4 * k + 3] = u.w;
+      }
+    }
+  }
+
+  __device__ __forceinline__ float get(int j) const {
+    if constexpr (sizeof(TS) == 4) {
+      return __uint_as_float(w[j]);
+    } else {  // bfloat16: the upper half of a float32
+      return __uint_as_float((j & 1) ? (w[j >> 1] & 0xffff0000u)
+                                     : (w[j >> 1] << 16));
+    }
+  }
+};
+
+// Wait for the `count` threads that use barrier `id` (1..15; 0 is
+// __syncthreads's).
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Raw 16-byte vector of x as floats.
+__device__ __forceinline__ void unpack16(const uint4& raw, float (&out)[4]) {
+  out[0] = __uint_as_float(raw.x);
+  out[1] = __uint_as_float(raw.y);
+  out[2] = __uint_as_float(raw.z);
+  out[3] = __uint_as_float(raw.w);
+}
+__device__ __forceinline__ void unpack16(const uint4& raw, float (&out)[8]) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[2 * i] = __uint_as_float(w[i] << 16);
+    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// kThreads bounds the block: 256, or 512 for a float32 row of 512 threads.
+// Without a residual the row stays in registers as it arrived (16 bytes a
+// vector: 32 registers for 8 vectors), which leaves room for several blocks
+// on an SM; with one, the sum x + residual is kept in float32.
+template <typename T, typename TS, int kThreads, bool kResidual>
+__global__ void __launch_bounds__(kThreads)
+    rmsnorm_reg_kernel(const T* __restrict__ x, const T* __restrict__ residual,
+                       const TS* __restrict__ scale, T* __restrict__ out,
+                       long long rows, int d, int tpr, int nv, int rpb,
+                       float eps) {
+  constexpr int V = Vec<T>::n;
+  // scale, read from device memory once a block for all the rows it
+  // handles (d * sizeof(TS) bytes, a multiple of 8)
+  extern __shared__ __align__(16) unsigned char scale_raw[];
+  // warp sums of a row spread over several warps, two sets so that a row
+  // may be written while the last one is still read
+  __shared__ float partial[2][32];
+  const int g = threadIdx.x / tpr;  // the block's row this thread works on
+  const int t = threadIdx.x - g * tpr;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int row_warps = tpr >> 5;   // 0 when a row is part of one warp
+
+  const int scale_words = d * static_cast<int>(sizeof(TS)) / 8;
+  for (int i = threadIdx.x; i < scale_words; i += blockDim.x) {
+    reinterpret_cast<uint2*>(scale_raw)[i] =
+        reinterpret_cast<const uint2*>(scale)[i];
+  }
+  __syncthreads();
+  const TS* scale_sm = reinterpret_cast<const TS*>(scale_raw);
+
+  int set = 0;
+  // The loop is the same for every thread of the block, so that every lane
+  // of a warp takes part in its shuffles; a row past the end does no loads.
+  for (long long r0 = static_cast<long long>(blockIdx.x) * rpb; r0 < rows;
+       r0 += static_cast<long long>(gridDim.x) * rpb) {
+    const long long row = r0 + g;
+    const bool live = row < rows;
+    const size_t base = static_cast<size_t>(live ? row : 0) * d;
+    uint4 raw[kMaxVec];
+    float sum[kResidual ? kMaxVec : 1][V];
+    float ss = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kMaxVec; ++j) {
+      if (j < nv && live) {
+        const size_t i = base + static_cast<size_t>(j * tpr + t) * V;
+        raw[j] = *reinterpret_cast<const uint4*>(x + i);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kMaxVec; ++j) {
+      if (j < nv && live) {
+        float v[V];
+        unpack16(raw[j], v);
+        if constexpr (kResidual) {
+          float r[V];
+          load16(residual + base + static_cast<size_t>(j * tpr + t) * V, r);
+#pragma unroll
+          for (int e = 0; e < V; ++e) sum[j][e] = v[e] + r[e];
+#pragma unroll
+          for (int e = 0; e < V; ++e) ss = fmaf(sum[j][e], sum[j][e], ss);
+        } else {
+#pragma unroll
+          for (int e = 0; e < V; ++e) ss = fmaf(v[e], v[e], ss);
+        }
+      }
+    }
+    // rows of fewer than 32 threads are aligned groups of lanes: the xor
+    // shuffles stay inside the row
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      if (off < tpr) ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    }
+    if (row_warps > 1) {
+      if (lane == 0) partial[set][warp] = ss;
+      named_barrier(1 + g, tpr);
+      ss = 0.0f;
+      for (int k = 0; k < row_warps; ++k) ss += partial[set][g * row_warps + k];
+      set ^= 1;
+    }
+    const float inv = rsqrtf(ss / static_cast<float>(d) + eps);
+#pragma unroll
+    for (int j = 0; j < kMaxVec; ++j) {
+      if (j < nv && live) {
+        const int col = (j * tpr + t) * V;
+        ScaleVec<T, TS> sc;
+        sc.load(scale_sm + col);
+        float v[V];
+        if constexpr (kResidual) {
+#pragma unroll
+          for (int e = 0; e < V; ++e) v[e] = sum[j][e];
+        } else {
+          unpack16(raw[j], v);
+        }
+        float yv[V];
+#pragma unroll
+        for (int e = 0; e < V; ++e) yv[e] = v[e] * inv * sc.get(e);
+        store16(out + base + col, yv);
+      }
+    }
+  }
+}
+
+// Streaming multiprocessors of the current card, looked up once a card.
+inline int sm_count() {
+  static int counts[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (counts[dev] == 0) {
+    int n = 0;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    counts[dev] = n > 0 ? n : 132;
+  }
+  return counts[dev];
+}
+
+template <typename T, typename TS>
+int launch_rmsnorm_reg(const void* x, const void* residual, const void* scale,
+                       void* out, long long rows, int d, float eps, int tpr,
+                       cudaStream_t stream) {
+  constexpr int V = Vec<T>::n;
+  const bool pow2 = (tpr & (tpr - 1)) == 0;
+  const int nv = d / V / tpr;
+  // a block of kRegThreads threads holds kRegThreads / tpr rows, or one
+  const int rpb = tpr < kRegThreads ? kRegThreads / tpr : 1;
+  if (!pow2 || tpr > kRegRowThreads || nv < 1 || nv > kMaxVec ||
+      static_cast<long long>(tpr) * nv * V != d) {
+    return kBadShape;
+  }
+  const int threads = tpr * rpb;
+  long long blocks = (rows + rpb - 1) / rpb;
+  // enough blocks to fill the card; each then walks over several rows
+  const long long fill = static_cast<long long>(sm_count()) * (2048 / threads);
+  if (blocks > fill) blocks = fill;
+  const bool res = residual != nullptr;
+  auto kernel = res ? rmsnorm_reg_kernel<T, TS, kRegThreads, true>
+                    : rmsnorm_reg_kernel<T, TS, kRegThreads, false>;
+  if constexpr (sizeof(T) == 4) {
+    if (threads > kRegThreads) {
+      kernel = res ? rmsnorm_reg_kernel<T, TS, kRegRowThreads, true>
+                   : rmsnorm_reg_kernel<T, TS, kRegRowThreads, false>;
+    }
+  } else if (threads > kRegThreads) {
+    return kBadShape;
+  }
+  const size_t smem = static_cast<size_t>(d) * sizeof(TS);
+  if (smem + 2 * 32 * sizeof(float) > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(residual),
+      static_cast<const TS*>(scale), static_cast<T*>(out), rows, d, tpr, nv,
+      rpb, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, typename TS>
 int launch_rmsnorm(const void* x, const void* residual, const void* scale,
-                   void* out, long long rows, int d, float eps, int vector,
+                   void* out, long long rows, int d, float eps, int mode,
                    cudaStream_t stream) {
+  if (mode > 0) {
+    return launch_rmsnorm_reg<T, TS>(x, residual, scale, out, rows, d, eps,
+                                     mode, stream);
+  }
+  const bool vector = mode == 0;
+  // The row is held in shared memory as float32.
+  if ((static_cast<size_t>(d) + 4) * sizeof(float) + kStaticSmem > kMaxSmem) {
+    return kBadShape;
+  }
   constexpr int V = Vec<T>::n;
   const int per_thread = vector ? V : 1;
   int threads = (d + per_thread - 1) / per_thread;
   threads = ((threads + 31) / 32) * 32;
   if (threads > kMaxThreads) threads = kMaxThreads;
   const size_t smem = static_cast<size_t>((d + 3) / 4) * 4 * sizeof(float);
-  auto kernel = vector ? rmsnorm_kernel<T, TS, true>
-                       : rmsnorm_kernel<T, TS, false>;
+  auto kernel = vector ? rmsnorm_smem_kernel<T, TS, true>
+                       : rmsnorm_smem_kernel<T, TS, false>;
   // 48 KB is the most a block gets unasked, static shared memory included
   if (smem + kStaticSmem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -133,37 +375,51 @@ int launch_rmsnorm(const void* x, const void* residual, const void* scale,
 
 }  // namespace rt
 
-// x, residual (may be null), out: (rows, d) contiguous, of x_dtype.
-// scale: (d,) of scale_dtype. vector != 0 promises that d is a multiple of
-// 16 bytes' worth of elements and that x, residual and out are 16-byte
-// aligned. Returns 0, a CUDA error code, or a negative code for arguments
-// the kernel does not take.
-extern "C" int rt_rmsnorm(const void* x, const void* residual,
-                          const void* scale, void* out, long long rows, int d,
-                          float eps, int x_dtype, int scale_dtype, int vector,
-                          void* stream) {
+// The arguments of rt_rmsnorm, packed by the caller into one struct
+// (kernels/rmsnorm.py, _ARGS): one argument to convert instead of nine,
+// which is most of the cost of a call from Python at a decode step.
+// x, residual (may be null), out: (rows, d) contiguous, of the type of
+// dtypes & 1; scale: (d,) of the type of dtypes >> 1 (0 float32, 1
+// bfloat16). mode > 0 takes the register kernel with `mode` threads a row
+// (kernels/rmsnorm.py, launch_shape) and promises d a multiple of mode
+// 16-byte vectors and x, residual, out and scale 16-byte aligned. mode == 0
+// takes the shared-memory kernel with 16-byte vectors and promises d a
+// multiple of 16 bytes' worth of elements and x, residual and out 16-byte
+// aligned; mode < 0 takes it with scalars.
+struct RmsnormArgs {
+  const void* x;
+  const void* residual;
+  const void* scale;
+  void* out;
+  long long rows;
+  int d;
+  float eps;
+  int dtypes;
+  int mode;
+};
+static_assert(sizeof(RmsnormArgs) == 56, "the layout kernels/rmsnorm.py packs");
+
+// Returns 0, a CUDA error code, or a negative code for arguments the
+// kernels do not take.
+extern "C" int rt_rmsnorm(const RmsnormArgs* args, void* stream) {
   using namespace rt;
-  if (rows <= 0 || d <= 0 || rows > 2147483647LL) return kBadShape;
-  // The row is held in shared memory as float32.
-  if ((static_cast<size_t>(d) + 4) * sizeof(float) + kStaticSmem > kMaxSmem) {
-    return kBadShape;
-  }
+  const RmsnormArgs a = *args;
+  if (a.rows <= 0 || a.d <= 0 || a.rows > 2147483647LL) return kBadShape;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == kFloat32 && scale_dtype == kFloat32) {
-    return launch_rmsnorm<float, float>(x, residual, scale, out, rows, d, eps,
-                                        vector, s);
+  switch (a.dtypes) {
+    case kFloat32 | kFloat32 << 1:
+      return launch_rmsnorm<float, float>(a.x, a.residual, a.scale, a.out,
+                                          a.rows, a.d, a.eps, a.mode, s);
+    case kFloat32 | kBFloat16 << 1:
+      return launch_rmsnorm<float, __nv_bfloat16>(
+          a.x, a.residual, a.scale, a.out, a.rows, a.d, a.eps, a.mode, s);
+    case kBFloat16 | kFloat32 << 1:
+      return launch_rmsnorm<__nv_bfloat16, float>(
+          a.x, a.residual, a.scale, a.out, a.rows, a.d, a.eps, a.mode, s);
+    case kBFloat16 | kBFloat16 << 1:
+      return launch_rmsnorm<__nv_bfloat16, __nv_bfloat16>(
+          a.x, a.residual, a.scale, a.out, a.rows, a.d, a.eps, a.mode, s);
+    default:
+      return kBadDtype;
   }
-  if (x_dtype == kFloat32 && scale_dtype == kBFloat16) {
-    return launch_rmsnorm<float, __nv_bfloat16>(x, residual, scale, out, rows,
-                                                d, eps, vector, s);
-  }
-  if (x_dtype == kBFloat16 && scale_dtype == kFloat32) {
-    return launch_rmsnorm<__nv_bfloat16, float>(x, residual, scale, out, rows,
-                                                d, eps, vector, s);
-  }
-  if (x_dtype == kBFloat16 && scale_dtype == kBFloat16) {
-    return launch_rmsnorm<__nv_bfloat16, __nv_bfloat16>(
-        x, residual, scale, out, rows, d, eps, vector, s);
-  }
-  return kBadDtype;
 }

@@ -95,7 +95,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
 
-    if str(q.dtype) not in build.DTYPE_CODES:
+    code = build.DTYPE_CODES.get(q.dtype)
+    if code is None:
         raise TypeError(f"flash_attention kernel takes float32 and bfloat16, "
                         f"got {q.dtype}")
     if D not in HEAD_DIMS:
@@ -106,16 +107,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_strides(name, t)
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
-    lib = build.library()
-    with torch.cuda.device(q.device):
-        code = lib.rt_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Sq, Skv, H, Hkv, D,
-            *kernel_strides(q), *kernel_strides(k), *kernel_strides(v),
-            int(bool(causal)), 1.0 / math.sqrt(D),
-            build.DTYPE_CODES[str(q.dtype)],
-            torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(code, "flash_attention")
+    build.launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), out.data_ptr(), B, Sq, Skv, H, Hkv, D,
+                 *kernel_strides(q), *kernel_strides(k), *kernel_strides(v),
+                 int(bool(causal)), 1.0 / math.sqrt(D), code)
     flash_attention.launches += 1
     return out
 

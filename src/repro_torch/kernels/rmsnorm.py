@@ -3,22 +3,36 @@
 Replaces the Pallas kernel ``repro/kernels/rmsnorm.py`` (``rmsnorm``). On an
 H100 the function is bound by bytes: every element is read once and written
 once, and the arithmetic is a handful of operations an element. The kernel
-(``csrc/rmsnorm.cu``) therefore gives one block to each row, moves the row in
-16-byte vectors where its length and addresses allow, holds it in shared
-memory as float32 between the reduction and the scaling so that device memory
-sees one read and one write, and makes no padded copy of the rows. At a
-handful of rows (one decode step) the time is the launch itself.
+(``csrc/rmsnorm.cu``) keeps a row in registers, spread over a power of two
+of threads that each hold a few 16-byte vectors (``launch_shape`` picks them
+so that no lane idles: 3584 bf16 = 64 threads x 7 vectors, 4096 = 64 x 8,
+7168 = 128 x 7, 12288 = 256 x 6), reduces with warp shuffles and gives a
+block of 256 threads several rows. A row that does not split so, or is not
+16-byte aligned, takes the older kernel: one block a row, the row in shared
+memory as float32. Neither makes a padded copy of the rows.
+
+At a handful of rows (one decode step) the time is the call on the host, so
+the wrapper does the least it can per call: dtype codes and the launch
+shape from a cache keyed by ``torch.dtype``, a copy only of a tensor that is
+not contiguous, alignment tested on the pointers' bits, the arguments packed
+into one struct for ctypes, and the device switched only when it is not the
+current one (``build.launch_packed``).
 
 Like the kernel it replaces it returns the normed tensor only, not the sum
 ``x + residual``.
 """
 from __future__ import annotations
 
-from typing import Optional
+import struct
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
+
+MAX_VECTORS = 8        # 16-byte vectors a thread holds (csrc/rmsnorm.cu, kMaxVec)
+BLOCK_THREADS = 256    # threads of a block (kRegThreads) ...
+ROW_THREADS = 512      # ... unless a float32 row takes more (kRegRowThreads)
 
 
 def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5,
@@ -31,6 +45,50 @@ def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5,
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
+def launch_shape(d: int, itemsize: int) -> Optional[Tuple[int, int, int]]:
+    """(threads per row, 16-byte vectors per thread, rows per block) of the
+    register kernel for rows of `d` elements of `itemsize` bytes: the fewest
+    threads, a power of two, that hold the row's vectors with at most
+    MAX_VECTORS each and every thread as many; up to BLOCK_THREADS, or
+    ROW_THREADS for float32 (a bfloat16 row's vectors take twice the
+    registers, which a block of 512 threads does not have). None when there
+    are none: such a row takes the shared-memory kernel."""
+    per16 = 16 // itemsize
+    if d % per16:
+        return None
+    vectors = d // per16
+    threads = 1
+    while threads <= (ROW_THREADS if itemsize == 4 else BLOCK_THREADS):
+        if vectors % threads == 0 and vectors // threads <= MAX_VECTORS:
+            return threads, vectors // threads, max(1, BLOCK_THREADS // threads)
+        threads *= 2
+    return None
+
+
+# the C entry's arguments (csrc/rmsnorm.cu, RmsnormArgs): x, residual, scale,
+# out, rows, d, eps, dtypes, mode
+_ARGS = struct.Struct("=QQQQqifii")
+
+# per (d, x dtype, scale dtype): (dtype codes of the C entry, threads per
+# row of the register kernel or 0, whether a row is whole 16-byte vectors)
+_PLANS: Dict[tuple, Tuple[int, int, bool]] = {}
+
+
+def _plan(d: int, x_dtype: torch.dtype,
+          scale_dtype: torch.dtype) -> Tuple[int, int, bool]:
+    x_code = build.DTYPE_CODES.get(x_dtype)
+    scale_code = build.DTYPE_CODES.get(scale_dtype)
+    if x_code is None or scale_code is None:
+        raise TypeError(f"rmsnorm takes float32 and bfloat16, got "
+                        f"x {x_dtype}, scale {scale_dtype}")
+    itemsize = x_dtype.itemsize
+    shape = launch_shape(d, itemsize)
+    plan = (x_code | scale_code << 1, shape[0] if shape else 0,
+            d * itemsize % 16 == 0)
+    _PLANS[(d, x_dtype, scale_dtype)] = plan
+    return plan
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5,
             residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: (..., d), scale: (d,). Returns rms_norm(x [+ residual]) * scale.
@@ -41,41 +99,44 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5,
     d = x.shape[-1]
     if scale.shape != (d,):
         raise ValueError(f"scale {tuple(scale.shape)} does not match d={d}")
+    device = x.device
     if residual is not None and (residual.shape != x.shape or
                                  residual.dtype != x.dtype or
-                                 residual.device != x.device):
+                                 residual.device != device):
         raise ValueError("residual must match x in shape, dtype and device")
-    if scale.device != x.device:
-        raise ValueError(f"scale on {scale.device}, x on {x.device}")
-    if x.device.type == "cpu":
-        return rmsnorm_plain(x, scale, eps=eps, residual=residual)
-    if x.device.type != "cuda":
-        raise ValueError(f"rmsnorm: unsupported device {x.device}")
+    if scale.device != device:
+        raise ValueError(f"scale on {scale.device}, x on {device}")
+    codes, tpr, whole = _PLANS.get((d, x.dtype, scale.dtype)) or \
+        _plan(d, x.dtype, scale.dtype)
+    if not x.is_cuda:
+        if device.type == "cpu":
+            return rmsnorm_plain(x, scale, eps=eps, residual=residual)
+        raise ValueError(f"rmsnorm: unsupported device {device}")
 
-    codes = build.DTYPE_CODES
-    if str(x.dtype) not in codes or str(scale.dtype) not in codes:
-        raise TypeError(f"rmsnorm kernel takes float32 and bfloat16, got "
-                        f"x {x.dtype}, scale {scale.dtype}")
-    if x.numel() == 0:
+    rows = x.numel() // d if d else 0
+    if rows == 0:
         return torch.empty_like(x)
-    x = x.contiguous()
-    scale = scale.contiguous()
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if not scale.is_contiguous():
+        scale = scale.contiguous()
+    res_ptr = 0
     if residual is not None:
-        residual = residual.contiguous()
+        if not residual.is_contiguous():
+            residual = residual.contiguous()
+        res_ptr = residual.data_ptr()
     out = torch.empty_like(x)
-    per16 = 16 // x.element_size()
-    ptrs = [x.data_ptr(), out.data_ptr()]
-    if residual is not None:
-        ptrs.append(residual.data_ptr())
-    vector = d % per16 == 0 and all(p % 16 == 0 for p in ptrs)
-    lib = build.library()
-    with torch.cuda.device(x.device):
-        code = lib.rt_rmsnorm(
-            x.data_ptr(), residual.data_ptr() if residual is not None else None,
-            scale.data_ptr(), out.data_ptr(), x.numel() // d, d, float(eps),
-            codes[str(x.dtype)], codes[str(scale.dtype)], int(vector),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(code, "rmsnorm")
+    x_ptr, out_ptr, scale_ptr = x.data_ptr(), out.data_ptr(), scale.data_ptr()
+    # the register kernel (tpr threads a row), else the shared-memory kernel
+    # with 16-byte vectors (0) or scalars (-1)
+    if (x_ptr | out_ptr | res_ptr) & 15:
+        mode = -1
+    elif tpr and not scale_ptr & 15:
+        mode = tpr
+    else:
+        mode = 0 if whole else -1
+    build.launch_packed("rmsnorm", device, _ARGS, x_ptr, res_ptr, scale_ptr,
+                        out_ptr, rows, d, eps, codes, mode)
     rmsnorm.launches += 1
     return out
 

@@ -1,26 +1,36 @@
-"""Mamba2 SSD chunked scan: CUDA kernel, wrapper, plain version.
+"""Mamba2 SSD chunked scan: CUDA kernels, wrapper, plain version.
 
 Replaces the Pallas kernel ``repro/kernels/ssd.py`` (``ssd``) and keeps the
 contract of its wrapper ``repro/kernels/ops.py`` (``ssd``):
 ``(xs, dt, A, Bm, Cm) -> (y float32, None)``; no final state is returned,
 as the TPU kernel emits none.
 
-On an H100 the function is bound by float32 operations at the prefill shape
-(B=4, S=2048, H=112, P=N=64: about 25 GFLOP with the kernel's 64-row tile,
-against 0.36 GB of xs and y). The kernel (``csrc/ssd.cu``) gives one block to
-each (batch, head) and keeps the (N, P) state in shared memory across the
-tiles, which is the TPU kernel's sequential grid dimension made a loop. Its
-tile is **64 rows**, not the reference's chunk of 256: the 256 x 256 float32
-decay-weighted C B^T tile alone would be 256 KB against 227 KB of shared
-memory a block, and y does not depend on the tile but through rounding (the
-closed form is exact), while the O(Q^2) work falls with it. ``chunk`` steers
-the plain version only. The three products of a tile run as float32 FMAs
-from shared memory, 4 x 4 outputs a thread; xs, Bm and Cm are read through
-their strides in ``(B, S, H, .)``, and Bm and Cm may be ``expand()``ed views
-with a zero head stride, so ``mamba2`` hands the kernel its one group as is
-instead of a repeated copy for every head. A tile cut short by the end of
-the sequence is masked in the kernel. Tensor cores for C B^T and a
-chunk-parallel scan are the work that remains.
+On an H100 the bfloat16 call at zamba2-7b's prefill shape (B=4, S=2048,
+H=112, P=N=64) is bound by bytes: 0.36 GB, two thirds of it the float32 y,
+against 23 GFLOP of the chunked form. Both kernels (``csrc/ssd.cu``) keep the
+(N, P) state on the SM across the sequence, which is the TPU kernel's
+sequential grid dimension made a loop, and take a tile of **64 rows**, not
+the reference's chunk of 256: the 256 x 256 float32 decay-weighted C B^T
+tile alone would be 256 KB against 227 KB of shared memory a block, and y
+does not depend on the tile but through rounding (the closed form is exact),
+while the O(Q^2) work falls with it. ``chunk`` steers the plain version
+only.
+
+- bfloat16 xs, Bm, Cm: a block of four warps owns a (batch, head) and
+  ``p_block(P)`` columns of P (the columns are independent, so 64 splits
+  into two blocks of 32 and the grid doubles). The four products of a tile
+  run on the tensor cores (``mma.sync`` bf16, float32 sums); the float32
+  operands (M, the state, B scaled by the decay weights) go through a high
+  and a low bfloat16 half, so they keep about 16 bits. The next tile's x, B,
+  C and dt are copied by ``cp.async`` while this one computes.
+- float32 xs, Bm, Cm: one block of 256 threads owns a (batch, head) and does
+  the products as float32 FMAs from shared memory, which meets float32's
+  2e-5 where TF32 products would not.
+
+xs, Bm and Cm are read through their strides in ``(B, S, H, .)``, and Bm and
+Cm may be ``expand()``ed views with a zero head stride, so ``mamba2`` hands
+the kernel its one group as is instead of a repeated copy for every head. A
+tile cut short by the end of the sequence is masked in the kernel.
 """
 from __future__ import annotations
 
@@ -31,8 +41,15 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build
 
-TILE = 64          # rows of the kernel's tile (csrc/ssd.cu, kSsdQ)
-MAX_DIM = 64       # P and N the kernel takes at most
+TILE = 64          # rows of the kernels' tile (csrc/ssd.cu, kSsdQ)
+MAX_DIM = 64       # P and N the kernels take at most
+
+
+def p_block(P: int) -> int:
+    """Columns of P a block of the bfloat16 kernel takes: 16 up to P = 16,
+    else 32 (ceil(P / 32) blocks a head). The kernel's register tiles come
+    in these two widths."""
+    return 16 if P <= 16 else 32
 
 
 def ssd_chunked(xs, dt, A, Bm, Cm, chunk: int, h0=None):
@@ -111,7 +128,8 @@ def ssd(xs: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if xs.device.type != "cuda":
         raise ValueError(f"ssd: unsupported device {xs.device}")
 
-    if str(xs.dtype) not in build.DTYPE_CODES:
+    code = build.DTYPE_CODES.get(xs.dtype)
+    if code is None:
         raise TypeError(f"ssd kernel takes float32 and bfloat16 xs, Bm, Cm, "
                         f"got {xs.dtype}")
     if dt.dtype != torch.float32 or A.dtype != torch.float32:
@@ -127,15 +145,10 @@ def ssd(xs: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                              f"dimension, got strides {t.stride()}")
     A = A.contiguous()
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=xs.device)
-    lib = build.library()
-    with torch.cuda.device(xs.device):
-        code = lib.rt_ssd(
-            xs.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), y.data_ptr(), B, S, H, P, N,
-            *xs.stride()[:3], *dt.stride(), *Bm.stride()[:3],
-            *Cm.stride()[:3], build.DTYPE_CODES[str(xs.dtype)],
-            torch.cuda.current_stream(xs.device).cuda_stream)
-    build.check(code, "ssd")
+    build.launch("ssd", xs.device, xs.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                 Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), B, S, H, P, N,
+                 *xs.stride()[:3], *dt.stride(), *Bm.stride()[:3],
+                 *Cm.stride()[:3], code, p_block(P))
     ssd.launches += 1
     return y, None
 

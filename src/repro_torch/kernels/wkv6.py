@@ -121,7 +121,8 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
         raise ValueError(f"wkv6: unsupported device {r.device}")
 
     B, S, H, K = r.shape
-    if str(r.dtype) not in build.DTYPE_CODES:
+    code = build.DTYPE_CODES.get(r.dtype)
+    if code is None:
         raise TypeError(f"wkv6 kernel takes float32 and bfloat16 r, k, v, "
                         f"got {r.dtype}")
     f32 = torch.float32
@@ -142,16 +143,12 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
     if state_out is None:
         state_out = torch.empty((B, H, K, K), dtype=f32, device=r.device)
     y = torch.empty((B, S, H, K), dtype=f32, device=r.device)
-    lib = build.library()
-    with torch.cuda.device(r.device):
-        code = lib.rt_wkv6(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
-            u.data_ptr(), state.data_ptr() if state is not None else None,
-            state_out.data_ptr(), y.data_ptr(), B, S, H, K,
-            *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *lw.stride()[:3], build.DTYPE_CODES[str(r.dtype)],
-            torch.cuda.current_stream(r.device).cuda_stream)
-    build.check(code, "wkv6")
+    build.launch("wkv6", r.device, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 lw.data_ptr(), u.data_ptr(),
+                 state.data_ptr() if state is not None else None,
+                 state_out.data_ptr(), y.data_ptr(), B, S, H, K,
+                 *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 *lw.stride()[:3], code)
     wkv6.launches += 1
     return y, state_out
 

@@ -8,10 +8,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import RunConfig, get_arch
+from repro_torch.configs import ARCHS, RunConfig, get_arch
+from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
-from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+from repro_torch.kernels.rmsnorm import launch_shape, rmsnorm, rmsnorm_plain
 from repro_torch.kernels.ssd import TILE, ssd, ssd_plain
 from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
 from repro_torch.models import Model
@@ -21,6 +22,11 @@ pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # wkv6 in float32: the chunked recurrence re-associated (tests/test_kernels.py)
 WKV_TOL = {torch.float32: (1e-4, 5e-4), torch.bfloat16: (2e-2, 2e-2)}
+# every width a norm of the port's configurations sees: d_model, and the
+# Mamba2 block's inner width (ssm_norm) of the hybrid family
+NORM_WIDTHS = sorted({c.d_model for c in ARCHS.values()} |
+                     {c.ssm.expand * c.d_model for c in ARCHS.values()
+                      if c.family == "hybrid"})
 
 
 @pytest.fixture
@@ -121,6 +127,69 @@ def test_rmsnorm_kernel(card, shape, dtype, residual, scale_dtype):
     assert_close(got, rmsnorm_plain(x, sc, residual=r), dtype)
 
 
+@pytest.mark.parametrize("d", NORM_WIDTHS)
+@pytest.mark.parametrize("rows", [1, 8, 8192])
+@pytest.mark.parametrize("residual", [False, True])
+def test_rmsnorm_kernel_at_model_widths(card, d, rows, residual):
+    """bf16 rows of every norm width of the configurations, at a decode
+    step's and a prefill's row counts: the register kernel's shapes."""
+    assert launch_shape(d, 2) is not None
+    dtype = torch.bfloat16
+    x = randn(card, 8, (rows, d), dtype)
+    r = randn(card, 9, (rows, d), dtype) if residual else None
+    sc = (1.0 + 0.1 * randn(card, 10, (d,), torch.float32)).to(dtype)
+    before = rmsnorm.launches
+    got = rmsnorm(x, sc, residual=r)
+    assert rmsnorm.launches == before + 1
+    assert_close(got, rmsnorm_plain(x, sc, residual=r), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_takes_strided_and_misaligned_views(card, dtype):
+    """A non-contiguous x (copied, then the register kernel) and views one
+    element off 16 bytes, x and residual (the shared-memory kernel's scalar
+    path): the vector path's guard holds."""
+    rows, d = 6, 4096
+    sc = (1.0 + 0.1 * randn(card, 11, (d,), torch.float32)).to(dtype)
+    wide = randn(card, 12, (rows, 2 * d), dtype)
+    x = wide[:, ::2]
+    assert not x.is_contiguous()
+    assert_close(rmsnorm(x, sc), rmsnorm_plain(x, sc), dtype)
+    flat = randn(card, 13, (2 * rows * d + 2,), dtype)
+    xm = flat[1:rows * d + 1].view(rows, d)
+    rm = flat[rows * d + 2:].view(rows, d)
+    assert xm.data_ptr() % 16 and rm.data_ptr() % 16
+    before = rmsnorm.launches
+    got = rmsnorm(xm, sc, residual=rm)
+    assert rmsnorm.launches == before + 1
+    assert_close(got, rmsnorm_plain(xm, sc, residual=rm), dtype)
+    odd_scale = randn(card, 14, (d + 1,), dtype)[1:]
+    assert odd_scale.data_ptr() % 16
+    assert_close(rmsnorm(x.contiguous(), odd_scale),
+                 rmsnorm_plain(x, odd_scale), dtype)
+
+
+def test_rmsnorm_kernel_runs_on_the_current_stream(card):
+    """Inside ``torch.cuda.stream(s)`` the kernel runs on s: it sees a copy
+    into x that s makes after a sleep, which a launch on the default stream
+    would overtake."""
+    rows, d = 8, 4096
+    dtype = torch.bfloat16
+    new = randn(card, 15, (rows, d), dtype)
+    x = randn(card, 16, (rows, d), dtype)
+    sc = (1.0 + 0.1 * randn(card, 17, (d,), torch.float32)).to(dtype)
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        assert build.current_stream(card.index or 0) == s.cuda_stream
+        torch.cuda._sleep(50_000_000)          # some tens of milliseconds
+        x.copy_(new)
+        got = rmsnorm(x, sc)
+    assert build.current_stream(card.index or 0) != s.cuda_stream
+    s.synchronize()
+    assert_close(got, rmsnorm_plain(new, sc), dtype)
+
+
 @pytest.mark.parametrize("B,S,H,K", [(1, 16, 1, 8), (2, 40, 3, 16),
                                      (1, 33, 2, 32), (2, 100, 4, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -186,6 +255,14 @@ def ssd_inputs(card, B, S, H, P, N, dtype, seed=0):
     return xs, dt, A, Bm, Cm
 
 
+# the bf16 tensor-core kernel's boundaries: sequences around the 64-row
+# tile; P and N of 8 to 64, in pairs that cross its blocks along P (16, 32)
+# and its padding of N to 16; P, N no multiple of 8 (element-wise loads)
+SSD_BF16_SHAPES = [(2, 1, 3, 8, 16), (1, 63, 2, 32, 4), (2, 64, 2, 16, 32),
+                   (1, 65, 3, 64, 8), (1, 200, 2, 8, 64), (2, 65, 2, 32, 32),
+                   (1, 63, 2, 64, 16), (1, 129, 2, 40, 24), (1, 70, 2, 12, 20)]
+
+
 @pytest.mark.parametrize("B,S,H,P,N", [(1, 32, 2, 16, 8), (2, 50, 3, 8, 16),
                                        (1, 16, 1, 32, 4), (2, 200, 4, 64, 64),
                                        (1, 1, 2, 64, 64)])
@@ -203,17 +280,67 @@ def test_ssd_kernel(card, B, S, H, P, N, dtype):
                                atol=TOL[dtype], rtol=TOL[dtype])
 
 
+@pytest.mark.parametrize("B,S,H,P,N", SSD_BF16_SHAPES)
+def test_ssd_bf16_kernel_at_tile_and_block_boundaries(card, B, S, H, P, N):
+    """The bf16 kernel against the plain version at the kernel's tile.
+    bf16 only: at one whole tile of the reference test's dt and A (S = 63,
+    64) the float32 kernel's rounding passes float32's 2e-5 (up to 1.9e-4,
+    ROADMAP Queue 3)."""
+    dtype = torch.bfloat16
+    xs, dt, A, Bm, Cm = ssd_inputs(card, B, S, H, P, N, dtype)
+    before = ssd.launches
+    got, none = ssd(xs, dt, A, Bm, Cm)
+    assert ssd.launches == before + 1 and none is None
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ssd_plain(xs, dt, A, Bm, Cm, chunk=TILE)[0],
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("B,S,H,P,N", [(2, 130, 6, 64, 64), (1, 65, 3, 32, 16)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ssd_kernel_reads_one_group_expanded(card, dtype):
+def test_ssd_kernel_reads_one_group_expanded(card, B, S, H, P, N, dtype):
     """Bm / Cm of one group as expand()ed views (zero head stride), as
     mamba2 hands them over, against the repeated tensors."""
-    B, S, H, P, N = 2, 130, 6, 64, 64
     xs, dt, A, _, _ = ssd_inputs(card, B, S, H, P, N, dtype, seed=30)
     bg, cg = (randn(card, 40 + i, (B, S, 1, N), dtype) for i in range(2))
     Bx, Cx = bg.expand(B, S, H, N), cg.expand(B, S, H, N)
     assert Bx.stride(2) == 0
     got, _ = ssd(xs, dt, A, Bx, Cx)
     want, _ = ssd_plain(xs, dt, A, Bx.contiguous(), Cx.contiguous(), chunk=TILE)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_ssd_kernel_bf16_over_2048_rows(card):
+    """bf16 over 2048 rows (32 tiles) with mamba2's dt and A and one group of
+    B, C: the state grows to hundreds, and the hi/lo halves of the float32
+    operands keep y within bf16's tolerance of the plain version at the
+    kernel's tile."""
+    B, S, H, P, N = 1, 2048, 4, 64, 64
+    dtype = torch.bfloat16
+    xs, dt, A, _, _ = ssd_inputs(card, B, S, H, P, N, dtype, seed=50)
+    bg, cg = (randn(card, 60 + i, (B, S, 1, N), dtype) for i in range(2))
+    Bx, Cx = bg.expand(B, S, H, N), cg.expand(B, S, H, N)
+    got, _ = ssd(xs, dt, A, Bx, Cx)
+    want, _ = ssd_plain(xs, dt, A, Bx, Cx, chunk=TILE)
+    torch.cuda.synchronize()
+    print(f"ssd bf16 over {S} rows: max abs err "
+          f"{float((got - want).abs().max()):.3e}, max |y| "
+          f"{float(want.abs().max()):.3e}")
+    torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_reads_unaligned_rows(card, dtype):
+    """xs, Bm and Cm one element off 16 bytes: element-wise loads in the bf16
+    kernel instead of cp.async."""
+    B, S, H, P, N = 1, 100, 2, 32, 16
+    xs, dt, A, Bm, Cm = ssd_inputs(card, B, S, H, P, N, dtype, seed=70)
+    xs_o, Bm_o, Cm_o = (torch.cat([t[..., :1], t], dim=-1)[..., 1:]
+                        for t in (xs, Bm, Cm))
+    assert xs_o.data_ptr() % 16 and torch.equal(xs_o, xs)
+    got, _ = ssd(xs_o, dt, A, Bm_o, Cm_o)
+    want, _ = ssd_plain(xs, dt, A, Bm, Cm, chunk=TILE)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
 

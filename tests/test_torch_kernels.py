@@ -12,11 +12,15 @@ import torch
 from repro.kernels import ops
 
 import repro_torch
+from repro_torch.configs import ARCHS
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain,
                                                  kernel_strides)
-from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+from repro_torch.kernels.rmsnorm import (BLOCK_THREADS, MAX_VECTORS,
+                                        ROW_THREADS, launch_shape, rmsnorm,
+                                        rmsnorm_plain)
+from repro_torch.kernels.ssd import p_block
 from test_torch_parity import as_f32, to_jax, to_torch
 
 
@@ -156,3 +160,71 @@ def test_default_device_is_the_gpu_and_raises_without_one():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             repro_torch.resolve_device(None)
     assert repro_torch.resolve_device("cpu").type == "cpu"
+
+
+def test_rmsnorm_wrapper_still_checks_its_arguments_on_cpu_tensors():
+    """The trimmed per-call path keeps every check that rejects a wrong
+    argument, and makes them before a CPU tensor goes to the plain version."""
+    x = torch.zeros((4, 64))
+    sc = torch.ones((64,))
+    with pytest.raises(ValueError, match="does not match"):
+        rmsnorm(x, torch.ones((4, 64)))
+    for bad in (torch.zeros((4, 32)), torch.zeros((4, 64), dtype=torch.bfloat16),
+                torch.zeros((4, 64), device="meta")):
+        with pytest.raises(ValueError, match="residual must match"):
+            rmsnorm(x, sc, residual=bad)
+    with pytest.raises(ValueError, match="scale on meta"):
+        rmsnorm(x, torch.ones((64,), device="meta"))
+    with pytest.raises(TypeError, match="float32 and bfloat16"):
+        rmsnorm(x.half(), sc)
+    with pytest.raises(TypeError, match="float32 and bfloat16"):
+        rmsnorm(x, sc.double())
+    assert build.DTYPE_CODES == {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _norm_widths():
+    """Every width a norm of the port's configurations sees, full and
+    reduced: d_model, and the Mamba2 block's inner width (ssm_norm)."""
+    widths = set()
+    for cfg in ARCHS.values():
+        for c in (cfg, cfg.reduced()):
+            widths.add(c.d_model)
+            if c.family == "hybrid":
+                widths.add(c.ssm.expand * c.d_model)
+    return sorted(widths)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_rmsnorm_launch_shape_leaves_no_lane_idle(itemsize):
+    """Every norm width of the configurations, bf16 and f32, gets a register
+    kernel shape whose threads each hold the same number of whole 16-byte
+    vectors, within the kernel's limits; in bf16, 3584, 4096, 7168 and 12288
+    get 64 x 7, 64 x 8, 128 x 7 and 256 x 6."""
+    per16 = 16 // itemsize
+    for d in _norm_widths():
+        shape = launch_shape(d, itemsize)
+        assert shape is not None, d
+        threads, vectors, rows = shape
+        assert threads & (threads - 1) == 0 and threads <= ROW_THREADS
+        assert 1 <= vectors <= MAX_VECTORS
+        assert threads * vectors * per16 == d
+        assert threads * rows == max(threads, BLOCK_THREADS)
+    if itemsize == 2:
+        assert [launch_shape(d, 2)[:2] for d in (3584, 4096, 7168, 12288)] == \
+            [(64, 7), (64, 8), (128, 7), (256, 6)]
+    # no whole vectors, or more than a row of threads can hold: the
+    # shared-memory kernel
+    assert launch_shape(70, itemsize) is None
+    assert launch_shape(20000, itemsize) is None
+
+
+def test_ssd_p_block_leaves_no_column_idle():
+    """The bf16 ssd kernel's blocks along P cover the head width of every
+    configuration with an SSM with no padded column."""
+    for cfg in ARCHS.values():
+        for c in (cfg, cfg.reduced()):
+            if c.ssm is None:
+                continue
+            P = c.ssm.head_dim
+            assert p_block(P) in (16, 32) and P % p_block(P) == 0, c.name
+    assert [p_block(P) for P in (8, 16, 17, 32, 40, 64)] == [16, 16, 32, 32, 32, 32]
