@@ -248,6 +248,8 @@ def phase_kernels(state):
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
     from repro_torch.kernels.ssd import TILE, ssd, ssd_plain
     from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
+    from repro_torch.models.rwkv import wkv_recurrent
+    from repro_torch.models.ssm import ssd_recurrent
 
     t0 = time.monotonic()
     lib_path = build.build(verbose=state["verbose"])
@@ -341,6 +343,22 @@ def phase_kernels(state):
                 st = randn((B, H, K, K)) if with_state else None
                 y, st_out = wkv6(r, k, v, lw, u, state=st)
                 check_wkv6((B, S, H, K), dtype, r, k, v, lw, u, st, y, st_out)
+    # the bf16 kernel at its boundaries: one row, a short, a whole and one
+    # more chunk, past two chunks and many; every K (value columns split in
+    # blocks of 8, 16, 32 and 2 x 32); no state, a state, a state in place
+    for S in (1, 15, 16, 17, 33, 200):
+        for K in (8, 16, 32, 64):
+            for state_mode in ("none", "given", "in_place"):
+                B, H = 2, 3
+                r, k, v, lw, u = wkv_inputs(B, S, H, K, torch.bfloat16)
+                st = None if state_mode == "none" else randn((B, H, K, K))
+                st0 = None if st is None else st.clone()
+                out = st if state_mode == "in_place" else None
+                y, st_out = wkv6(r, k, v, lw, u, state=st, state_out=out)
+                require(st_out is st if state_mode == "in_place" else True,
+                        "wkv6: not in place")
+                check_wkv6((B, S, H, K), torch.bfloat16, r, k, v, lw, u, st0,
+                           y, st_out)
 
     def ssd_inputs(B, S, H, P, N, dtype, groups=None, realistic=False):
         xs = randn((B, S, H, P), dtype)
@@ -385,6 +403,27 @@ def phase_kernels(state):
                                     realistic=S > TILE)
                 y, _ = ssd(*inputs)
                 check_ssd((B, S, H, P, N), dtype, inputs, y, expanded)
+
+    # the float32 ssd kernel and the plain version at its tile against a
+    # float64 step recurrence, with the reference test's dt and A
+    f64 = []
+    for (B, S, H, P, N) in ((2, 64, 2, 16, 32), (1, 63, 2, 64, 16), (2, 1, 3, 8, 16),
+                            (1, 63, 2, 32, 4), (1, 65, 3, 64, 8), (1, 200, 2, 8, 64),
+                            (2, 65, 2, 32, 32), (1, 129, 2, 40, 24), (1, 70, 2, 12, 20)):
+        inputs = ssd_inputs(B, S, H, P, N, torch.float32)
+        got, _ = ssd(*inputs)
+        plain, _ = ssd_plain(*inputs, chunk=TILE)
+        want, _ = ssd_recurrent(*inputs, dtype=torch.float64)
+        scale = 1.0 + want.abs()
+        f64.append({"shape": [B, S, H, P, N],
+                    "kernel_max_abs_err": float((got.double() - want).abs().max()),
+                    "kernel_max_rel_err": float(((got.double() - want).abs() / scale).max()),
+                    "plain_max_abs_err": float((plain.double() - want).abs().max()),
+                    "plain_max_rel_err": float(((plain.double() - want).abs() / scale).max()),
+                    "max_abs_y": float(want.abs().max())})
+    emit({"ssd_f32_against_float64": f64,
+          "inputs": "the reference test's: dt = softplus(randn), A = -exp(randn)",
+          "rel": "max |err| / (1 + |y|), against float32's 2e-5", "gpu": state["smi"]})
 
     # --- the models' shapes, checked and timed -------------------------------
     bf16, f32 = torch.bfloat16, torch.float32
@@ -455,6 +494,19 @@ def phase_kernels(state):
         y, st_out = wkv6(r, k, v, lw, u, state=st, state_out=st)
         require(st_out is st if with_state else True, "wkv6: not in place")
         err = check_wkv6((B, S, H, K), dtype, r, k, v, lw, u, st0, y, st_out)
+        if S > 1 and dtype == bf16:
+            # and against a float64 step recurrence of the same inputs
+            exact_y, exact_st = wkv_recurrent(r, k, v, lw, u, dtype=torch.float64)
+            want_y, _ = wkv6_plain(r, k, v, lw, u)
+            emit({"wkv6_against_float64": [B, S, H, K], "dtype": str(dtype),
+                  "decay": "rwkv6-7b's (w0 = -0.6 plus a small term)",
+                  "kernel_max_abs_err": float((y.double() - exact_y).abs().max()),
+                  "plain_max_abs_err": float((want_y.double() - exact_y).abs().max()),
+                  "kernel_state_max_abs_err":
+                      float((st_out.double() - exact_st).abs().max()),
+                  "kernel_vs_plain_max_abs_err": err,
+                  "max_abs_y": float(exact_y.abs().max()), "gpu": state["smi"]})
+            del exact_y, exact_st, want_y
         t = time_in_turns({
             "ms": lambda: wkv6(r, k, v, lw, u, state=st, state_out=st),
             "plain_ms": lambda: wkv6_plain(r, k, v, lw, u, state=st),

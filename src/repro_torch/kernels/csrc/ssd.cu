@@ -51,7 +51,7 @@
 // meet): all 256 threads do the products as 16 x 16, each a 4 x 4 piece of
 // rows r0 + 16 a and columns c0 + 16 b, float32 FMAs from shared memory,
 // with the (N, P) state in shared memory; one block owns one (batch, head).
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace rt {
 
@@ -267,86 +267,6 @@ __global__ void __launch_bounds__(kSsdThreads)
 // ---- the bfloat16 tensor-core kernel ----------------------------------------
 
 constexpr int kTcThreads = 128;  // four warps, 16 rows of the tile each
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 (or 4) bytes from global to shared memory, asynchronously; zeros where
-// `full` is false (nothing is read then).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool full) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(full ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Four 8 x 8 matrices of 16-bit elements; lane l gives the address of row
-// l % 8 of matrix l / 8. Plain: lane l gets row l / 4, columns 2 (l % 4)
-// and 2 (l % 4) + 1. Transposed: rows 2 (l % 4) and 2 (l % 4) + 1 of
-// column l / 4.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-// d += a b: a 16 x 16 (row-major fragments), b 16 x 8, d 16 x 8 float32.
-// Lane l = 4 g + t holds a at rows g, g + 8 and columns 2t, 2t + 1,
-// 2t + 8, 2t + 9 (a[0]: row g, a[1]: row g + 8, a[2], a[3] the same rows 8
-// columns on); b at rows 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1) of column
-// g; d at rows g (d[0], d[1]) and g + 8 (d[2], d[3]), columns 2t, 2t + 1.
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x, y) = hi + lo, each a pair of bfloat16 (x in the low half): together
-// about 16 bits of each float's mantissa.
-__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bf16x2_bits(h);
-  lo = bf16x2_bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
-}
-
-__device__ __forceinline__ float2 unpack2(uint32_t w) {
-  return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
-}
 
 // Layout of the tiles in shared memory. Rows of x and of the state's halves
 // are padded by 8 elements (16 bytes), and so are rows of B and C below 64

@@ -7,24 +7,51 @@
 // Per head, with S_t the (K, K) state (key channel x value channel):
 //   y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T),  S_t = diag(exp(lw_t)) S_{t-1} + k_t v_t^T
 //
-// One block owns one (batch, head) and walks over the sequence in chunks of
-// 16 rows: the loop takes the place of the TPU kernel's sequential grid
-// dimension, and the state stays in shared memory from the first chunk to
-// the last. Per chunk, with cum the running sum of lw down each channel
-// inside the chunk and cum_prev[t] = cum[t-1]:
+// Both kernels walk over the sequence in chunks of 16 rows: the loop takes
+// the place of the TPU kernel's sequential grid dimension, and the state
+// stays on the SM from the first chunk to the last. Per chunk, with cum the
+// running sum of lw down each channel inside the chunk and
+// cum_prev[t] = cum[t-1]:
 //   A[t, j] = sum_c r_t[c] k_j[c] exp(min(cum_prev[t, c] - cum[j, c], 0))  j < t
 //   A[t, t] = r_t . (u * k_t)
 //   y       = A V + (r * exp(cum_prev)) S
 //   S      <- diag(exp(cum[last])) S + (k * exp(cum[last] - cum))^T V
 // Every exponent is <= 0. A chunk cut short by the end of the sequence runs
 // over its real rows only, which is what the TPU kernel's padding with
-// log w = 0 and zero r, k, v computes. r, k and v are float32 or bfloat16;
-// all arithmetic is float32. The arrays are read through their batch,
-// sequence and head strides, so no moved or padded copy is made.
+// log w = 0 and zero r, k, v computes. All arithmetic is float32. The
+// arrays are read through their batch, sequence and head strides, so no
+// moved or padded copy is made. state_in may be state_out (the decode path
+// updates its cache in place): each block reads its own part of the state
+// whole before it writes it.
 //
-// state_in may be state_out (the decode path updates its cache in place):
-// each block reads its own state whole before it writes it.
-#include "common.cuh"
+// wkv6_kernel, for float32 r, k, v (held to 1e-4 / 5e-4): one block of 256
+// threads owns a (batch, head), keeps the state in shared memory, and does
+// every product as float32 FMAs from shared memory.
+//
+// wkv6_bf16_kernel, for bfloat16 r, k, v. At rwkv6-7b's prefill shape the
+// function is bound by bytes on an H100 (0.47 GB, y and lw in float32,
+// against 10.2 GFLOP); the parent design did 10 GFLOP of FMAs from shared
+// memory in 256 blocks. This one:
+// - one block of four warps owns a (batch, head, block of VB value
+//   columns): column v of the state and of y depends on column v of V
+//   only, so the columns split over blocks (512 blocks at K = 64, VB = 32)
+//   and a block reads and writes only its own columns of the state, which
+//   keeps the in-place decode free of races. Each block computes the
+//   chunk's 16 x 16 A itself.
+// - A stays exact: each (t, j, channel) takes its own
+//   2^min(cum_prev[t] - cum[j], 0) in float32. A lane holds two rows t
+//   (p and p + 8) and K / 16 channels and walks j; the sums over channels
+//   are reduced across a half warp by shuffles.
+// - r, k, v (bf16) and lw (f32) of the next chunk are copied by cp.async
+//   (16 bytes a thread, zero fill past the sequence) into the second of two
+//   buffers while this chunk computes; a row, stride or base that is no
+//   multiple of 16 bytes takes element-wise loads into the same buffers.
+// - the state's float32 master stays in the registers of the warp that owns
+//   its rows (warp w: key rows 16w..16w+15, in the mma accumulator layout);
+//   a copy goes through shared memory for the next chunk's r~ S.
+// - the two K x K products, r~ S and the update k~^T V, are float32 FMAs
+//   from registers, each value loaded once for four.
+#include "mma.cuh"
 
 namespace rt {
 
@@ -144,6 +171,381 @@ __global__ void __launch_bounds__(kWkvThreads)
   }
 }
 
+
+// ---- the bfloat16 kernel ----------------------------------------------------
+
+constexpr int kWbThreads = 128;  // four warps
+
+// Shared memory of wkv6_bf16_kernel, in bytes from the start: two stages of
+// the r, k, v and lw tiles, then the chunk's work arrays. Rows of the v tile
+// are padded by 8 elements so that the rows a warp reads fall on different
+// banks; float rows of r~ and k~ by one.
+template <int K, int VB>
+struct WkvLayout {
+  static constexpr int Q = kWkvQ;
+  static constexpr int KP = K < 16 ? 16 : K;  // channels, padded to 16
+  static constexpr int VS = VB + 8;           // v tile row (bf16)
+  static constexpr int RF = KP + 1;           // r~, k~ row (float)
+  static constexpr int SF = VB + 8;           // state copy row (float)
+  static constexpr int kR = 0;                       // bf16 [2][Q][K]
+  static constexpr int kK = kR + 2 * Q * K * 2;      // bf16 [2][Q][K]
+  static constexpr int kV = kK + 2 * Q * K * 2;      // bf16 [2][Q][VS]
+  static constexpr int kW = kV + 2 * Q * VS * 2;     // f32 [2][Q][K]
+  static constexpr int kC = kW + 2 * Q * K * 4;      // f32 [Q][K] cum log2 e
+  static constexpr int kRT = kC + Q * K * 4;         // f32 [Q][RF] r~
+  static constexpr int kKT = kRT + Q * RF * 4;       // f32 [Q][RF] k~
+  static constexpr int kS = kKT + Q * RF * 4;        // f32 [KP][SF] state
+  static constexpr int kA = kS + KP * SF * 4;        // f32 [Q][Q + 1] A
+  static constexpr int kDec = kA + Q * (Q + 1) * 4;  // f32 [KP]
+  static constexpr int kBytes = kDec + KP * 4;
+};
+
+// v[0..15] of the 16 lanes of a half warp, summed over the half warp and
+// scattered: v[0] of lane l then holds the sum of v[l % 16].
+__device__ __forceinline__ void reduce_scatter16(float (&v)[16], int lane) {
+#pragma unroll
+  for (int o = 8; o >= 1; o >>= 1) {
+    const bool up = lane & o;
+#pragma unroll
+    for (int i = 0; i < o; ++i) {
+      const float send = up ? v[i] : v[i + o];
+      const float keep = up ? v[i + o] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+  }
+}
+
+template <int K, int VB>
+__global__ void __launch_bounds__(kWbThreads, 4)
+    wkv6_bf16_kernel(const __nv_bfloat16* __restrict__ r,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     const float* __restrict__ lw, const float* __restrict__ u,
+                     const float* state_in, float* state_out,
+                     float* __restrict__ y, int S, int H, int n_vblk, int vec,
+                     long long r_sb, long long r_ss, long long r_sh,
+                     long long k_sb, long long k_ss, long long k_sh,
+                     long long v_sb, long long v_ss, long long v_sh,
+                     long long w_sb, long long w_ss, long long w_sh) {
+  using bf16 = __nv_bfloat16;
+  using L = WkvLayout<K, VB>;
+  constexpr int Q = kWkvQ;
+  constexpr int KP = L::KP;
+  constexpr int VS = L::VS;
+  constexpr int RF = L::RF;
+  constexpr int SF = L::SF;
+  constexpr int NT = VB / 8;                    // n-tiles of 8 value columns
+  constexpr int CPG = K >= 16 ? K / 16 : 1;     // channels of a lane in A
+  constexpr int NCG = K / CPG;                  // lanes of a half warp in A
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* rtl = reinterpret_cast<bf16*>(smem_raw + L::kR);
+  bf16* ktl = reinterpret_cast<bf16*>(smem_raw + L::kK);
+  bf16* vtl = reinterpret_cast<bf16*>(smem_raw + L::kV);
+  float* wtl = reinterpret_cast<float*>(smem_raw + L::kW);
+  float* cf = reinterpret_cast<float*>(smem_raw + L::kC);
+  float* rtf = reinterpret_cast<float*>(smem_raw + L::kRT);
+  float* ktf = reinterpret_cast<float*>(smem_raw + L::kKT);
+  float* sf = reinterpret_cast<float*>(smem_raw + L::kS);
+  float* as = reinterpret_cast<float*>(smem_raw + L::kA);
+  float* dec = reinterpret_cast<float*>(smem_raw + L::kDec);
+
+  const int vblk = blockIdx.x % n_vblk;
+  const int h = blockIdx.x / n_vblk;
+  const int b = blockIdx.y;
+  const int v0 = vblk * VB;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+
+  const bf16* rb = r + b * r_sb + h * r_sh;
+  const bf16* kb = k + b * k_sb + h * k_sh;
+  const bf16* vb = v + b * v_sb + h * v_sh + v0;
+  const float* wb = lw + b * w_sb + h * w_sh;
+  // y is contiguous (B, S, H, K)
+  float* yb = y + (static_cast<long long>(b) * S * H + h) * K + v0;
+  const long long y_ss = static_cast<long long>(H) * K;
+  const long long sbase = (static_cast<long long>(b) * H + h) * K * K + v0;
+
+  // r, k, v, lw of the chunk at row c0 into buffer `stage`
+  auto load_chunk = [&](int stage, int c0) {
+    bf16* rd = rtl + stage * Q * K;
+    bf16* kd = ktl + stage * Q * K;
+    bf16* vd = vtl + stage * Q * VS;
+    float* wd = wtl + stage * Q * K;
+    if (vec) {
+      for (int i = tid; i < Q * (K / 8); i += kWbThreads) {
+        const int row = i / (K / 8);
+        const int c = 8 * (i % (K / 8));
+        const bool ok = c0 + row < S;
+        const long long pos = c0 + row;
+        cp_async16(rd + row * K + c, ok ? rb + pos * r_ss + c : rb, ok);
+        cp_async16(kd + row * K + c, ok ? kb + pos * k_ss + c : kb, ok);
+      }
+      for (int i = tid; i < Q * (VB / 8); i += kWbThreads) {
+        const int row = i / (VB / 8);
+        const int c = 8 * (i % (VB / 8));
+        const bool ok = c0 + row < S;
+        cp_async16(vd + row * VS + c, ok ? vb + (c0 + row) * v_ss + c : vb, ok);
+      }
+      for (int i = tid; i < Q * (K / 4); i += kWbThreads) {
+        const int row = i / (K / 4);
+        const int c = 4 * (i % (K / 4));
+        const bool ok = c0 + row < S;
+        cp_async16(wd + row * K + c, ok ? wb + (c0 + row) * w_ss + c : wb, ok);
+      }
+    } else {
+      const bf16 zero = __float2bfloat16_rn(0.0f);
+      for (int i = tid; i < Q * K; i += kWbThreads) {
+        const int row = i / K;
+        const int c = i % K;
+        const bool ok = c0 + row < S;
+        const long long pos = c0 + row;
+        rd[i] = ok ? rb[pos * r_ss + c] : zero;
+        kd[i] = ok ? kb[pos * k_ss + c] : zero;
+        wd[i] = ok ? wb[pos * w_ss + c] : 0.0f;
+      }
+      for (int i = tid; i < Q * VB; i += kWbThreads) {
+        const int row = i / VB;
+        const int c = i % VB;
+        const bool ok = c0 + row < S;
+        vd[row * VS + c] = ok ? vb[(c0 + row) * v_ss + c] : zero;
+      }
+    }
+    cp_async_commit();
+  };
+
+  // padded channels (K < 16) of r~ and k~ stay zero, and so does the decay
+  // of padded state rows
+  for (int i = tid; i < Q * RF; i += kWbThreads) {
+    rtf[i] = 0.0f;
+    ktf[i] = 0.0f;
+  }
+  for (int i = tid; i < KP; i += kWbThreads) dec[i] = 0.0f;
+
+  // this lane's channels in A and their bonus
+  const int cg = tid & 15;
+  const int cc = (cg < NCG ? cg : NCG - 1) * CPG;
+  const bool act = cg < NCG;
+  float uu[CPG];
+#pragma unroll
+  for (int i = 0; i < CPG; ++i) uu[i] = act ? u[h * K + cc + i] : 0.0f;
+
+  // the state: warp w owns key rows 16w + g and 16w + g + 8, value columns
+  // 8 nt + 2 t4 and 8 nt + 2 t4 + 1 of the block's VB
+  const bool owner = 16 * warp < KP;
+  const int row0 = 16 * warp + g;
+  float sacc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + 8 * half;
+      float2 s2 = make_float2(0.0f, 0.0f);
+      if (owner && state_in != nullptr && row < K) {
+        s2 = *reinterpret_cast<const float2*>(state_in + sbase + row * K +
+                                              8 * nt + 2 * t4);
+      }
+      sacc[nt][2 * half] = s2.x;
+      sacc[nt][2 * half + 1] = s2.y;
+      if (owner) {
+        *reinterpret_cast<float2*>(sf + row * SF + 8 * nt + 2 * t4) = s2;
+      }
+    }
+  }
+  load_chunk(0, 0);
+
+  const int n_chunks = (S + Q - 1) / Q;
+  for (int ci = 0; ci < n_chunks; ++ci) {
+    const int st = ci & 1;
+    const int c0 = ci * Q;
+    const int rows = min(Q, S - c0);
+    cp_async_wait_all();
+    // This chunk's tiles and the state are in place, and every read of the
+    // other buffer (the last chunk's) is done.
+    __syncthreads();
+    if (ci + 1 < n_chunks) load_chunk(st ^ 1, c0 + Q);
+    const bf16* R = rtl + st * Q * K;
+    const bf16* Kt = ktl + st * Q * K;
+    const bf16* V = vtl + st * Q * VS;
+    const float* W = wtl + st * Q * K;
+
+    // running sum of lw down each channel (in powers of two); thread tid
+    // takes channel tid % K and Q / (128 / K) of the rows. Every thread
+    // adds the rows in the same order, so the sums agree across threads.
+    {
+      constexpr int RPP = Q * K / kWbThreads;
+      const int c = tid % K;
+      const int t_lo = (tid / K) * RPP;
+      float run = 0.0f;
+      for (int t = 0; t < t_lo; ++t) run += W[t * K + c];
+      float pv[RPP], cm[RPP];
+#pragma unroll
+      for (int i = 0; i < RPP; ++i) {
+        pv[i] = run;
+        run += W[(t_lo + i) * K + c];
+        cm[i] = run;
+      }
+      for (int t = t_lo + RPP; t < Q; ++t) run += W[t * K + c];
+      const float last = run * kLog2e;
+      if (t_lo == 0) dec[c] = ex2(last);
+#pragma unroll
+      for (int i = 0; i < RPP; ++i) {
+        const int t = t_lo + i;
+        const float c2 = cm[i] * kLog2e;
+        cf[t * K + c] = c2;
+        rtf[t * RF + c] = to_float(R[t * K + c]) * ex2(pv[i] * kLog2e);
+        ktf[t * RF + c] = to_float(Kt[t * K + c]) * ex2(last - c2);
+      }
+    }
+    __syncthreads();
+
+    // A: lane (p, cg) takes rows p and p + 8 over its channels, then the
+    // half warp sums over channels
+    {
+      const int t0 = tid >> 4;
+      const int t1 = t0 + 8;
+      float r0[CPG], r1[CPG], q0[CPG], q1[CPG];
+#pragma unroll
+      for (int i = 0; i < CPG; ++i) {
+        r0[i] = act ? to_float(R[t0 * K + cc + i]) : 0.0f;
+        r1[i] = act ? to_float(R[t1 * K + cc + i]) : 0.0f;
+        q0[i] = t0 > 0 ? cf[(t0 - 1) * K + cc + i] : 0.0f;
+        q1[i] = cf[(t1 - 1) * K + cc + i];
+      }
+      const bool live0 = t0 < rows;
+      const bool live1 = t1 < rows;
+      float a0[Q], a1[Q];
+#pragma unroll
+      for (int j = 0; j < Q; ++j) a0[j] = a1[j] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < Q - 1; ++j) {
+        const bool do0 = live0 && j < t0;
+        const bool do1 = live1 && j < t1;
+        if (do0 || do1) {
+#pragma unroll
+          for (int i = 0; i < CPG; ++i) {
+            const float kj = to_float(Kt[j * K + cc + i]);
+            const float cj = cf[j * K + cc + i];
+            if (do1) {
+              a1[j] = fmaf(r1[i] * kj, ex2(fminf(q1[i] - cj, 0.0f)), a1[j]);
+            }
+            if (do0) {
+              a0[j] = fmaf(r0[i] * kj, ex2(fminf(q0[i] - cj, 0.0f)), a0[j]);
+            }
+          }
+        }
+      }
+      float d0 = 0.0f, d1 = 0.0f;  // the bonus: r_t . (u * k_t)
+#pragma unroll
+      for (int i = 0; i < CPG; ++i) {
+        d0 = fmaf(r0[i] * uu[i], to_float(Kt[t0 * K + cc + i]), d0);
+        d1 = fmaf(r1[i] * uu[i], to_float(Kt[t1 * K + cc + i]), d1);
+      }
+#pragma unroll
+      for (int j = 0; j < Q; ++j) {
+        if (j == t0) a0[j] = d0;
+        if (j == t1) a1[j] = d1;
+      }
+      reduce_scatter16(a0, lane);
+      reduce_scatter16(a1, lane);
+      as[t0 * (Q + 1) + cg] = a0[0];
+      as[t1 * (Q + 1) + cg] = a1[0];
+    }
+    __syncthreads();
+
+    // y = A V + r~ S: warp w takes n-tiles w, w + 4, ..; rows g and g + 8,
+    // columns 8 nt + 2 t4 and the next
+    for (int nt = warp; nt < NT; nt += 4) {
+      const int col = 8 * nt + 2 * t4;
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < Q; ++j) {
+        const float2 vv = unpack2(*reinterpret_cast<const uint32_t*>(V + j * VS + col));
+        const float ag = as[g * (Q + 1) + j];
+        const float ag8 = as[(g + 8) * (Q + 1) + j];
+        acc[0] = fmaf(ag, vv.x, acc[0]);
+        acc[1] = fmaf(ag, vv.y, acc[1]);
+        acc[2] = fmaf(ag8, vv.x, acc[2]);
+        acc[3] = fmaf(ag8, vv.y, acc[3]);
+      }
+#pragma unroll 8
+      for (int c = 0; c < K; ++c) {
+        const float2 s2 = *reinterpret_cast<const float2*>(sf + c * SF + col);
+        const float rg = rtf[g * RF + c];
+        const float rg8 = rtf[(g + 8) * RF + c];
+        acc[0] = fmaf(rg, s2.x, acc[0]);
+        acc[1] = fmaf(rg, s2.y, acc[1]);
+        acc[2] = fmaf(rg8, s2.x, acc[2]);
+        acc[3] = fmaf(rg8, s2.y, acc[3]);
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int t = g + 8 * half;
+        if (t < rows) {
+          *reinterpret_cast<float2*>(yb + (c0 + t) * y_ss + col) =
+              make_float2(acc[2 * half], acc[2 * half + 1]);
+        }
+      }
+    }
+
+    // S <- diag(2^cum[last]) S + k~^T V over the warp's rows
+    if (owner) {
+      const float dg = dec[row0];
+      const float dg8 = dec[row0 + 8];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        sacc[nt][0] *= dg;
+        sacc[nt][1] *= dg;
+        sacc[nt][2] *= dg8;
+        sacc[nt][3] *= dg8;
+      }
+#pragma unroll
+      for (int t = 0; t < Q; ++t) {
+        const float kg = ktf[t * RF + row0];
+        const float kg8 = ktf[t * RF + row0 + 8];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const float2 vv = unpack2(
+              *reinterpret_cast<const uint32_t*>(V + t * VS + 8 * nt + 2 * t4));
+          sacc[nt][0] = fmaf(kg, vv.x, sacc[nt][0]);
+          sacc[nt][1] = fmaf(kg, vv.y, sacc[nt][1]);
+          sacc[nt][2] = fmaf(kg8, vv.x, sacc[nt][2]);
+          sacc[nt][3] = fmaf(kg8, vv.y, sacc[nt][3]);
+        }
+      }
+    }
+    __syncthreads();  // every read of the state's copy is done
+    if (owner) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          *reinterpret_cast<float2*>(sf + (row0 + 8 * half) * SF + 8 * nt +
+                                     2 * t4) =
+              make_float2(sacc[nt][2 * half], sacc[nt][2 * half + 1]);
+        }
+      }
+    }
+  }
+
+  if (owner) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = row0 + 8 * half;
+        if (row < K) {
+          *reinterpret_cast<float2*>(state_out + sbase + row * K + 8 * nt +
+                                     2 * t4) =
+              make_float2(sacc[nt][2 * half], sacc[nt][2 * half + 1]);
+        }
+      }
+    }
+  }
+}
+
 struct WkvArgs {
   const void *r, *k, *v;
   const float *lw, *u, *state_in;
@@ -164,20 +566,68 @@ int launch_wkv6(const WkvArgs& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_wkv6_k(const WkvArgs& a, int K) {
+int launch_wkv6_f32(const WkvArgs& a, int K) {
   switch (K) {
     case 8:
-      return launch_wkv6<T, 8>(a);
+      return launch_wkv6<float, 8>(a);
     case 16:
-      return launch_wkv6<T, 16>(a);
+      return launch_wkv6<float, 16>(a);
     case 32:
-      return launch_wkv6<T, 32>(a);
+      return launch_wkv6<float, 32>(a);
     case 64:
-      return launch_wkv6<T, 64>(a);
+      return launch_wkv6<float, 64>(a);
     default:
       return kBadShape;
   }
+}
+
+// Whether every row of r, k, v and lw the bfloat16 kernel reads starts on
+// 16 bytes: bases, and strides along dimensions of more than one element,
+// multiples of 16 bytes (K and VB are multiples of 8).
+inline bool wkv6_rows_aligned(const WkvArgs& a) {
+  const auto base_ok = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (!base_ok(a.r) || !base_ok(a.k) || !base_ok(a.v) || !base_ok(a.lw)) {
+    return false;
+  }
+  const int sizes[3] = {a.B, a.S, a.H};
+  for (int t = 0; t < 12; ++t) {
+    const long long per16 = t < 9 ? 8 : 4;  // bf16 r, k, v; float32 lw
+    if (sizes[t % 3] > 1 && a.s[t] % per16) return false;
+  }
+  return true;
+}
+
+template <int K, int VB>
+int launch_wkv6_bf16(const WkvArgs& a) {
+  using bf16 = __nv_bfloat16;
+  const int n_vblk = K / VB;
+  const size_t smem = WkvLayout<K, VB>::kBytes;
+  auto kernel = wkv6_bf16_kernel<K, VB>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(a.H * n_vblk, a.B);
+  kernel<<<grid, kWbThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.r), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), a.lw, a.u, a.state_in, a.state_out, a.y,
+      a.S, a.H, n_vblk, static_cast<int>(wkv6_rows_aligned(a)), a.s[0],
+      a.s[1], a.s[2], a.s[3], a.s[4], a.s[5], a.s[6], a.s[7], a.s[8], a.s[9],
+      a.s[10], a.s[11]);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// (K, VB) pairs of kernels/wkv6.py, v_block
+int launch_wkv6_bf16_k(const WkvArgs& a, int K, int v_block) {
+  if (K == 8 && v_block == 8) return launch_wkv6_bf16<8, 8>(a);
+  if (K == 16 && v_block == 16) return launch_wkv6_bf16<16, 16>(a);
+  if (K == 32 && v_block == 32) return launch_wkv6_bf16<32, 32>(a);
+  if (K == 64 && v_block == 32) return launch_wkv6_bf16<64, 32>(a);
+  return kBadShape;
 }
 
 }  // namespace rt
@@ -186,8 +636,10 @@ int launch_wkv6_k(const WkvArgs& a, int K) {
 // batch, sequence and head strides (in elements; the last dimension is
 // contiguous). u (H, K), state_in and state_out (B, H, K, K) and y
 // (B, S, H, K) are contiguous float32; state_in may be null (zeros) and may
-// be state_out. Returns 0, a CUDA error code, or a negative code for
-// arguments the kernel does not take.
+// be state_out. `v_block` is the value columns a block of the bfloat16
+// kernel takes (kernels/wkv6.py, v_block); the float32 kernel takes all K.
+// Returns 0, a CUDA error code, or a negative code for arguments the kernel
+// does not take.
 extern "C" int rt_wkv6(const void* r, const void* k, const void* v,
                        const void* lw, const void* u, const void* state_in,
                        void* state_out, void* y, int B, int S, int H, int K,
@@ -195,7 +647,7 @@ extern "C" int rt_wkv6(const void* r, const void* k, const void* v,
                        long long k_sb, long long k_ss, long long k_sh,
                        long long v_sb, long long v_ss, long long v_sh,
                        long long w_sb, long long w_ss, long long w_sh,
-                       int dtype, void* stream) {
+                       int dtype, int v_block, void* stream) {
   using namespace rt;
   if (B <= 0 || S <= 0 || H <= 0 || B > 65535) return kBadShape;
   const WkvArgs a{r,
@@ -212,7 +664,7 @@ extern "C" int rt_wkv6(const void* r, const void* k, const void* v,
                   {r_sb, r_ss, r_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, w_sb,
                    w_ss, w_sh},
                   static_cast<cudaStream_t>(stream)};
-  if (dtype == kFloat32) return launch_wkv6_k<float>(a, K);
-  if (dtype == kBFloat16) return launch_wkv6_k<__nv_bfloat16>(a, K);
+  if (dtype == kFloat32) return launch_wkv6_f32(a, K);
+  if (dtype == kBFloat16) return launch_wkv6_bf16_k(a, K, v_block);
   return kBadDtype;
 }

@@ -8,19 +8,26 @@ incoming state's share of y and rebuilds the final state in a closed-form
 pass over the whole sequence. Here both are folded into the kernel: it reads
 the incoming state (or zeros) and writes the final state, chunk by chunk.
 
-On an H100 the function is bound by float32 operations at the prefill shape
-(about 11 GFLOP against 0.47 GB of traffic for B=4, S=2048, H=64, K=64) and
-by the launch at a decode step (S=1, one chunk of one row; 17 MB of state
-read and written at B=8). The kernel (``csrc/wkv6.cu``) gives one block to
-each (batch, head), keeps the (K, K) state in shared memory across the
-chunks of 16 rows, which is the TPU kernel's sequential grid dimension made a
-loop, and reads r, k, v and lw through their strides in ``(B, S, H, K)``, so
-the wrapper's moveaxis and padded copies are gone; a chunk cut short by the
-end of the sequence is masked in the kernel. Arithmetic is float32 FMAs: the
-state is what a decode carries from step to step, and the float32 gate is
-1e-4 / 5e-4. The state may be updated in place (``state_out=state``), as the
-decode path does with its cache. Tensor cores and a chunk-parallel scan are
-the work that remains.
+On an H100 the bfloat16 call at rwkv6-7b's prefill shape (B=4, S=2048,
+H=64, K=64) is bound by bytes (0.47 GB, y and lw in float32, against 10.2
+GFLOP of the chunked form); a decode step (S=1, one chunk of one row; 17 MB
+of state read and written at B=8) by the launch. Both kernels
+(``csrc/wkv6.cu``) keep the (K, K) state on the SM across chunks of 16 rows,
+which is the TPU kernel's sequential grid dimension made a loop, and read r,
+k, v and lw through their strides in ``(B, S, H, K)``, so the wrapper's
+moveaxis and padded copies are gone; a chunk cut short by the end of the
+sequence is masked in the kernel. The state may be updated in place
+(``state_out=state``), as the decode path does with its cache.
+
+- bfloat16 r, k, v: a block of four warps owns a (batch, head) and
+  ``v_block(K)`` value columns of the state (they are independent, so 64
+  splits into two blocks of 32 and the grid doubles). The chunk's A (the
+  decayed r.k sums) is exact float32, one exp for each (t, j, channel);
+  the next chunk's tiles are copied by ``cp.async`` while this one
+  computes; the state's float32 master stays in registers.
+- float32 r, k, v: one block of 256 threads owns a (batch, head) and does
+  every product as float32 FMAs from shared memory, which holds the float32
+  gate of 1e-4 / 5e-4.
 """
 from __future__ import annotations
 
@@ -32,6 +39,12 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 
 HEAD_DIMS = (8, 16, 32, 64)
+
+
+def v_block(K: int) -> int:
+    """Value columns of the state a block of the bfloat16 kernel owns: 32,
+    or all K below that (a multiple of the 8 columns of an mma tile)."""
+    return min(K, 32)
 
 
 def wkv_chunked(r, k, v, lw, u, chunk: int, state=None):
@@ -96,6 +109,32 @@ def _check(r, k, v, lw, u, state, state_out):
         raise ValueError("wkv6: r, k, v differ in dtype")
 
 
+def _kernel_checks(r, k, v, lw, u, state, state_out) -> int:
+    """What the kernels take beyond the contract; returns the dtype code.
+    Raises on a dtype, K, empty shape or layout the kernels do not take."""
+    code = build.DTYPE_CODES.get(r.dtype)
+    if code is None:
+        raise TypeError(f"wkv6 kernel takes float32 and bfloat16 r, k, v, "
+                        f"got {r.dtype}")
+    f32 = torch.float32
+    if lw.dtype != f32 or u.dtype != f32 or \
+            any(t is not None and t.dtype != f32 for t in (state, state_out)):
+        raise TypeError("wkv6 kernel takes float32 lw, u and state")
+    K = r.shape[-1]
+    if K not in HEAD_DIMS:
+        raise ValueError(f"wkv6 kernel takes K in {HEAD_DIMS}, got {K}")
+    if r.numel() == 0:
+        raise ValueError("wkv6: empty input")
+    for name, t in (("r", r), ("k", k), ("v", v), ("lw", lw)):
+        if t.stride(3) != 1:
+            raise ValueError(f"wkv6: {name} needs a contiguous last "
+                             f"dimension, got strides {t.stride()}")
+    for name, t in (("u", u), ("state", state), ("state_out", state_out)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"wkv6: {name} must be contiguous")
+    return code
+
+
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
          u: torch.Tensor, *, state: Optional[torch.Tensor] = None,
          chunk: int = 16, state_out: Optional[torch.Tensor] = None
@@ -120,26 +159,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: unsupported device {r.device}")
 
+    code = _kernel_checks(r, k, v, lw, u, state, state_out)
     B, S, H, K = r.shape
-    code = build.DTYPE_CODES.get(r.dtype)
-    if code is None:
-        raise TypeError(f"wkv6 kernel takes float32 and bfloat16 r, k, v, "
-                        f"got {r.dtype}")
     f32 = torch.float32
-    if lw.dtype != f32 or u.dtype != f32 or \
-            any(t is not None and t.dtype != f32 for t in (state, state_out)):
-        raise TypeError("wkv6 kernel takes float32 lw, u and state")
-    if K not in HEAD_DIMS:
-        raise ValueError(f"wkv6 kernel takes K in {HEAD_DIMS}, got {K}")
-    if min(B, S, H) == 0:
-        raise ValueError("wkv6: empty input")
-    for name, t in (("r", r), ("k", k), ("v", v), ("lw", lw)):
-        if t.stride(3) != 1:
-            raise ValueError(f"wkv6: {name} needs a contiguous last "
-                             f"dimension, got strides {t.stride()}")
-    for name, t in (("u", u), ("state", state), ("state_out", state_out)):
-        if t is not None and not t.is_contiguous():
-            raise ValueError(f"wkv6: {name} must be contiguous")
     if state_out is None:
         state_out = torch.empty((B, H, K, K), dtype=f32, device=r.device)
     y = torch.empty((B, S, H, K), dtype=f32, device=r.device)
@@ -148,7 +170,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
                  state.data_ptr() if state is not None else None,
                  state_out.data_ptr(), y.data_ptr(), B, S, H, K,
                  *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *lw.stride()[:3], code)
+                 *lw.stride()[:3], code, v_block(K))
     wkv6.launches += 1
     return y, state_out
 

@@ -118,16 +118,16 @@ def time_mix(params, x, cfg: ModelConfig, run: RunConfig, state=None,
     return out, (new_state, x[:, -1, :])
 
 
-def wkv_recurrent(r, k, v, lw, u, state=None):
-    """Step oracle (tests). Same contract as wkv_chunked."""
+def wkv_recurrent(r, k, v, lw, u, state=None, dtype=torch.float32):
+    """Step oracle (tests). Same contract as wkv_chunked, computed in
+    `dtype` (float64 for a reference of the float32 paths)."""
     B, S, H, K = r.shape
-    f32 = torch.float32
-    s_t = torch.zeros((B, H, K, K), dtype=f32, device=r.device) \
-        if state is None else state.to(f32)
-    u = u.to(f32)
+    s_t = torch.zeros((B, H, K, K), dtype=dtype, device=r.device) \
+        if state is None else state.to(dtype)
+    u = u.to(dtype)
     ys = []
     for t in range(S):
-        r_t, k_t, v_t, w_t = (a[:, t].to(f32) for a in (r, k, v, lw))
+        r_t, k_t, v_t, w_t = (a[:, t].to(dtype) for a in (r, k, v, lw))
         kv = torch.einsum("bhk,bhv->bhkv", k_t, v_t)
         ys.append(torch.einsum("bhk,bhkv->bhv", r_t,
                                s_t + u[None, :, :, None] * kv))

@@ -112,18 +112,18 @@ def mamba2(params, x, cfg: ModelConfig, run: RunConfig):
     return y @ params["out_proj"].to(x.dtype)
 
 
-def ssd_recurrent(xs, dt, A, Bm, Cm, h0=None):
-    """Step-by-step oracle (tests). Same signature as ssd_chunked."""
+def ssd_recurrent(xs, dt, A, Bm, Cm, h0=None, dtype=torch.float32):
+    """Step-by-step oracle (tests). Same signature as ssd_chunked, computed
+    in `dtype` (float64 for a reference of the float32 paths)."""
     B, S, H, P = xs.shape
     N = Bm.shape[-1]
-    f32 = torch.float32
-    h = torch.zeros((B, H, N, P), dtype=f32, device=xs.device) \
-        if h0 is None else h0.to(f32)
-    A = A.to(f32)
+    h = torch.zeros((B, H, N, P), dtype=dtype, device=xs.device) \
+        if h0 is None else h0.to(dtype)
+    A = A.to(dtype)
     ys = []
     for t in range(S):
-        x_t, dt_t = xs[:, t].to(f32), dt[:, t].to(f32)
-        b_t, c_t = Bm[:, t].to(f32), Cm[:, t].to(f32)
+        x_t, dt_t = xs[:, t].to(dtype), dt[:, t].to(dtype)
+        b_t, c_t = Bm[:, t].to(dtype), Cm[:, t].to(dtype)
         a = torch.exp(dt_t * A[None, :])                          # (B,H)
         h = h * a[:, :, None, None] + torch.einsum(
             "bhn,bhp->bhnp", b_t * dt_t[..., None], x_t)

@@ -16,6 +16,8 @@ from repro_torch.kernels.rmsnorm import launch_shape, rmsnorm, rmsnorm_plain
 from repro_torch.kernels.ssd import TILE, ssd, ssd_plain
 from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
 from repro_torch.models import Model
+from repro_torch.models.rwkv import wkv_recurrent
+from repro_torch.models.ssm import ssd_recurrent
 
 pytestmark = pytest.mark.cuda
 
@@ -190,8 +192,14 @@ def test_rmsnorm_kernel_runs_on_the_current_stream(card):
     assert_close(got, rmsnorm_plain(new, sc), dtype)
 
 
+# + the bf16 kernel's boundaries: one row (a decode step), 15, 16 and 17
+# rows and 33 (a short last chunk, one whole chunk, one past it), every K,
+# so that each split of the value columns (8, 16, 32 and 2 x 32) is crossed
 @pytest.mark.parametrize("B,S,H,K", [(1, 16, 1, 8), (2, 40, 3, 16),
-                                     (1, 33, 2, 32), (2, 100, 4, 64)])
+                                     (1, 33, 2, 32), (2, 100, 4, 64),
+                                     (2, 1, 3, 64), (1, 15, 2, 8),
+                                     (2, 16, 2, 64), (1, 17, 3, 16),
+                                     (2, 17, 2, 32), (1, 33, 2, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_state", [False, True])
 def test_wkv6_kernel(card, B, S, H, K, dtype, with_state):
@@ -232,6 +240,49 @@ def test_wkv6_kernel_decode_step_in_place(card, dtype):
     want_y, want_st = wkv6_plain(*parts, lw, u)
     atol, rtol = WKV_TOL[dtype]
     torch.cuda.synchronize()
+    torch.testing.assert_close(y, want_y, atol=atol, rtol=rtol)
+    torch.testing.assert_close(st, want_st, atol=1e-3, rtol=1e-3)
+
+
+def test_wkv6_kernel_reads_unaligned_rows(card):
+    """r, k, v and lw one element off 16 bytes: element-wise loads in the
+    bf16 kernel instead of cp.async."""
+    B, S, H, K = 2, 40, 2, 64
+    dtype = torch.bfloat16
+    r, k, v = (randn(card, 80 + i, (B, S, H, K), dtype) for i in range(3))
+    lw = -torch.exp(randn(card, 83, (B, S, H, K), torch.float32))
+    u = 0.3 * randn(card, 84, (H, K), torch.float32)
+    r_o, k_o, v_o, lw_o = (torch.cat([t[..., :1], t], dim=-1)[..., 1:]
+                           for t in (r, k, v, lw))
+    assert r_o.data_ptr() % 16 and torch.equal(lw_o, lw)
+    y, st = wkv6(r_o, k_o, v_o, lw_o, u)
+    want_y, want_st = wkv6_plain(r, k, v, lw, u)
+    atol, rtol = WKV_TOL[dtype]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, want_y, atol=atol, rtol=rtol)
+    torch.testing.assert_close(st, want_st, atol=1e-3, rtol=1e-3)
+
+
+def test_wkv6_kernel_bf16_over_2048_rows(card):
+    """bf16 over 2048 rows (128 chunks) with rwkv6-7b's decay (w0 = -0.6
+    plus a small data-dependent term) and bonus: the state is carried
+    through every chunk; within bf16's tolerance of the plain version, and
+    the worst error against a float64 step recurrence printed."""
+    B, S, H, K = 1, 2048, 4, 64
+    dtype = torch.bfloat16
+    r, k, v = (randn(card, 90 + i, (B, S, H, K), dtype) for i in range(3))
+    lw = -torch.exp(-0.6 + 0.5 * randn(card, 93, (B, S, H, K), torch.float32))
+    u = 0.1 * randn(card, 94, (H, K), torch.float32)
+    y, st = wkv6(r, k, v, lw, u)
+    want_y, want_st = wkv6_plain(r, k, v, lw, u)
+    exact_y, exact_st = wkv_recurrent(r, k, v, lw, u, dtype=torch.float64)
+    torch.cuda.synchronize()
+    print(f"wkv6 bf16 over {S} rows: max abs err {float((y - want_y).abs().max()):.3e} "
+          f"against wkv6_plain, {float((y.double() - exact_y).abs().max()):.3e} "
+          f"against float64 (plain: {float((want_y.double() - exact_y).abs().max()):.3e}); "
+          f"state {float((st.double() - exact_st).abs().max()):.3e}; max |y| "
+          f"{float(exact_y.abs().max()):.3e}")
+    atol, rtol = WKV_TOL[dtype]
     torch.testing.assert_close(y, want_y, atol=atol, rtol=rtol)
     torch.testing.assert_close(st, want_st, atol=1e-3, rtol=1e-3)
 
@@ -294,6 +345,28 @@ def test_ssd_bf16_kernel_at_tile_and_block_boundaries(card, B, S, H, P, N):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ssd_plain(xs, dt, A, Bm, Cm, chunk=TILE)[0],
                                atol=TOL[dtype], rtol=TOL[dtype])
+
+
+# the float32 kernel against a float64 step recurrence, with the reference
+# test's dt and A (tests/test_kernels.py) over at most one tile: the two
+# shapes of the SSD_BF16_SHAPES where it once missed 2e-5 against
+# ssd_plain, and the other two of at most one tile
+@pytest.mark.parametrize("B,S,H,P,N", [(2, 64, 2, 16, 32), (1, 63, 2, 64, 16),
+                                       (2, 1, 3, 8, 16), (1, 63, 2, 32, 4)])
+def test_ssd_f32_kernel_against_float64_recurrence(card, B, S, H, P, N):
+    xs, dt, A, Bm, Cm = ssd_inputs(card, B, S, H, P, N, torch.float32)
+    got, _ = ssd(xs, dt, A, Bm, Cm)
+    plain, _ = ssd_plain(xs, dt, A, Bm, Cm, chunk=TILE)
+    want, _ = ssd_recurrent(xs, dt, A, Bm, Cm, dtype=torch.float64)
+    torch.cuda.synchronize()
+    scale = 1.0 + want.abs()
+    print(f"ssd f32 {(B, S, H, P, N)} against float64: kernel "
+          f"{float((got.double() - want).abs().max()):.3e} "
+          f"(/(1+|y|) {float(((got.double() - want).abs() / scale).max()):.3e}), "
+          f"plain {float((plain.double() - want).abs().max()):.3e} "
+          f"(/(1+|y|) {float(((plain.double() - want).abs() / scale).max()):.3e})")
+    torch.testing.assert_close(got.double(), want, atol=TOL[torch.float32],
+                               rtol=TOL[torch.float32])
 
 
 @pytest.mark.parametrize("B,S,H,P,N", [(2, 130, 6, 64, 64), (1, 65, 3, 32, 16)])

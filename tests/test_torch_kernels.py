@@ -21,6 +21,7 @@ from repro_torch.kernels.rmsnorm import (BLOCK_THREADS, MAX_VECTORS,
                                         ROW_THREADS, launch_shape, rmsnorm,
                                         rmsnorm_plain)
 from repro_torch.kernels.ssd import p_block
+from repro_torch.kernels.wkv6 import HEAD_DIMS, _kernel_checks, v_block, wkv6
 from test_torch_parity import as_f32, to_jax, to_torch
 
 
@@ -228,3 +229,55 @@ def test_ssd_p_block_leaves_no_column_idle():
             P = c.ssm.head_dim
             assert p_block(P) in (16, 32) and P % p_block(P) == 0, c.name
     assert [p_block(P) for P in (8, 16, 17, 32, 40, 64)] == [16, 16, 32, 32, 32, 32]
+
+
+def test_wkv6_v_block_leaves_no_lane_idle():
+    """The bf16 wkv6 kernel's blocks of value columns cover every K it takes,
+    and the head size of every configuration with the wkv recurrence, in
+    whole mma tiles of 8 columns with no padded column, at most 32 (four
+    warps, one tile of y each)."""
+    for K in HEAD_DIMS:
+        vb = v_block(K)
+        assert vb % 8 == 0 and K % vb == 0 and vb <= 32, K
+    assert [v_block(K) for K in HEAD_DIMS] == [8, 16, 32, 32]
+    for cfg in ARCHS.values():
+        for c in (cfg, cfg.reduced()):
+            if c.family == "ssm":
+                assert c.d_head in HEAD_DIMS, c.name
+
+
+def test_wkv6_kernel_checks_refuse_what_the_kernels_do_not_take():
+    """What the kernels take beyond the contract, checked before a launch:
+    the dtype code each dtype takes, and a raise on a non-unit last stride,
+    a K or dtype the kernels lack, an empty input, a strided u or state."""
+    B, S, H, K = 1, 5, 2, 16
+    r = torch.zeros((B, S, H, K))
+    lw, u = torch.zeros((B, S, H, K)), torch.zeros((H, K))
+    st = torch.zeros((B, H, K, K))
+    assert _kernel_checks(r, r, r, lw, u, st, st) == 0
+    rb = r.bfloat16()
+    assert _kernel_checks(rb, rb, rb, lw, u, None, None) == 1
+    wide = torch.zeros((B, S, H, 2 * K))[..., ::2]
+    for name, args in (("r", (wide, r, r, lw)), ("k", (r, wide, r, lw)),
+                       ("v", (r, r, wide, lw)), ("lw", (r, r, r, wide))):
+        with pytest.raises(ValueError, match=f"{name} needs a contiguous last"):
+            _kernel_checks(*args, u, None, None)
+    with pytest.raises(ValueError, match="K in"):
+        r12 = torch.zeros((B, S, H, 12))
+        _kernel_checks(r12, r12, r12, r12, torch.zeros((H, 12)), None, None)
+    with pytest.raises(ValueError, match="empty"):
+        r0 = torch.zeros((B, 0, H, K))
+        _kernel_checks(r0, r0, r0, r0, u, None, None)
+    with pytest.raises(TypeError, match="float32 and bfloat16"):
+        _kernel_checks(r.half(), r.half(), r.half(), lw, u, None, None)
+    with pytest.raises(TypeError, match="float32 lw"):
+        _kernel_checks(r, r, r, lw.bfloat16(), u, None, None)
+    with pytest.raises(ValueError, match="state must be contiguous"):
+        _kernel_checks(r, r, r, lw, u, st.transpose(2, 3), None)
+    # and the contract itself, before the CPU takes the plain version
+    with pytest.raises(ValueError, match="different devices"):
+        wkv6(r, r, r, lw, u.to("meta"))
+    with pytest.raises(ValueError, match="u "):
+        wkv6(r, r, r, lw, torch.zeros((H, K + 1)))
+    with pytest.raises(ValueError, match="state_out"):
+        wkv6(r, r, r, lw, u, state_out=torch.zeros((B, H, K, K - 1)))

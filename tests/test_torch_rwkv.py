@@ -113,6 +113,65 @@ def test_wkv_chunked_matches_recurrent():
     np.testing.assert_allclose(as_f32(s_r), as_f32(wst), atol=1e-5, rtol=1e-5)
 
 
+def _hi_lo(x):
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float()
+
+
+def wkv_kernel_rounding(r, k, v, lw, u, state=None, chunk=16):
+    """The bf16 wkv6 kernel's rounding in plain PyTorch: each chunk's A
+    exact in float32, r~ = r exp(cum_prev), k~ = k exp(cum[last] - cum)
+    and the state each split into a high and a low bfloat16 half, r~ S as
+    hi hi + hi lo + lo hi and k~^T V as (hi + lo) V with float32 sums, the
+    state's master in float32."""
+    B, S, H, K = r.shape
+    r, k, v, lw = (a.float() for a in (r, k, v, lw))
+    st = torch.zeros((B, H, K, K)) if state is None else state.clone()
+    ys = []
+    for c0 in range(0, S, chunk):
+        rq, kq, vq, wq = (a[:, c0:c0 + chunk] for a in (r, k, v, lw))
+        cum = torch.cumsum(wq, dim=1)
+        cum_prev = cum - wq
+        q = rq.shape[1]
+        expo = cum_prev[:, :, None] - cum[:, None, :]
+        tri = torch.tril(torch.ones(q, q), -1)
+        a = torch.einsum("bthk,bjhk,btjhk->bhtj", rq, kq,
+                         torch.exp(torch.clamp(expo, max=0.0))) * tri
+        diag = torch.einsum("bthk,hk,bthk->bth", rq, u, kq)
+        y = torch.einsum("bhtj,bjhk->bthk", a, vq) + diag[..., None] * vq
+        r_hi, r_lo = _hi_lo(rq * torch.exp(cum_prev))
+        s_hi, s_lo = _hi_lo(st)
+        y = y + sum(torch.einsum("bthk,bhkv->bthv", x, s)
+                    for x, s in ((r_hi, s_hi), (r_hi, s_lo), (r_lo, s_hi)))
+        k_hi, k_lo = _hi_lo(kq * torch.exp(cum[:, -1:] - cum))
+        st = st * torch.exp(cum[:, -1])[..., None] + \
+            torch.einsum("bjhk,bjhv->bhkv", k_hi, vq) + \
+            torch.einsum("bjhk,bjhv->bhkv", k_lo, vq)
+        ys.append(y)
+    return torch.cat(ys, dim=1), st
+
+
+def test_bf16_kernel_rounding_keeps_2048_rows_within_bf16_tolerance():
+    """The precision budget of the bf16 kernel's hi/lo products, on the CPU:
+    over 2048 rows (128 chunks) with rwkv6-7b's decay and an incoming
+    state, its rounding stays within bf16's tolerance of the plain version
+    on the same bf16 inputs, and far inside it."""
+    B, S, H, K = 1, 2048, 2, 64
+    rng = np.random.default_rng(40)
+    r, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, K),
+                                                    dtype=np.float32))
+               .bfloat16() for _ in range(3))
+    lw = -torch.exp(torch.from_numpy(
+        -0.6 + 0.5 * rng.standard_normal((B, S, H, K), dtype=np.float32)))
+    u = torch.from_numpy(0.1 * rng.standard_normal((H, K), dtype=np.float32))
+    st0 = torch.from_numpy(rng.standard_normal((B, H, K, K), dtype=np.float32))
+    y, st = wkv_kernel_rounding(r, k, v, lw, u, state=st0)
+    want, want_st = wkv6_plain(r, k, v, lw, u, state=st0)
+    np.testing.assert_allclose(as_f32(y), as_f32(want), **BF16)
+    np.testing.assert_allclose(as_f32(st), as_f32(want_st), **STATE)
+    assert float((y - want).abs().max()) < 1e-3
+
+
 def test_wkv6_wrapper_contract():
     r, k, v, lw, u = (to_torch(a) for a in wkv_inputs(1, 5, 2, 8))
     before = wkv6.launches
