@@ -51,6 +51,10 @@
 // meet): all 256 threads do the products as 16 x 16, each a 4 x 4 piece of
 // rows r0 + 16 a and columns c0 + 16 b, float32 FMAs from shared memory,
 // with the (N, P) state in shared memory; one block owns one (batch, head).
+// The running sum of dt * A is taken in float64: with the reference test's
+// dt and A it reaches hundreds within a tile, and in float32 the difference
+// of two such sums for neighbouring rows loses ~1e-4 of the decay to
+// cancellation, which put y up to 1.8e-4 off a float64 recurrence.
 #include "mma.cuh"
 
 namespace rt {
@@ -72,15 +76,16 @@ __global__ void __launch_bounds__(kSsdThreads)
   constexpr int QP = Q + 1;
   const int PP = P + 1;  // padded rows
   const int NP = N + 1;
-  extern __shared__ float smem[];
+  extern __shared__ double smem_d[];
+  double* cum = smem_d;         // Q
+  float* smem = reinterpret_cast<float*>(cum + Q);
   float* xsm = smem;            // Q x PP
   float* bsm = xsm + Q * PP;    // Q x NP
   float* csm = bsm + Q * NP;    // Q x NP
   float* msm = csm + Q * NP;    // Q x QP
   float* hsm = msm + Q * QP;    // N x PP
   float* dts = hsm + N * PP;    // Q
-  float* cum = dts + Q;         // Q
-  float* wts = cum + Q;         // Q: exp(cum[last] - cum) dt
+  float* wts = dts + Q;         // Q: exp(cum[last] - cum) dt
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -126,12 +131,12 @@ __global__ void __launch_bounds__(kSsdThreads)
     __syncthreads();
 
     if (tid < 32) {  // running sum of dt * A over the tile's 64 rows
-      float lo = dts[tid] * a_h;
-      float hi = dts[tid + 32] * a_h;
+      double lo = static_cast<double>(dts[tid]) * a_h;
+      double hi = static_cast<double>(dts[tid + 32]) * a_h;
 #pragma unroll
       for (int off = 1; off < 32; off <<= 1) {
-        const float l = __shfl_up_sync(0xffffffffu, lo, off);
-        const float u = __shfl_up_sync(0xffffffffu, hi, off);
+        const double l = __shfl_up_sync(0xffffffffu, lo, off);
+        const double u = __shfl_up_sync(0xffffffffu, hi, off);
         if (tid >= off) {
           lo += l;
           hi += u;
@@ -145,9 +150,10 @@ __global__ void __launch_bounds__(kSsdThreads)
 
     // M = tril(C B^T * decay) * dt_j; the weights of the state update
     {
-      const float last = cum[rows - 1];
+      const double last = cum[rows - 1];
       if (tid < Q) {
-        wts[tid] = tid < rows ? expf(last - cum[tid]) * dts[tid] : 0.0f;
+        wts[tid] = tid < rows ? expf(static_cast<float>(last - cum[tid])) * dts[tid]
+                              : 0.0f;
       }
       float acc[4][4] = {};
       for (int n = 0; n < N; ++n) {
@@ -171,7 +177,9 @@ __global__ void __launch_bounds__(kSsdThreads)
           const int cj = tx + 16 * j;
           float m = 0.0f;
           if (ri < rows && cj <= ri) {
-            m = acc[i][j] * expf(fminf(cum[ri] - cum[cj], 0.0f)) * dts[cj];
+            m = acc[i][j] *
+                expf(static_cast<float>(fmin(cum[ri] - cum[cj], 0.0))) *
+                dts[cj];
           }
           msm[ri * QP + cj] = m;
         }
@@ -213,7 +221,7 @@ __global__ void __launch_bounds__(kSsdThreads)
       for (int i = 0; i < 4; ++i) {
         const int ri = ty + 16 * i;
         if (ri >= rows) continue;
-        const float e = expf(cum[ri]);
+        const float e = expf(static_cast<float>(cum[ri]));
         float* yrow = yb + (c0 + ri) * y_ss;
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
@@ -226,7 +234,7 @@ __global__ void __launch_bounds__(kSsdThreads)
 
     // h = exp(cum[last]) h + (B * wts)^T x: rows n = ty + 16 i, columns p
     {
-      const float decay = expf(cum[rows - 1]);
+      const float decay = expf(static_cast<float>(cum[rows - 1]));
       float acc[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -615,9 +623,10 @@ __global__ void __launch_bounds__(kTcThreads, 4)
 
 inline size_t ssd_smem(int P, int N) {
   const int Q = kSsdQ;
-  return sizeof(float) *
-         (static_cast<size_t>(Q) * (P + 1) + 2 * Q * (N + 1) + Q * (Q + 1) +
-          static_cast<size_t>(N) * (P + 1) + 3 * Q);
+  return sizeof(double) * Q +
+         sizeof(float) *
+             (static_cast<size_t>(Q) * (P + 1) + 2 * Q * (N + 1) + Q * (Q + 1) +
+              static_cast<size_t>(N) * (P + 1) + 2 * Q);
 }
 
 struct SsdArgs {

@@ -48,9 +48,14 @@
 //   multiple of 16 bytes takes element-wise loads into the same buffers.
 // - the state's float32 master stays in the registers of the warp that owns
 //   its rows (warp w: key rows 16w..16w+15, in the mma accumulator layout);
-//   a copy goes through shared memory for the next chunk's r~ S.
-// - the two K x K products, r~ S and the update k~^T V, are float32 FMAs
-//   from registers, each value loaded once for four.
+//   its hi/lo halves go through shared memory for the next chunk's r~ S.
+// - the two K x K products run on the tensor cores, mma.sync m16n8k16 bf16
+//   with float32 sums: r~ S with r~ = r 2^cum_prev, and the update k~^T V
+//   with k~ = k 2^(cum[last] - cum). Every decay in them is <= 1, so
+//   |r~| <= |r| and |k~| <= |k|. The float32 operands (r~, k~, the state)
+//   are each split into a high and a low bfloat16 half, which keeps about
+//   16 bits of their mantissa: r~ S takes hi hi + hi lo + lo hi, k~^T V
+//   takes k~ hi + lo against V exact in bf16. A V stays on FMAs.
 #include "mma.cuh"
 
 namespace rt {
@@ -174,49 +179,99 @@ __global__ void __launch_bounds__(kWkvThreads)
 
 // ---- the bfloat16 kernel ----------------------------------------------------
 
-constexpr int kWbThreads = 128;  // four warps
+// Warps of a block: four, or eight for a block of 64 value columns (one
+// mma tile of y each).
+template <int VB>
+struct WkvWarps {
+  static constexpr int n = VB > 32 ? 8 : 4;
+};
 
 // Shared memory of wkv6_bf16_kernel, in bytes from the start: two stages of
 // the r, k, v and lw tiles, then the chunk's work arrays. Rows of the v tile
 // are padded by 8 elements so that the rows a warp reads fall on different
-// banks; float rows of r~ and k~ by one.
+// banks, and so are rows of the bf16 halves of r~, k~ and the state, for
+// ldmatrix.
 template <int K, int VB>
 struct WkvLayout {
   static constexpr int Q = kWkvQ;
   static constexpr int KP = K < 16 ? 16 : K;  // channels, padded to 16
   static constexpr int VS = VB + 8;           // v tile row (bf16)
-  static constexpr int RF = KP + 1;           // r~, k~ row (float)
-  static constexpr int SF = VB + 8;           // state copy row (float)
+  static constexpr int RS = KP + 8;           // r~, k~ halves row (bf16)
   static constexpr int kR = 0;                       // bf16 [2][Q][K]
   static constexpr int kK = kR + 2 * Q * K * 2;      // bf16 [2][Q][K]
   static constexpr int kV = kK + 2 * Q * K * 2;      // bf16 [2][Q][VS]
   static constexpr int kW = kV + 2 * Q * VS * 2;     // f32 [2][Q][K]
   static constexpr int kC = kW + 2 * Q * K * 4;      // f32 [Q][K] cum log2 e
-  static constexpr int kRT = kC + Q * K * 4;         // f32 [Q][RF] r~
-  static constexpr int kKT = kRT + Q * RF * 4;       // f32 [Q][RF] k~
-  static constexpr int kS = kKT + Q * RF * 4;        // f32 [KP][SF] state
-  static constexpr int kA = kS + KP * SF * 4;        // f32 [Q][Q + 1] A
+  static constexpr int kRT = kC + Q * K * 4;         // bf16 [hi, lo][Q][RS] r~
+  static constexpr int kKT = kRT + 2 * Q * RS * 2;   // bf16 [hi, lo][Q][RS] k~
+  static constexpr int kS = kKT + 2 * Q * RS * 2;    // bf16 [hi, lo][KP][VS] state
+  static constexpr int kA = kS + 2 * KP * VS * 2;    // f32 [Q][Q + 1] A
   static constexpr int kDec = kA + Q * (Q + 1) * 4;  // f32 [KP]
   static constexpr int kBytes = kDec + KP * 4;
 };
 
+// One step of reduce_scatter16: lanes with bit O set keep the upper O of
+// the 2 O values, the others the lower, each adding its partner's half.
+template <int O>
+__device__ __forceinline__ void reduce_scatter_step(float (&v)[16], int lane) {
+  const bool up = lane & O;
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+    const float send = up ? v[i] : v[i + O];
+    const float keep = up ? v[i + O] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+}
+
 // v[0..15] of the 16 lanes of a half warp, summed over the half warp and
-// scattered: v[0] of lane l then holds the sum of v[l % 16].
+// scattered: v[0] of lane l then holds the sum of v[l % 16]. (Every index
+// is a constant, so v stays in registers.)
 __device__ __forceinline__ void reduce_scatter16(float (&v)[16], int lane) {
-#pragma unroll
-  for (int o = 8; o >= 1; o >>= 1) {
-    const bool up = lane & o;
-#pragma unroll
-    for (int i = 0; i < o; ++i) {
-      const float send = up ? v[i] : v[i + o];
-      const float keep = up ? v[i + o] : v[i];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
-    }
+  reduce_scatter_step<8>(v, lane);
+  reduce_scatter_step<4>(v, lane);
+  reduce_scatter_step<2>(v, lane);
+  reduce_scatter_step<1>(v, lane);
+}
+
+// N consecutive bfloat16 or float32 from shared memory (N in 1, 2, 4, the
+// address a multiple of N elements), as floats.
+template <int N>
+__device__ __forceinline__ void lds(const __nv_bfloat16* p, float (&o)[N]) {
+  if constexpr (N == 4) {
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+    const float2 a = unpack2(w.x);
+    const float2 b = unpack2(w.y);
+    o[0] = a.x;
+    o[1] = a.y;
+    o[2] = b.x;
+    o[3] = b.y;
+  } else if constexpr (N == 2) {
+    const float2 a = unpack2(*reinterpret_cast<const uint32_t*>(p));
+    o[0] = a.x;
+    o[1] = a.y;
+  } else {
+    o[0] = __bfloat162float(p[0]);
+  }
+}
+template <int N>
+__device__ __forceinline__ void lds(const float* p, float (&o)[N]) {
+  if constexpr (N == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    o[0] = a.x;
+    o[1] = a.y;
+    o[2] = a.z;
+    o[3] = a.w;
+  } else if constexpr (N == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    o[0] = a.x;
+    o[1] = a.y;
+  } else {
+    o[0] = p[0];
   }
 }
 
 template <int K, int VB>
-__global__ void __launch_bounds__(kWbThreads, 4)
+__global__ void __launch_bounds__(32 * WkvWarps<VB>::n, 16 / WkvWarps<VB>::n)
     wkv6_bf16_kernel(const __nv_bfloat16* __restrict__ r,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
@@ -232,9 +287,12 @@ __global__ void __launch_bounds__(kWbThreads, 4)
   constexpr int Q = kWkvQ;
   constexpr int KP = L::KP;
   constexpr int VS = L::VS;
-  constexpr int RF = L::RF;
-  constexpr int SF = L::SF;
+  constexpr int RS = L::RS;
+  constexpr int NW = WkvWarps<VB>::n;
+  constexpr int T = 32 * NW;
   constexpr int NT = VB / 8;                    // n-tiles of 8 value columns
+  constexpr int NTW = NT * 4 / NW;              // of them in a warp's state
+  constexpr int NR = 8 / NW;                    // rows of a lane in A
   constexpr int CPG = K >= 16 ? K / 16 : 1;     // channels of a lane in A
   constexpr int NCG = K / CPG;                  // lanes of a half warp in A
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -243,9 +301,12 @@ __global__ void __launch_bounds__(kWbThreads, 4)
   bf16* vtl = reinterpret_cast<bf16*>(smem_raw + L::kV);
   float* wtl = reinterpret_cast<float*>(smem_raw + L::kW);
   float* cf = reinterpret_cast<float*>(smem_raw + L::kC);
-  float* rtf = reinterpret_cast<float*>(smem_raw + L::kRT);
-  float* ktf = reinterpret_cast<float*>(smem_raw + L::kKT);
-  float* sf = reinterpret_cast<float*>(smem_raw + L::kS);
+  bf16* r_hi = reinterpret_cast<bf16*>(smem_raw + L::kRT);
+  bf16* r_lo = r_hi + Q * RS;
+  bf16* k_hi = reinterpret_cast<bf16*>(smem_raw + L::kKT);
+  bf16* k_lo = k_hi + Q * RS;
+  bf16* s_hi = reinterpret_cast<bf16*>(smem_raw + L::kS);
+  bf16* s_lo = s_hi + KP * VS;
   float* as = reinterpret_cast<float*>(smem_raw + L::kA);
   float* dec = reinterpret_cast<float*>(smem_raw + L::kDec);
 
@@ -275,7 +336,7 @@ __global__ void __launch_bounds__(kWbThreads, 4)
     bf16* vd = vtl + stage * Q * VS;
     float* wd = wtl + stage * Q * K;
     if (vec) {
-      for (int i = tid; i < Q * (K / 8); i += kWbThreads) {
+      for (int i = tid; i < Q * (K / 8); i += T) {
         const int row = i / (K / 8);
         const int c = 8 * (i % (K / 8));
         const bool ok = c0 + row < S;
@@ -283,13 +344,13 @@ __global__ void __launch_bounds__(kWbThreads, 4)
         cp_async16(rd + row * K + c, ok ? rb + pos * r_ss + c : rb, ok);
         cp_async16(kd + row * K + c, ok ? kb + pos * k_ss + c : kb, ok);
       }
-      for (int i = tid; i < Q * (VB / 8); i += kWbThreads) {
+      for (int i = tid; i < Q * (VB / 8); i += T) {
         const int row = i / (VB / 8);
         const int c = 8 * (i % (VB / 8));
         const bool ok = c0 + row < S;
         cp_async16(vd + row * VS + c, ok ? vb + (c0 + row) * v_ss + c : vb, ok);
       }
-      for (int i = tid; i < Q * (K / 4); i += kWbThreads) {
+      for (int i = tid; i < Q * (K / 4); i += T) {
         const int row = i / (K / 4);
         const int c = 4 * (i % (K / 4));
         const bool ok = c0 + row < S;
@@ -297,7 +358,7 @@ __global__ void __launch_bounds__(kWbThreads, 4)
       }
     } else {
       const bf16 zero = __float2bfloat16_rn(0.0f);
-      for (int i = tid; i < Q * K; i += kWbThreads) {
+      for (int i = tid; i < Q * K; i += T) {
         const int row = i / K;
         const int c = i % K;
         const bool ok = c0 + row < S;
@@ -306,7 +367,7 @@ __global__ void __launch_bounds__(kWbThreads, 4)
         kd[i] = ok ? kb[pos * k_ss + c] : zero;
         wd[i] = ok ? wb[pos * w_ss + c] : 0.0f;
       }
-      for (int i = tid; i < Q * VB; i += kWbThreads) {
+      for (int i = tid; i < Q * VB; i += T) {
         const int row = i / VB;
         const int c = i % VB;
         const bool ok = c0 + row < S;
@@ -318,11 +379,11 @@ __global__ void __launch_bounds__(kWbThreads, 4)
 
   // padded channels (K < 16) of r~ and k~ stay zero, and so does the decay
   // of padded state rows
-  for (int i = tid; i < Q * RF; i += kWbThreads) {
-    rtf[i] = 0.0f;
-    ktf[i] = 0.0f;
+  for (int i = tid; i < 2 * Q * RS; i += T) {
+    r_hi[i] = __float2bfloat16_rn(0.0f);
+    k_hi[i] = __float2bfloat16_rn(0.0f);
   }
-  for (int i = tid; i < KP; i += kWbThreads) dec[i] = 0.0f;
+  for (int i = tid; i < KP; i += T) dec[i] = 0.0f;
 
   // this lane's channels in A and their bonus
   const int cg = tid & 15;
@@ -332,25 +393,30 @@ __global__ void __launch_bounds__(kWbThreads, 4)
 #pragma unroll
   for (int i = 0; i < CPG; ++i) uu[i] = act ? u[h * K + cc + i] : 0.0f;
 
-  // the state: warp w owns key rows 16w + g and 16w + g + 8, value columns
-  // 8 nt + 2 t4 and 8 nt + 2 t4 + 1 of the block's VB
-  const bool owner = 16 * warp < KP;
-  const int row0 = 16 * warp + g;
-  float sacc[NT][4];
+  // the state: warp w owns key rows 16 (w % 4) + g and 16 (w % 4) + g + 8,
+  // value columns n0 + 8 nt + 2 t4 and the next of the block's VB
+  const int rg = warp & 3;
+  const bool owner = 16 * rg < KP;
+  const int row0 = 16 * rg + g;
+  const int n0 = 8 * NTW * (warp >> 2);
+  float sacc[NTW][4];
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
+  for (int nt = 0; nt < NTW; ++nt) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = row0 + 8 * half;
+      const int col = n0 + 8 * nt + 2 * t4;
       float2 s2 = make_float2(0.0f, 0.0f);
       if (owner && state_in != nullptr && row < K) {
-        s2 = *reinterpret_cast<const float2*>(state_in + sbase + row * K +
-                                              8 * nt + 2 * t4);
+        s2 = *reinterpret_cast<const float2*>(state_in + sbase + row * K + col);
       }
       sacc[nt][2 * half] = s2.x;
       sacc[nt][2 * half + 1] = s2.y;
       if (owner) {
-        *reinterpret_cast<float2*>(sf + row * SF + 8 * nt + 2 * t4) = s2;
+        uint32_t hi, lo;
+        split2(s2.x, s2.y, hi, lo);
+        *reinterpret_cast<uint32_t*>(s_hi + row * VS + col) = hi;
+        *reinterpret_cast<uint32_t*>(s_lo + row * VS + col) = lo;
       }
     }
   }
@@ -372,10 +438,10 @@ __global__ void __launch_bounds__(kWbThreads, 4)
     const float* W = wtl + st * Q * K;
 
     // running sum of lw down each channel (in powers of two); thread tid
-    // takes channel tid % K and Q / (128 / K) of the rows. Every thread
-    // adds the rows in the same order, so the sums agree across threads.
+    // takes channel tid % K and Q / (T / K) of the rows. Every thread adds
+    // the rows in the same order, so the sums agree across threads.
     {
-      constexpr int RPP = Q * K / kWbThreads;
+      constexpr int RPP = Q * K / T;
       const int c = tid % K;
       const int t_lo = (tid / K) * RPP;
       float run = 0.0f;
@@ -395,69 +461,85 @@ __global__ void __launch_bounds__(kWbThreads, 4)
         const int t = t_lo + i;
         const float c2 = cm[i] * kLog2e;
         cf[t * K + c] = c2;
-        rtf[t * RF + c] = to_float(R[t * K + c]) * ex2(pv[i] * kLog2e);
-        ktf[t * RF + c] = to_float(Kt[t * K + c]) * ex2(last - c2);
+        const float re = to_float(R[t * K + c]) * ex2(pv[i] * kLog2e);
+        const float ke = to_float(Kt[t * K + c]) * ex2(last - c2);
+        const bf16 rh = __float2bfloat16_rn(re);
+        const bf16 kh = __float2bfloat16_rn(ke);
+        r_hi[t * RS + c] = rh;
+        r_lo[t * RS + c] = __float2bfloat16_rn(re - __bfloat162float(rh));
+        k_hi[t * RS + c] = kh;
+        k_lo[t * RS + c] = __float2bfloat16_rn(ke - __bfloat162float(kh));
       }
     }
     __syncthreads();
 
-    // A: lane (p, cg) takes rows p and p + 8 over its channels, then the
-    // half warp sums over channels
+    // A: a half warp takes NR rows, each lane cg its channels of them, and
+    // sums over channels at the end. Four warps: rows hw and hw + 8 of half
+    // warp hw. Eight: one row each, rows 2q and 2q + 1 in warp 7 - q and
+    // q + 4, so that the two warps of a scheduler (w, w + 4) walk 16
+    // columns j between them.
     {
-      const int t0 = tid >> 4;
-      const int t1 = t0 + 8;
-      float r0[CPG], r1[CPG], q0[CPG], q1[CPG];
+      const int hw = tid >> 4;
+      int tr[NR];
+      float rr[NR][CPG], qq[NR][CPG], a[NR][Q];
 #pragma unroll
-      for (int i = 0; i < CPG; ++i) {
-        r0[i] = act ? to_float(R[t0 * K + cc + i]) : 0.0f;
-        r1[i] = act ? to_float(R[t1 * K + cc + i]) : 0.0f;
-        q0[i] = t0 > 0 ? cf[(t0 - 1) * K + cc + i] : 0.0f;
-        q1[i] = cf[(t1 - 1) * K + cc + i];
+      for (int n = 0; n < NR; ++n) {
+        tr[n] = NR == 2 ? hw + 8 * n
+                        : 2 * (warp < 4 ? 7 - warp : warp - 4) + (hw & 1);
+        lds(R + tr[n] * K + cc, rr[n]);
+        lds(cf + (tr[n] > 0 ? tr[n] - 1 : 0) * K + cc, qq[n]);
+#pragma unroll
+        for (int i = 0; i < CPG; ++i) {
+          if (!act) rr[n][i] = 0.0f;
+          if (tr[n] == 0) qq[n][i] = 0.0f;
+        }
+#pragma unroll
+        for (int j = 0; j < Q; ++j) a[n][j] = 0.0f;
       }
-      const bool live0 = t0 < rows;
-      const bool live1 = t1 < rows;
-      float a0[Q], a1[Q];
-#pragma unroll
-      for (int j = 0; j < Q; ++j) a0[j] = a1[j] = 0.0f;
 #pragma unroll
       for (int j = 0; j < Q - 1; ++j) {
-        const bool do0 = live0 && j < t0;
-        const bool do1 = live1 && j < t1;
-        if (do0 || do1) {
+        bool go[NR], any = false;
+#pragma unroll
+        for (int n = 0; n < NR; ++n) {
+          go[n] = tr[n] < rows && j < tr[n];
+          any = any || go[n];
+        }
+        if (any) {
+          float kj[CPG], cj[CPG];
+          lds(Kt + j * K + cc, kj);
+          lds(cf + j * K + cc, cj);
 #pragma unroll
           for (int i = 0; i < CPG; ++i) {
-            const float kj = to_float(Kt[j * K + cc + i]);
-            const float cj = cf[j * K + cc + i];
-            if (do1) {
-              a1[j] = fmaf(r1[i] * kj, ex2(fminf(q1[i] - cj, 0.0f)), a1[j]);
-            }
-            if (do0) {
-              a0[j] = fmaf(r0[i] * kj, ex2(fminf(q0[i] - cj, 0.0f)), a0[j]);
+#pragma unroll
+            for (int n = 0; n < NR; ++n) {
+              if (go[n]) {
+                a[n][j] = fmaf(rr[n][i] * kj[i],
+                               ex2(fminf(qq[n][i] - cj[i], 0.0f)), a[n][j]);
+              }
             }
           }
         }
       }
-      float d0 = 0.0f, d1 = 0.0f;  // the bonus: r_t . (u * k_t)
 #pragma unroll
-      for (int i = 0; i < CPG; ++i) {
-        d0 = fmaf(r0[i] * uu[i], to_float(Kt[t0 * K + cc + i]), d0);
-        d1 = fmaf(r1[i] * uu[i], to_float(Kt[t1 * K + cc + i]), d1);
-      }
+      for (int n = 0; n < NR; ++n) {
+        float d = 0.0f;  // the bonus: r_t . (u * k_t)
+        float kt_[CPG];
+        lds(Kt + tr[n] * K + cc, kt_);
 #pragma unroll
-      for (int j = 0; j < Q; ++j) {
-        if (j == t0) a0[j] = d0;
-        if (j == t1) a1[j] = d1;
+        for (int i = 0; i < CPG; ++i) d = fmaf(rr[n][i] * uu[i], kt_[i], d);
+#pragma unroll
+        for (int j = 0; j < Q; ++j) {
+          if (j == tr[n]) a[n][j] = d;
+        }
+        reduce_scatter16(a[n], lane);
+        as[tr[n] * (Q + 1) + cg] = a[n][0];
       }
-      reduce_scatter16(a0, lane);
-      reduce_scatter16(a1, lane);
-      as[t0 * (Q + 1) + cg] = a0[0];
-      as[t1 * (Q + 1) + cg] = a1[0];
     }
     __syncthreads();
 
-    // y = A V + r~ S: warp w takes n-tiles w, w + 4, ..; rows g and g + 8,
+    // y = A V + r~ S: warp w takes n-tile w (if NT > w); rows g and g + 8,
     // columns 8 nt + 2 t4 and the next
-    for (int nt = warp; nt < NT; nt += 4) {
+    for (int nt = warp; nt < NT; nt += NW) {
       const int col = 8 * nt + 2 * t4;
       float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
@@ -470,15 +552,21 @@ __global__ void __launch_bounds__(kWbThreads, 4)
         acc[2] = fmaf(ag8, vv.x, acc[2]);
         acc[3] = fmaf(ag8, vv.y, acc[3]);
       }
-#pragma unroll 8
-      for (int c = 0; c < K; ++c) {
-        const float2 s2 = *reinterpret_cast<const float2*>(sf + c * SF + col);
-        const float rg = rtf[g * RF + c];
-        const float rg8 = rtf[(g + 8) * RF + c];
-        acc[0] = fmaf(rg, s2.x, acc[0]);
-        acc[1] = fmaf(rg, s2.y, acc[1]);
-        acc[2] = fmaf(rg8, s2.x, acc[2]);
-        acc[3] = fmaf(rg8, s2.y, acc[3]);
+      // r~ S on the tensor cores: hi hi + hi lo + lo hi over k = channels
+#pragma unroll
+      for (int ks = 0; ks < KP / 16; ++ks) {
+        const int a_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * RS + 16 * ks +
+                          (lane >> 4) * 8;
+        const int b_off = (16 * ks + (lane & 7) + ((lane >> 3) & 1) * 8) * VS +
+                          8 * nt;
+        uint32_t ah[4], al[4], bh[2], bl[2];
+        ldsm_x4(ah, r_hi + a_off);
+        ldsm_x4(al, r_lo + a_off);
+        ldsm_x2_t(bh, s_hi + b_off);
+        ldsm_x2_t(bl, s_lo + b_off);
+        mma16816(acc, ah, bh[0], bh[1]);
+        mma16816(acc, ah, bl[0], bl[1]);
+        mma16816(acc, al, bh[0], bh[1]);
       }
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
@@ -495,36 +583,38 @@ __global__ void __launch_bounds__(kWbThreads, 4)
       const float dg = dec[row0];
       const float dg8 = dec[row0 + 8];
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
+      for (int nt = 0; nt < NTW; ++nt) {
         sacc[nt][0] *= dg;
         sacc[nt][1] *= dg;
         sacc[nt][2] *= dg8;
         sacc[nt][3] *= dg8;
       }
+      // k~^T as A fragments (rows: the warp's key channels, k = the chunk's
+      // rows), hi and lo; V exact in bf16
+      const int a_off = ((lane & 7) + (lane >> 4) * 8) * RS + 16 * rg +
+                        ((lane >> 3) & 1) * 8;
+      uint32_t kh[4], kl[4];
+      ldsm_x4_t(kh, k_hi + a_off);
+      ldsm_x4_t(kl, k_lo + a_off);
 #pragma unroll
-      for (int t = 0; t < Q; ++t) {
-        const float kg = ktf[t * RF + row0];
-        const float kg8 = ktf[t * RF + row0 + 8];
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const float2 vv = unpack2(
-              *reinterpret_cast<const uint32_t*>(V + t * VS + 8 * nt + 2 * t4));
-          sacc[nt][0] = fmaf(kg, vv.x, sacc[nt][0]);
-          sacc[nt][1] = fmaf(kg, vv.y, sacc[nt][1]);
-          sacc[nt][2] = fmaf(kg8, vv.x, sacc[nt][2]);
-          sacc[nt][3] = fmaf(kg8, vv.y, sacc[nt][3]);
-        }
+      for (int nt = 0; nt < NTW; ++nt) {
+        uint32_t vf[2];
+        ldsm_x2_t(vf, V + ((lane & 7) + ((lane >> 3) & 1) * 8) * VS + n0 + 8 * nt);
+        mma16816(sacc[nt], kh, vf[0], vf[1]);
+        mma16816(sacc[nt], kl, vf[0], vf[1]);
       }
     }
-    __syncthreads();  // every read of the state's copy is done
+    __syncthreads();  // every read of the state's halves is done
     if (owner) {
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
+      for (int nt = 0; nt < NTW; ++nt) {
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          *reinterpret_cast<float2*>(sf + (row0 + 8 * half) * SF + 8 * nt +
-                                     2 * t4) =
-              make_float2(sacc[nt][2 * half], sacc[nt][2 * half + 1]);
+          const int off = (row0 + 8 * half) * VS + n0 + 8 * nt + 2 * t4;
+          uint32_t hi, lo;
+          split2(sacc[nt][2 * half], sacc[nt][2 * half + 1], hi, lo);
+          *reinterpret_cast<uint32_t*>(s_hi + off) = hi;
+          *reinterpret_cast<uint32_t*>(s_lo + off) = lo;
         }
       }
     }
@@ -532,13 +622,13 @@ __global__ void __launch_bounds__(kWbThreads, 4)
 
   if (owner) {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+    for (int nt = 0; nt < NTW; ++nt) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int row = row0 + 8 * half;
         if (row < K) {
-          *reinterpret_cast<float2*>(state_out + sbase + row * K + 8 * nt +
-                                     2 * t4) =
+          *reinterpret_cast<float2*>(state_out + sbase + row * K + n0 +
+                                     8 * nt + 2 * t4) =
               make_float2(sacc[nt][2 * half], sacc[nt][2 * half + 1]);
         }
       }
@@ -612,7 +702,7 @@ int launch_wkv6_bf16(const WkvArgs& a) {
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid(a.H * n_vblk, a.B);
-  kernel<<<grid, kWbThreads, smem, a.stream>>>(
+  kernel<<<grid, 32 * WkvWarps<VB>::n, smem, a.stream>>>(
       static_cast<const bf16*>(a.r), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), a.lw, a.u, a.state_in, a.state_out, a.y,
       a.S, a.H, n_vblk, static_cast<int>(wkv6_rows_aligned(a)), a.s[0],
@@ -627,6 +717,7 @@ int launch_wkv6_bf16_k(const WkvArgs& a, int K, int v_block) {
   if (K == 16 && v_block == 16) return launch_wkv6_bf16<16, 16>(a);
   if (K == 32 && v_block == 32) return launch_wkv6_bf16<32, 32>(a);
   if (K == 64 && v_block == 32) return launch_wkv6_bf16<64, 32>(a);
+  if (K == 64 && v_block == 64) return launch_wkv6_bf16<64, 64>(a);
   return kBadShape;
 }
 

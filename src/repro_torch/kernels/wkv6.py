@@ -44,7 +44,7 @@ HEAD_DIMS = (8, 16, 32, 64)
 def v_block(K: int) -> int:
     """Value columns of the state a block of the bfloat16 kernel owns: 32,
     or all K below that (a multiple of the 8 columns of an mma tile)."""
-    return min(K, 32)
+    return min(K, 64)
 
 
 def wkv_chunked(r, k, v, lw, u, chunk: int, state=None):
