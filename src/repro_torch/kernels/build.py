@@ -123,7 +123,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.rt_flash_attention.argtypes = (
         [p, p, p, p] + [i] * 6 + [ll] * 9 + [i, f, i, p])
     lib.rt_wkv6.restype = i
-    lib.rt_wkv6.argtypes = [p] * 8 + [i] * 4 + [ll] * 12 + [i, i, p]
+    lib.rt_wkv6.argtypes = [p] * 8 + [i] * 4 + [ll] * 12 + [i, p]
     lib.rt_ssd.restype = i
     lib.rt_ssd.argtypes = [p] * 6 + [i] * 5 + [ll] * 12 + [i, i, p]
 

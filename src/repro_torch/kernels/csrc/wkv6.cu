@@ -30,25 +30,18 @@
 //
 // wkv6_bf16_kernel, for bfloat16 r, k, v. At rwkv6-7b's prefill shape the
 // function is bound by bytes on an H100 (0.47 GB, y and lw in float32,
-// against 10.2 GFLOP); the parent design did 10 GFLOP of FMAs from shared
-// memory in 256 blocks. This one:
-// - one block of four warps owns a (batch, head, block of VB value
-//   columns): column v of the state and of y depends on column v of V
-//   only, so the columns split over blocks (512 blocks at K = 64, VB = 32)
-//   and a block reads and writes only its own columns of the state, which
-//   keeps the in-place decode free of races. Each block computes the
-//   chunk's 16 x 16 A itself.
-// - A stays exact: each (t, j, channel) takes its own
-//   2^min(cum_prev[t] - cum[j], 0) in float32. A lane holds two rows t
-//   (p and p + 8) and K / 16 channels and walks j; the sums over channels
-//   are reduced across a half warp by shuffles.
-// - r, k, v (bf16) and lw (f32) of the next chunk are copied by cp.async
-//   (16 bytes a thread, zero fill past the sequence) into the second of two
-//   buffers while this chunk computes; a row, stride or base that is no
-//   multiple of 16 bytes takes element-wise loads into the same buffers.
-// - the state's float32 master stays in the registers of the warp that owns
-//   its rows (warp w: key rows 16w..16w+15, in the mma accumulator layout);
-//   its hi/lo halves go through shared memory for the next chunk's r~ S.
+// against 10.2 GFLOP); the float32 design does those 10 GFLOP as FMAs from
+// shared memory. This one:
+// - one block of K / 8 warps (four at least) owns a (batch, head): warp w
+//   computes columns 8w..8w+7 of y. Splitting the value columns over two
+//   blocks (columns of the state and of y are independent) doubles the
+//   grid but computes each chunk's A twice, and measured 2x slower.
+// - A stays exact: each (t, j, channel) takes its own 2^min(e, 0) in
+//   float32, with e = cum_prev[t] - cum[j] summed directly as
+//   lw[j + 1] + .. + lw[t - 1] while a lane walks j down from t - 1, so no
+//   difference of two running sums loses it to cancellation and A needs
+//   no pass of its own before it. A half warp takes a row t, each lane K / 16
+//   of its channels; the sums over channels are reduced by shuffles.
 // - the two K x K products run on the tensor cores, mma.sync m16n8k16 bf16
 //   with float32 sums: r~ S with r~ = r 2^cum_prev, and the update k~^T V
 //   with k~ = k 2^(cum[last] - cum). Every decay in them is <= 1, so
@@ -56,6 +49,15 @@
 //   are each split into a high and a low bfloat16 half, which keeps about
 //   16 bits of their mantissa: r~ S takes hi hi + hi lo + lo hi, k~^T V
 //   takes k~ hi + lo against V exact in bf16. A V stays on FMAs.
+// - the state's float32 master stays in registers, in the mma accumulator
+//   layout: warp w owns key rows 16 (w % 4).. and half (w / 4) of the
+//   columns; its hi/lo halves go through shared memory for the next
+//   chunk's r~ S, and a block reads and writes only its own (batch, head)
+//   of the state, so the in-place decode is free of races.
+// - r, k, v (bf16) and lw (f32) of the next chunk are copied by cp.async
+//   (16 bytes a thread, zero fill past the sequence) into the second of two
+//   buffers while this chunk computes; a row, stride or base that is no
+//   multiple of 16 bytes takes element-wise loads into the same buffers.
 #include "mma.cuh"
 
 namespace rt {
@@ -179,30 +181,27 @@ __global__ void __launch_bounds__(kWkvThreads)
 
 // ---- the bfloat16 kernel ----------------------------------------------------
 
-// Warps of a block: four, or eight for a block of 64 value columns (one
-// mma tile of y each).
-template <int VB>
+// Warps of a block: one n-tile of 8 columns of y each, at least four.
+template <int K>
 struct WkvWarps {
-  static constexpr int n = VB > 32 ? 8 : 4;
+  static constexpr int n = K > 32 ? K / 8 : 4;
 };
 
 // Shared memory of wkv6_bf16_kernel, in bytes from the start: two stages of
 // the r, k, v and lw tiles, then the chunk's work arrays. Rows of the v tile
-// are padded by 8 elements so that the rows a warp reads fall on different
-// banks, and so are rows of the bf16 halves of r~, k~ and the state, for
-// ldmatrix.
-template <int K, int VB>
+// and of the bf16 halves of r~, k~ and the state are padded by 8 elements,
+// so that the eight rows an ldmatrix reads fall on different banks.
+template <int K>
 struct WkvLayout {
   static constexpr int Q = kWkvQ;
   static constexpr int KP = K < 16 ? 16 : K;  // channels, padded to 16
-  static constexpr int VS = VB + 8;           // v tile row (bf16)
+  static constexpr int VS = K + 8;            // v tile and state row (bf16)
   static constexpr int RS = KP + 8;           // r~, k~ halves row (bf16)
   static constexpr int kR = 0;                       // bf16 [2][Q][K]
   static constexpr int kK = kR + 2 * Q * K * 2;      // bf16 [2][Q][K]
   static constexpr int kV = kK + 2 * Q * K * 2;      // bf16 [2][Q][VS]
   static constexpr int kW = kV + 2 * Q * VS * 2;     // f32 [2][Q][K]
-  static constexpr int kC = kW + 2 * Q * K * 4;      // f32 [Q][K] cum log2 e
-  static constexpr int kRT = kC + Q * K * 4;         // bf16 [hi, lo][Q][RS] r~
+  static constexpr int kRT = kW + 2 * Q * K * 4;     // bf16 [hi, lo][Q][RS] r~
   static constexpr int kKT = kRT + 2 * Q * RS * 2;   // bf16 [hi, lo][Q][RS] k~
   static constexpr int kS = kKT + 2 * Q * RS * 2;    // bf16 [hi, lo][KP][VS] state
   static constexpr int kA = kS + 2 * KP * VS * 2;    // f32 [Q][Q + 1] A
@@ -270,27 +269,27 @@ __device__ __forceinline__ void lds(const float* p, float (&o)[N]) {
   }
 }
 
-template <int K, int VB>
-__global__ void __launch_bounds__(32 * WkvWarps<VB>::n, 16 / WkvWarps<VB>::n)
+template <int K>
+__global__ void __launch_bounds__(32 * WkvWarps<K>::n, 16 / WkvWarps<K>::n)
     wkv6_bf16_kernel(const __nv_bfloat16* __restrict__ r,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      const float* __restrict__ lw, const float* __restrict__ u,
                      const float* state_in, float* state_out,
-                     float* __restrict__ y, int S, int H, int n_vblk, int vec,
+                     float* __restrict__ y, int S, int H, int vec,
                      long long r_sb, long long r_ss, long long r_sh,
                      long long k_sb, long long k_ss, long long k_sh,
                      long long v_sb, long long v_ss, long long v_sh,
                      long long w_sb, long long w_ss, long long w_sh) {
   using bf16 = __nv_bfloat16;
-  using L = WkvLayout<K, VB>;
+  using L = WkvLayout<K>;
   constexpr int Q = kWkvQ;
   constexpr int KP = L::KP;
   constexpr int VS = L::VS;
   constexpr int RS = L::RS;
-  constexpr int NW = WkvWarps<VB>::n;
+  constexpr int NW = WkvWarps<K>::n;
   constexpr int T = 32 * NW;
-  constexpr int NT = VB / 8;                    // n-tiles of 8 value columns
+  constexpr int NT = K / 8;                     // n-tiles of 8 value columns
   constexpr int NTW = NT * 4 / NW;              // of them in a warp's state
   constexpr int NR = 8 / NW;                    // rows of a lane in A
   constexpr int CPG = K >= 16 ? K / 16 : 1;     // channels of a lane in A
@@ -300,7 +299,6 @@ __global__ void __launch_bounds__(32 * WkvWarps<VB>::n, 16 / WkvWarps<VB>::n)
   bf16* ktl = reinterpret_cast<bf16*>(smem_raw + L::kK);
   bf16* vtl = reinterpret_cast<bf16*>(smem_raw + L::kV);
   float* wtl = reinterpret_cast<float*>(smem_raw + L::kW);
-  float* cf = reinterpret_cast<float*>(smem_raw + L::kC);
   bf16* r_hi = reinterpret_cast<bf16*>(smem_raw + L::kRT);
   bf16* r_lo = r_hi + Q * RS;
   bf16* k_hi = reinterpret_cast<bf16*>(smem_raw + L::kKT);
@@ -310,10 +308,8 @@ __global__ void __launch_bounds__(32 * WkvWarps<VB>::n, 16 / WkvWarps<VB>::n)
   float* as = reinterpret_cast<float*>(smem_raw + L::kA);
   float* dec = reinterpret_cast<float*>(smem_raw + L::kDec);
 
-  const int vblk = blockIdx.x % n_vblk;
-  const int h = blockIdx.x / n_vblk;
+  const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int v0 = vblk * VB;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -322,12 +318,12 @@ __global__ void __launch_bounds__(32 * WkvWarps<VB>::n, 16 / WkvWarps<VB>::n)
 
   const bf16* rb = r + b * r_sb + h * r_sh;
   const bf16* kb = k + b * k_sb + h * k_sh;
-  const bf16* vb = v + b * v_sb + h * v_sh + v0;
+  const bf16* vb = v + b * v_sb + h * v_sh;
   const float* wb = lw + b * w_sb + h * w_sh;
   // y is contiguous (B, S, H, K)
-  float* yb = y + (static_cast<long long>(b) * S * H + h) * K + v0;
+  float* yb = y + (static_cast<long long>(b) * S * H + h) * K;
   const long long y_ss = static_cast<long long>(H) * K;
-  const long long sbase = (static_cast<long long>(b) * H + h) * K * K + v0;
+  const long long sbase = (static_cast<long long>(b) * H + h) * K * K;
 
   // r, k, v, lw of the chunk at row c0 into buffer `stage`
   auto load_chunk = [&](int stage, int c0) {
@@ -343,12 +339,7 @@ __global__ void __launch_bounds__(32 * WkvWarps<VB>::n, 16 / WkvWarps<VB>::n)
         const long long pos = c0 + row;
         cp_async16(rd + row * K + c, ok ? rb + pos * r_ss + c : rb, ok);
         cp_async16(kd + row * K + c, ok ? kb + pos * k_ss + c : kb, ok);
-      }
-      for (int i = tid; i < Q * (VB / 8); i += T) {
-        const int row = i / (VB / 8);
-        const int c = 8 * (i % (VB / 8));
-        const bool ok = c0 + row < S;
-        cp_async16(vd + row * VS + c, ok ? vb + (c0 + row) * v_ss + c : vb, ok);
+        cp_async16(vd + row * VS + c, ok ? vb + pos * v_ss + c : vb, ok);
       }
       for (int i = tid; i < Q * (K / 4); i += T) {
         const int row = i / (K / 4);
@@ -365,13 +356,8 @@ __global__ void __launch_bounds__(32 * WkvWarps<VB>::n, 16 / WkvWarps<VB>::n)
         const long long pos = c0 + row;
         rd[i] = ok ? rb[pos * r_ss + c] : zero;
         kd[i] = ok ? kb[pos * k_ss + c] : zero;
+        vd[row * VS + c] = ok ? vb[pos * v_ss + c] : zero;
         wd[i] = ok ? wb[pos * w_ss + c] : 0.0f;
-      }
-      for (int i = tid; i < Q * VB; i += T) {
-        const int row = i / VB;
-        const int c = i % VB;
-        const bool ok = c0 + row < S;
-        vd[row * VS + c] = ok ? vb[(c0 + row) * v_ss + c] : zero;
       }
     }
     cp_async_commit();
@@ -392,9 +378,18 @@ __global__ void __launch_bounds__(32 * WkvWarps<VB>::n, 16 / WkvWarps<VB>::n)
   float uu[CPG];
 #pragma unroll
   for (int i = 0; i < CPG; ++i) uu[i] = act ? u[h * K + cc + i] : 0.0f;
+  // this half warp's rows in A. Four warps: rows hw and hw + 8 of half warp
+  // hw. Eight: one row each, rows 2q and 2q + 1 in warp 7 - q and q + 4, so
+  // that the two warps of a scheduler (w, w + 4) walk 16 columns between them.
+  int tr[NR];
+#pragma unroll
+  for (int n = 0; n < NR; ++n) {
+    tr[n] = NR == 2 ? (tid >> 4) + 8 * n
+                    : 2 * (warp < 4 ? 7 - warp : warp - 4) + ((tid >> 4) & 1);
+  }
 
   // the state: warp w owns key rows 16 (w % 4) + g and 16 (w % 4) + g + 8,
-  // value columns n0 + 8 nt + 2 t4 and the next of the block's VB
+  // value columns n0 + 8 nt + 2 t4 and the next
   const int rg = warp & 3;
   const bool owner = 16 * rg < KP;
   const int row0 = 16 * rg + g;
@@ -437,32 +432,27 @@ __global__ void __launch_bounds__(32 * WkvWarps<VB>::n, 16 / WkvWarps<VB>::n)
     const bf16* V = vtl + st * Q * VS;
     const float* W = wtl + st * Q * K;
 
-    // running sum of lw down each channel (in powers of two); thread tid
-    // takes channel tid % K and Q / (T / K) of the rows. Every thread adds
-    // the rows in the same order, so the sums agree across threads.
+    // running sum of lw down channel c = tid % K, over all rows, and r~,
+    // k~ (as hi and lo halves) of rows t = tid / K, + T / K, ..; the decay
+    // of the chunk. Every thread adds the rows in the same order, so the
+    // sums agree across threads.
     {
-      constexpr int RPP = Q * K / T;
+      constexpr int PARTS = T / K;
       const int c = tid % K;
-      const int t_lo = (tid / K) * RPP;
-      float run = 0.0f;
-      for (int t = 0; t < t_lo; ++t) run += W[t * K + c];
-      float pv[RPP], cm[RPP];
+      const int part = tid / K;
+      float cum[Q];
 #pragma unroll
-      for (int i = 0; i < RPP; ++i) {
-        pv[i] = run;
-        run += W[(t_lo + i) * K + c];
-        cm[i] = run;
-      }
-      for (int t = t_lo + RPP; t < Q; ++t) run += W[t * K + c];
-      const float last = run * kLog2e;
-      if (t_lo == 0) dec[c] = ex2(last);
+      for (int t = 0; t < Q; ++t) cum[t] = W[t * K + c];
 #pragma unroll
-      for (int i = 0; i < RPP; ++i) {
-        const int t = t_lo + i;
-        const float c2 = cm[i] * kLog2e;
-        cf[t * K + c] = c2;
-        const float re = to_float(R[t * K + c]) * ex2(pv[i] * kLog2e);
-        const float ke = to_float(Kt[t * K + c]) * ex2(last - c2);
+      for (int t = 1; t < Q; ++t) cum[t] += cum[t - 1];
+      const float last = cum[Q - 1] * kLog2e;
+      if (part == 0) dec[c] = ex2(last);
+#pragma unroll
+      for (int t = 0; t < Q; ++t) {
+        if (t % PARTS != part) continue;
+        const float prev = t > 0 ? cum[t - 1] * kLog2e : 0.0f;
+        const float re = to_float(R[t * K + c]) * ex2(prev);
+        const float ke = to_float(Kt[t * K + c]) * ex2(last - cum[t] * kLog2e);
         const bf16 rh = __float2bfloat16_rn(re);
         const bf16 kh = __float2bfloat16_rn(ke);
         r_hi[t * RS + c] = rh;
@@ -471,74 +461,71 @@ __global__ void __launch_bounds__(32 * WkvWarps<VB>::n, 16 / WkvWarps<VB>::n)
         k_lo[t * RS + c] = __float2bfloat16_rn(ke - __bfloat162float(kh));
       }
     }
-    __syncthreads();
 
-    // A: a half warp takes NR rows, each lane cg its channels of them, and
-    // sums over channels at the end. Four warps: rows hw and hw + 8 of half
-    // warp hw. Eight: one row each, rows 2q and 2q + 1 in warp 7 - q and
-    // q + 4, so that the two warps of a scheduler (w, w + 4) walk 16
-    // columns j between them.
+    // A: a half warp takes NR rows t, each lane cg its channels of them, and
+    // walks j = t - 1, t - 2, .., 0 in steps m = t - 1 - j, with the exponent
+    // cum_prev[t] - cum[j] = lw[j + 1] + .. + lw[t - 1] summed as it goes
+    // (no difference of two running sums, so no cancellation); then the half
+    // warp sums over channels.
     {
-      const int hw = tid >> 4;
-      int tr[NR];
-      float rr[NR][CPG], qq[NR][CPG], a[NR][Q];
+      float rr[NR][CPG], d2[NR][CPG], a[NR][Q];
 #pragma unroll
       for (int n = 0; n < NR; ++n) {
-        tr[n] = NR == 2 ? hw + 8 * n
-                        : 2 * (warp < 4 ? 7 - warp : warp - 4) + (hw & 1);
         lds(R + tr[n] * K + cc, rr[n]);
-        lds(cf + (tr[n] > 0 ? tr[n] - 1 : 0) * K + cc, qq[n]);
 #pragma unroll
         for (int i = 0; i < CPG; ++i) {
           if (!act) rr[n][i] = 0.0f;
-          if (tr[n] == 0) qq[n][i] = 0.0f;
+          d2[n][i] = 0.0f;
         }
 #pragma unroll
-        for (int j = 0; j < Q; ++j) a[n][j] = 0.0f;
+        for (int m = 0; m < Q; ++m) a[n][m] = 0.0f;
       }
 #pragma unroll
-      for (int j = 0; j < Q - 1; ++j) {
+      for (int m = 0; m < Q - 1; ++m) {
         bool go[NR], any = false;
 #pragma unroll
         for (int n = 0; n < NR; ++n) {
-          go[n] = tr[n] < rows && j < tr[n];
+          go[n] = tr[n] < rows && m < tr[n];
           any = any || go[n];
         }
         if (any) {
-          float kj[CPG], cj[CPG];
-          lds(Kt + j * K + cc, kj);
-          lds(cf + j * K + cc, cj);
 #pragma unroll
-          for (int i = 0; i < CPG; ++i) {
+          for (int n = 0; n < NR; ++n) {
+            const int j = max(tr[n] - 1 - m, 0);
+            float kj[CPG], wj[CPG];
+            lds(Kt + j * K + cc, kj);
+            if (m > 0) lds(W + (j + 1) * K + cc, wj);
 #pragma unroll
-            for (int n = 0; n < NR; ++n) {
-              if (go[n]) {
-                a[n][j] = fmaf(rr[n][i] * kj[i],
-                               ex2(fminf(qq[n][i] - cj[i], 0.0f)), a[n][j]);
-              }
+            for (int i = 0; i < CPG; ++i) {
+              if (m > 0) d2[n][i] = fmaf(wj[i], kLog2e, d2[n][i]);
+              const float e = ex2(fminf(d2[n][i], 0.0f));
+              if (go[n]) a[n][m] = fmaf(rr[n][i] * kj[i], e, a[n][m]);
             }
           }
         }
       }
 #pragma unroll
       for (int n = 0; n < NR; ++n) {
-        float d = 0.0f;  // the bonus: r_t . (u * k_t)
         float kt_[CPG];
         lds(Kt + tr[n] * K + cc, kt_);
+        float d = 0.0f;  // the bonus: r_t . (u * k_t), over the half warp
 #pragma unroll
         for (int i = 0; i < CPG; ++i) d = fmaf(rr[n][i] * uu[i], kt_[i], d);
-#pragma unroll
-        for (int j = 0; j < Q; ++j) {
-          if (j == tr[n]) a[n][j] = d;
-        }
+        d += __shfl_xor_sync(0xffffffffu, d, 8);
+        d += __shfl_xor_sync(0xffffffffu, d, 4);
+        d += __shfl_xor_sync(0xffffffffu, d, 2);
+        d += __shfl_xor_sync(0xffffffffu, d, 1);
         reduce_scatter16(a[n], lane);
-        as[tr[n] * (Q + 1) + cg] = a[n][0];
+        // lane cg < t: A[t, t - 1 - cg]; lane t: the bonus; the rest: zero
+        const int t = tr[n];
+        const int j = cg < t ? t - 1 - cg : cg;
+        as[t * (Q + 1) + j] = cg < t ? a[n][0] : (cg == t ? d : 0.0f);
       }
     }
     __syncthreads();
 
-    // y = A V + r~ S: warp w takes n-tile w (if NT > w); rows g and g + 8,
-    // columns 8 nt + 2 t4 and the next
+    // y = A V + r~ S: warp w takes n-tile w; rows g and g + 8, columns
+    // 8 w + 2 t4 and the next
     for (int nt = warp; nt < NT; nt += NW) {
       const int col = 8 * nt + 2 * t4;
       float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -578,7 +565,7 @@ __global__ void __launch_bounds__(32 * WkvWarps<VB>::n, 16 / WkvWarps<VB>::n)
       }
     }
 
-    // S <- diag(2^cum[last]) S + k~^T V over the warp's rows
+    // S <- diag(2^cum[last]) S + k~^T V over the warp's rows and columns
     if (owner) {
       const float dg = dec[row0];
       const float dg8 = dec[row0 + 8];
@@ -656,24 +643,9 @@ int launch_wkv6(const WkvArgs& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_wkv6_f32(const WkvArgs& a, int K) {
-  switch (K) {
-    case 8:
-      return launch_wkv6<float, 8>(a);
-    case 16:
-      return launch_wkv6<float, 16>(a);
-    case 32:
-      return launch_wkv6<float, 32>(a);
-    case 64:
-      return launch_wkv6<float, 64>(a);
-    default:
-      return kBadShape;
-  }
-}
-
 // Whether every row of r, k, v and lw the bfloat16 kernel reads starts on
 // 16 bytes: bases, and strides along dimensions of more than one element,
-// multiples of 16 bytes (K and VB are multiples of 8).
+// multiples of 16 bytes (K is a multiple of 8).
 inline bool wkv6_rows_aligned(const WkvArgs& a) {
   const auto base_ok = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
@@ -689,36 +661,55 @@ inline bool wkv6_rows_aligned(const WkvArgs& a) {
   return true;
 }
 
-template <int K, int VB>
+template <int K>
 int launch_wkv6_bf16(const WkvArgs& a) {
   using bf16 = __nv_bfloat16;
-  const int n_vblk = K / VB;
-  const size_t smem = WkvLayout<K, VB>::kBytes;
-  auto kernel = wkv6_bf16_kernel<K, VB>;
+  const size_t smem = WkvLayout<K>::kBytes;
+  auto kernel = wkv6_bf16_kernel<K>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid(a.H * n_vblk, a.B);
-  kernel<<<grid, 32 * WkvWarps<VB>::n, smem, a.stream>>>(
+  const dim3 grid(a.H, a.B);
+  kernel<<<grid, 32 * WkvWarps<K>::n, smem, a.stream>>>(
       static_cast<const bf16*>(a.r), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), a.lw, a.u, a.state_in, a.state_out, a.y,
-      a.S, a.H, n_vblk, static_cast<int>(wkv6_rows_aligned(a)), a.s[0],
-      a.s[1], a.s[2], a.s[3], a.s[4], a.s[5], a.s[6], a.s[7], a.s[8], a.s[9],
+      a.S, a.H, static_cast<int>(wkv6_rows_aligned(a)), a.s[0], a.s[1],
+      a.s[2], a.s[3], a.s[4], a.s[5], a.s[6], a.s[7], a.s[8], a.s[9],
       a.s[10], a.s[11]);
   return static_cast<int>(cudaGetLastError());
 }
 
-// (K, VB) pairs of kernels/wkv6.py, v_block
-int launch_wkv6_bf16_k(const WkvArgs& a, int K, int v_block) {
-  if (K == 8 && v_block == 8) return launch_wkv6_bf16<8, 8>(a);
-  if (K == 16 && v_block == 16) return launch_wkv6_bf16<16, 16>(a);
-  if (K == 32 && v_block == 32) return launch_wkv6_bf16<32, 32>(a);
-  if (K == 64 && v_block == 32) return launch_wkv6_bf16<64, 32>(a);
-  if (K == 64 && v_block == 64) return launch_wkv6_bf16<64, 64>(a);
-  return kBadShape;
+int launch_wkv6_f32(const WkvArgs& a, int K) {
+  switch (K) {
+    case 8:
+      return launch_wkv6<float, 8>(a);
+    case 16:
+      return launch_wkv6<float, 16>(a);
+    case 32:
+      return launch_wkv6<float, 32>(a);
+    case 64:
+      return launch_wkv6<float, 64>(a);
+    default:
+      return kBadShape;
+  }
+}
+
+int launch_wkv6_bf16_k(const WkvArgs& a, int K) {
+  switch (K) {
+    case 8:
+      return launch_wkv6_bf16<8>(a);
+    case 16:
+      return launch_wkv6_bf16<16>(a);
+    case 32:
+      return launch_wkv6_bf16<32>(a);
+    case 64:
+      return launch_wkv6_bf16<64>(a);
+    default:
+      return kBadShape;
+  }
 }
 
 }  // namespace rt
@@ -727,10 +718,8 @@ int launch_wkv6_bf16_k(const WkvArgs& a, int K, int v_block) {
 // batch, sequence and head strides (in elements; the last dimension is
 // contiguous). u (H, K), state_in and state_out (B, H, K, K) and y
 // (B, S, H, K) are contiguous float32; state_in may be null (zeros) and may
-// be state_out. `v_block` is the value columns a block of the bfloat16
-// kernel takes (kernels/wkv6.py, v_block); the float32 kernel takes all K.
-// Returns 0, a CUDA error code, or a negative code for arguments the kernel
-// does not take.
+// be state_out. Returns 0, a CUDA error code, or a negative code for
+// arguments the kernel does not take.
 extern "C" int rt_wkv6(const void* r, const void* k, const void* v,
                        const void* lw, const void* u, const void* state_in,
                        void* state_out, void* y, int B, int S, int H, int K,
@@ -738,7 +727,7 @@ extern "C" int rt_wkv6(const void* r, const void* k, const void* v,
                        long long k_sb, long long k_ss, long long k_sh,
                        long long v_sb, long long v_ss, long long v_sh,
                        long long w_sb, long long w_ss, long long w_sh,
-                       int dtype, int v_block, void* stream) {
+                       int dtype, void* stream) {
   using namespace rt;
   if (B <= 0 || S <= 0 || H <= 0 || B > 65535) return kBadShape;
   const WkvArgs a{r,
@@ -756,6 +745,6 @@ extern "C" int rt_wkv6(const void* r, const void* k, const void* v,
                    w_ss, w_sh},
                   static_cast<cudaStream_t>(stream)};
   if (dtype == kFloat32) return launch_wkv6_f32(a, K);
-  if (dtype == kBFloat16) return launch_wkv6_bf16_k(a, K, v_block);
+  if (dtype == kBFloat16) return launch_wkv6_bf16_k(a, K);
   return kBadDtype;
 }

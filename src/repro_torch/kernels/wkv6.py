@@ -19,12 +19,14 @@ moveaxis and padded copies are gone; a chunk cut short by the end of the
 sequence is masked in the kernel. The state may be updated in place
 (``state_out=state``), as the decode path does with its cache.
 
-- bfloat16 r, k, v: a block of four warps owns a (batch, head) and
-  ``v_block(K)`` value columns of the state (they are independent, so 64
-  splits into two blocks of 32 and the grid doubles). The chunk's A (the
-  decayed r.k sums) is exact float32, one exp for each (t, j, channel);
-  the next chunk's tiles are copied by ``cp.async`` while this one
-  computes; the state's float32 master stays in registers.
+- bfloat16 r, k, v: a block of K / 8 warps (four at least) owns a (batch,
+  head). The chunk's A (the decayed r.k sums) is exact float32, one exp
+  for each (t, j, channel); the two K x K products (r exp(cum_prev) times
+  the state, and the update) run on the tensor cores with the float32
+  operands split into high and low bfloat16 halves; the next chunk's tiles
+  are copied by ``cp.async`` while this one computes; the state's float32
+  master stays in registers. Splitting the value columns over two blocks
+  (twice the grid, A computed twice) measured 2x slower at K = 64.
 - float32 r, k, v: one block of 256 threads owns a (batch, head) and does
   every product as float32 FMAs from shared memory, which holds the float32
   gate of 1e-4 / 5e-4.
@@ -39,12 +41,6 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 
 HEAD_DIMS = (8, 16, 32, 64)
-
-
-def v_block(K: int) -> int:
-    """Value columns of the state a block of the bfloat16 kernel owns: 32,
-    or all K below that (a multiple of the 8 columns of an mma tile)."""
-    return min(K, 64)
 
 
 def wkv_chunked(r, k, v, lw, u, chunk: int, state=None):
@@ -170,7 +166,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
                  state.data_ptr() if state is not None else None,
                  state_out.data_ptr(), y.data_ptr(), B, S, H, K,
                  *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *lw.stride()[:3], code, v_block(K))
+                 *lw.stride()[:3], code)
     wkv6.launches += 1
     return y, state_out
 

@@ -21,7 +21,7 @@ from repro_torch.kernels.rmsnorm import (BLOCK_THREADS, MAX_VECTORS,
                                         ROW_THREADS, launch_shape, rmsnorm,
                                         rmsnorm_plain)
 from repro_torch.kernels.ssd import p_block
-from repro_torch.kernels.wkv6 import HEAD_DIMS, _kernel_checks, v_block, wkv6
+from repro_torch.kernels.wkv6 import HEAD_DIMS, _kernel_checks, wkv6
 from test_torch_parity import as_f32, to_jax, to_torch
 
 
@@ -231,19 +231,24 @@ def test_ssd_p_block_leaves_no_column_idle():
     assert [p_block(P) for P in (8, 16, 17, 32, 40, 64)] == [16, 16, 32, 32, 32, 32]
 
 
-def test_wkv6_v_block_leaves_no_lane_idle():
-    """The bf16 wkv6 kernel's blocks of value columns cover every K it takes,
-    and the head size of every configuration with the wkv recurrence, in
-    whole mma tiles of 8 columns with no padded column, at most 64 (eight
-    warps, one tile of y each)."""
-    for K in HEAD_DIMS:
-        vb = v_block(K)
-        assert vb % 8 == 0 and K % vb == 0 and vb <= 64, K
-    assert [v_block(K) for K in HEAD_DIMS] == [8, 16, 32, 64]
+def test_wkv6_kernels_take_every_head_size_with_no_idle_lane():
+    """Every configuration with the wkv recurrence has a head size the
+    kernels take, and each K they take fills whole mma tiles of 8 value
+    columns (one a warp of the bf16 kernel, K / 8 warps at K = 64) and 16
+    lanes of a half warp with K / 16 channels each in A (K = 8: 8 lanes);
+    bfloat16 takes the bf16 kernel, float32 the float32 one."""
     for cfg in ARCHS.values():
         for c in (cfg, cfg.reduced()):
             if c.family == "ssm":
                 assert c.d_head in HEAD_DIMS, c.name
+    for K in HEAD_DIMS:
+        assert K % 8 == 0 and (K % 16 == 0 or K == 8) and K <= 64, K
+        r = torch.zeros((1, 2, 1, K))
+        args = (torch.zeros((1, 2, 1, K)), torch.zeros((1, K)), None, None)
+        assert _kernel_checks(r, r, r, *args) == build.DTYPE_CODES[torch.float32]
+        rb = r.bfloat16()
+        assert _kernel_checks(rb, rb, rb, *args) == \
+            build.DTYPE_CODES[torch.bfloat16]
 
 
 def test_wkv6_kernel_checks_refuse_what_the_kernels_do_not_take():
