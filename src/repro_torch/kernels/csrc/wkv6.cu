@@ -48,7 +48,8 @@
 //   |r~| <= |r| and |k~| <= |k|. The float32 operands (r~, k~, the state)
 //   are each split into a high and a low bfloat16 half, which keeps about
 //   16 bits of their mantissa: r~ S takes hi hi + hi lo + lo hi, k~^T V
-//   takes k~ hi + lo against V exact in bf16. A V stays on FMAs.
+//   takes k~ hi + lo against V exact in bf16, and A V, with A computed
+//   exactly, takes A hi + lo against V.
 // - the state's float32 master stays in registers, in the mma accumulator
 //   layout: warp w owns key rows 16 (w % 4).. and half (w / 4) of the
 //   columns; its hi/lo halves go through shared memory for the next
@@ -197,6 +198,7 @@ struct WkvLayout {
   static constexpr int KP = K < 16 ? 16 : K;  // channels, padded to 16
   static constexpr int VS = K + 8;            // v tile and state row (bf16)
   static constexpr int RS = KP + 8;           // r~, k~ halves row (bf16)
+  static constexpr int AS = Q + 8;            // A halves row (bf16)
   static constexpr int kR = 0;                       // bf16 [2][Q][K]
   static constexpr int kK = kR + 2 * Q * K * 2;      // bf16 [2][Q][K]
   static constexpr int kV = kK + 2 * Q * K * 2;      // bf16 [2][Q][VS]
@@ -204,8 +206,8 @@ struct WkvLayout {
   static constexpr int kRT = kW + 2 * Q * K * 4;     // bf16 [hi, lo][Q][RS] r~
   static constexpr int kKT = kRT + 2 * Q * RS * 2;   // bf16 [hi, lo][Q][RS] k~
   static constexpr int kS = kKT + 2 * Q * RS * 2;    // bf16 [hi, lo][KP][VS] state
-  static constexpr int kA = kS + 2 * KP * VS * 2;    // f32 [Q][Q + 1] A
-  static constexpr int kDec = kA + Q * (Q + 1) * 4;  // f32 [KP]
+  static constexpr int kA = kS + 2 * KP * VS * 2;    // bf16 [hi, lo][Q][AS] A
+  static constexpr int kDec = kA + 2 * Q * AS * 2;   // f32 [KP]
   static constexpr int kBytes = kDec + KP * 4;
 };
 
@@ -287,6 +289,7 @@ __global__ void __launch_bounds__(32 * WkvWarps<K>::n, 16 / WkvWarps<K>::n)
   constexpr int KP = L::KP;
   constexpr int VS = L::VS;
   constexpr int RS = L::RS;
+  constexpr int AS = L::AS;
   constexpr int NW = WkvWarps<K>::n;
   constexpr int T = 32 * NW;
   constexpr int NT = K / 8;                     // n-tiles of 8 value columns
@@ -305,7 +308,8 @@ __global__ void __launch_bounds__(32 * WkvWarps<K>::n, 16 / WkvWarps<K>::n)
   bf16* k_lo = k_hi + Q * RS;
   bf16* s_hi = reinterpret_cast<bf16*>(smem_raw + L::kS);
   bf16* s_lo = s_hi + KP * VS;
-  float* as = reinterpret_cast<float*>(smem_raw + L::kA);
+  bf16* a_hi = reinterpret_cast<bf16*>(smem_raw + L::kA);
+  bf16* a_lo = a_hi + Q * AS;
   float* dec = reinterpret_cast<float*>(smem_raw + L::kDec);
 
   const int h = blockIdx.x;
@@ -480,8 +484,22 @@ __global__ void __launch_bounds__(32 * WkvWarps<K>::n, 16 / WkvWarps<K>::n)
 #pragma unroll
         for (int m = 0; m < Q; ++m) a[n][m] = 0.0f;
       }
+      // k[j] and lw[j + 1] of each step are loaded a step ahead, outside
+      // the branch, so that their latency overlaps the step before
+      float kj[NR][CPG], wj[NR][CPG];
+#pragma unroll
+      for (int n = 0; n < NR; ++n) lds(Kt + max(tr[n] - 1, 0) * K + cc, kj[n]);
 #pragma unroll
       for (int m = 0; m < Q - 1; ++m) {
+        float kn[NR][CPG], wn[NR][CPG];
+        if (m + 2 < Q) {
+#pragma unroll
+          for (int n = 0; n < NR; ++n) {
+            const int jn = max(tr[n] - 2 - m, 0);
+            lds(Kt + jn * K + cc, kn[n]);
+            lds(W + (jn + 1) * K + cc, wn[n]);
+          }
+        }
         bool go[NR], any = false;
 #pragma unroll
         for (int n = 0; n < NR; ++n) {
@@ -491,15 +509,21 @@ __global__ void __launch_bounds__(32 * WkvWarps<K>::n, 16 / WkvWarps<K>::n)
         if (any) {
 #pragma unroll
           for (int n = 0; n < NR; ++n) {
-            const int j = max(tr[n] - 1 - m, 0);
-            float kj[CPG], wj[CPG];
-            lds(Kt + j * K + cc, kj);
-            if (m > 0) lds(W + (j + 1) * K + cc, wj);
 #pragma unroll
             for (int i = 0; i < CPG; ++i) {
-              if (m > 0) d2[n][i] = fmaf(wj[i], kLog2e, d2[n][i]);
+              if (m > 0) d2[n][i] = fmaf(wj[n][i], kLog2e, d2[n][i]);
               const float e = ex2(fminf(d2[n][i], 0.0f));
-              if (go[n]) a[n][m] = fmaf(rr[n][i] * kj[i], e, a[n][m]);
+              if (go[n]) a[n][m] = fmaf(rr[n][i] * kj[n][i], e, a[n][m]);
+            }
+          }
+        }
+        if (m + 2 < Q) {
+#pragma unroll
+          for (int n = 0; n < NR; ++n) {
+#pragma unroll
+            for (int i = 0; i < CPG; ++i) {
+              kj[n][i] = kn[n][i];
+              wj[n][i] = wn[n][i];
             }
           }
         }
@@ -519,51 +543,13 @@ __global__ void __launch_bounds__(32 * WkvWarps<K>::n, 16 / WkvWarps<K>::n)
         // lane cg < t: A[t, t - 1 - cg]; lane t: the bonus; the rest: zero
         const int t = tr[n];
         const int j = cg < t ? t - 1 - cg : cg;
-        as[t * (Q + 1) + j] = cg < t ? a[n][0] : (cg == t ? d : 0.0f);
+        const float x = cg < t ? a[n][0] : (cg == t ? d : 0.0f);
+        const bf16 xh = __float2bfloat16_rn(x);
+        a_hi[t * AS + j] = xh;
+        a_lo[t * AS + j] = __float2bfloat16_rn(x - __bfloat162float(xh));
       }
     }
     __syncthreads();
-
-    // y = A V + r~ S: warp w takes n-tile w; rows g and g + 8, columns
-    // 8 w + 2 t4 and the next
-    for (int nt = warp; nt < NT; nt += NW) {
-      const int col = 8 * nt + 2 * t4;
-      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int j = 0; j < Q; ++j) {
-        const float2 vv = unpack2(*reinterpret_cast<const uint32_t*>(V + j * VS + col));
-        const float ag = as[g * (Q + 1) + j];
-        const float ag8 = as[(g + 8) * (Q + 1) + j];
-        acc[0] = fmaf(ag, vv.x, acc[0]);
-        acc[1] = fmaf(ag, vv.y, acc[1]);
-        acc[2] = fmaf(ag8, vv.x, acc[2]);
-        acc[3] = fmaf(ag8, vv.y, acc[3]);
-      }
-      // r~ S on the tensor cores: hi hi + hi lo + lo hi over k = channels
-#pragma unroll
-      for (int ks = 0; ks < KP / 16; ++ks) {
-        const int a_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * RS + 16 * ks +
-                          (lane >> 4) * 8;
-        const int b_off = (16 * ks + (lane & 7) + ((lane >> 3) & 1) * 8) * VS +
-                          8 * nt;
-        uint32_t ah[4], al[4], bh[2], bl[2];
-        ldsm_x4(ah, r_hi + a_off);
-        ldsm_x4(al, r_lo + a_off);
-        ldsm_x2_t(bh, s_hi + b_off);
-        ldsm_x2_t(bl, s_lo + b_off);
-        mma16816(acc, ah, bh[0], bh[1]);
-        mma16816(acc, ah, bl[0], bl[1]);
-        mma16816(acc, al, bh[0], bh[1]);
-      }
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int t = g + 8 * half;
-        if (t < rows) {
-          *reinterpret_cast<float2*>(yb + (c0 + t) * y_ss + col) =
-              make_float2(acc[2 * half], acc[2 * half + 1]);
-        }
-      }
-    }
 
     // S <- diag(2^cum[last]) S + k~^T V over the warp's rows and columns
     if (owner) {
@@ -589,6 +575,48 @@ __global__ void __launch_bounds__(32 * WkvWarps<K>::n, 16 / WkvWarps<K>::n)
         ldsm_x2_t(vf, V + ((lane & 7) + ((lane >> 3) & 1) * 8) * VS + n0 + 8 * nt);
         mma16816(sacc[nt], kh, vf[0], vf[1]);
         mma16816(sacc[nt], kl, vf[0], vf[1]);
+      }
+    }
+
+    // y = A V + r~ S: warp w takes n-tile w; rows g and g + 8, columns
+    // 8 w + 2 t4 and the next. All on the tensor cores: A V as A hi V +
+    // A lo V (V exact in bf16), r~ S as hi hi + hi lo + lo hi, each product
+    // into a sum of its own so that none waits on the one before.
+    for (int nt = warp; nt < NT; nt += NW) {
+      const int col = 8 * nt + 2 * t4;
+      const int a_off = ((lane & 7) + ((lane >> 3) & 1) * 8);
+      float av[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float hh[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float hl[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float lh[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      {
+        uint32_t ah[4], al[4], vf[2];
+        ldsm_x4(ah, a_hi + a_off * AS + (lane >> 4) * 8);
+        ldsm_x4(al, a_lo + a_off * AS + (lane >> 4) * 8);
+        ldsm_x2_t(vf, V + a_off * VS + 8 * nt);
+        mma16816(av, ah, vf[0], vf[1]);
+        mma16816(hl, al, vf[0], vf[1]);
+      }
+#pragma unroll
+      for (int ks = 0; ks < KP / 16; ++ks) {
+        uint32_t ah[4], al[4], bh[2], bl[2];
+        ldsm_x4(ah, r_hi + a_off * RS + 16 * ks + (lane >> 4) * 8);
+        ldsm_x4(al, r_lo + a_off * RS + 16 * ks + (lane >> 4) * 8);
+        ldsm_x2_t(bh, s_hi + (16 * ks + a_off) * VS + 8 * nt);
+        ldsm_x2_t(bl, s_lo + (16 * ks + a_off) * VS + 8 * nt);
+        mma16816(hh, ah, bh[0], bh[1]);
+        mma16816(hl, ah, bl[0], bl[1]);
+        mma16816(lh, al, bh[0], bh[1]);
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int t = g + 8 * half;
+        if (t < rows) {
+          const int e = 2 * half;
+          *reinterpret_cast<float2*>(yb + (c0 + t) * y_ss + col) =
+              make_float2(av[e] + (hh[e] + (hl[e] + lh[e])),
+                          av[e + 1] + (hh[e + 1] + (hl[e + 1] + lh[e + 1])));
+        }
       }
     }
     __syncthreads();  // every read of the state's halves is done
