@@ -424,6 +424,12 @@ def phase_kernels(state):
     emit({"ssd_f32_against_float64": f64,
           "inputs": "the reference test's: dt = softplus(randn), A = -exp(randn)",
           "rel": "max |err| / (1 + |y|), against float32's 2e-5", "gpu": state["smi"]})
+    # gated at float32's 2e-5 up to one tile; past it only recorded: the
+    # state grows to hundreds, and float32 rounding alone (the plain version
+    # on the CPU) can pass 2e-5 there
+    require(all(e["kernel_max_rel_err"] <= TOL[torch.float32] for e in f64
+                if e["shape"][1] <= TILE),
+            f"ssd float32 against float64 past 2e-5: {f64}")
 
     # --- the models' shapes, checked and timed -------------------------------
     bf16, f32 = torch.bfloat16, torch.float32

@@ -40,8 +40,10 @@
 //   float32, with e = cum_prev[t] - cum[j] summed directly as
 //   lw[j + 1] + .. + lw[t - 1] while a lane walks j down from t - 1, so no
 //   difference of two running sums loses it to cancellation and A needs
-//   no pass of its own before it. A half warp takes a row t, each lane K / 16
-//   of its channels; the sums over channels are reduced by shuffles.
+//   no pass of its own before it. Warp w takes the rows w and 15 - w in one
+//   walk of 15 steps with no branch (each lane K / 32 of the channels), so
+//   that every warp has the same work; the sums over channels are reduced
+//   by shuffles.
 // - the two K x K products run on the tensor cores, mma.sync m16n8k16 bf16
 //   with float32 sums: r~ S with r~ = r 2^cum_prev, and the update k~^T V
 //   with k~ = k 2^(cum[last] - cum). Every decay in them is <= 1, so
@@ -294,9 +296,9 @@ __global__ void __launch_bounds__(32 * WkvWarps<K>::n, 16 / WkvWarps<K>::n)
   constexpr int T = 32 * NW;
   constexpr int NT = K / 8;                     // n-tiles of 8 value columns
   constexpr int NTW = NT * 4 / NW;              // of them in a warp's state
-  constexpr int NR = 8 / NW;                    // rows of a lane in A
-  constexpr int CPG = K >= 16 ? K / 16 : 1;     // channels of a lane in A
-  constexpr int NCG = K / CPG;                  // lanes of a half warp in A
+  constexpr int NP = 8 / NW;                    // pairs of rows a warp takes in A
+  constexpr int CPG = K >= 32 ? K / 32 : 1;     // channels of a lane in A
+  constexpr int NCG = K / CPG;                  // lanes of a warp in A
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* rtl = reinterpret_cast<bf16*>(smem_raw + L::kR);
   bf16* ktl = reinterpret_cast<bf16*>(smem_raw + L::kK);
@@ -376,21 +378,11 @@ __global__ void __launch_bounds__(32 * WkvWarps<K>::n, 16 / WkvWarps<K>::n)
   for (int i = tid; i < KP; i += T) dec[i] = 0.0f;
 
   // this lane's channels in A and their bonus
-  const int cg = tid & 15;
-  const int cc = (cg < NCG ? cg : NCG - 1) * CPG;
-  const bool act = cg < NCG;
+  const int cc = (lane < NCG ? lane : NCG - 1) * CPG;
+  const bool act = lane < NCG;
   float uu[CPG];
 #pragma unroll
   for (int i = 0; i < CPG; ++i) uu[i] = act ? u[h * K + cc + i] : 0.0f;
-  // this half warp's rows in A. Four warps: rows hw and hw + 8 of half warp
-  // hw. Eight: one row each, rows 2q and 2q + 1 in warp 7 - q and q + 4, so
-  // that the two warps of a scheduler (w, w + 4) walk 16 columns between them.
-  int tr[NR];
-#pragma unroll
-  for (int n = 0; n < NR; ++n) {
-    tr[n] = NR == 2 ? (tid >> 4) + 8 * n
-                    : 2 * (warp < 4 ? 7 - warp : warp - 4) + ((tid >> 4) & 1);
-  }
 
   // the state: warp w owns key rows 16 (w % 4) + g and 16 (w % 4) + g + 8,
   // value columns n0 + 8 nt + 2 t4 and the next
@@ -466,88 +458,81 @@ __global__ void __launch_bounds__(32 * WkvWarps<K>::n, 16 / WkvWarps<K>::n)
       }
     }
 
-    // A: a half warp takes NR rows t, each lane cg its channels of them, and
-    // walks j = t - 1, t - 2, .., 0 in steps m = t - 1 - j, with the exponent
-    // cum_prev[t] - cum[j] = lw[j + 1] + .. + lw[t - 1] summed as it goes
-    // (no difference of two running sums, so no cancellation); then the half
-    // warp sums over channels.
-    {
-      float rr[NR][CPG], d2[NR][CPG], a[NR][Q];
+    // A: warp w takes the rows t = w + NW p and 15 - t, each lane K / 32
+    // channels of them, in one walk of 15 steps i: row t's pairs (t, j) for
+    // j = t - 1 down to 0, then row 15 - t's for j = 14 - t down to 0. Step
+    // i is pair slot i; the exponent cum_prev[row] - cum[j] =
+    // lw[j + 1] + .. + lw[row - 1] is summed as the walk goes down a row (no
+    // difference of two running sums, so no cancellation). Every warp takes
+    // 15 steps, and the row in a step is the same across the warp: no
+    // branch. Then the warp sums over channels, and writes A[t, .] and
+    // A[15 - t, .], with the bonus r . (u * k) on their diagonals.
 #pragma unroll
-      for (int n = 0; n < NR; ++n) {
-        lds(R + tr[n] * K + cc, rr[n]);
+    for (int p = 0; p < NP; ++p) {
+      const int t = warp + NW * p;
+      const int tb = Q - 1 - t;
+      if (t >= rows && tb >= rows) continue;  // both rows past the sequence
+      float ra[CPG], rb_[CPG], d2[CPG], a[Q];
+      lds(R + t * K + cc, ra);
+      lds(R + tb * K + cc, rb_);
 #pragma unroll
-        for (int i = 0; i < CPG; ++i) {
-          if (!act) rr[n][i] = 0.0f;
-          d2[n][i] = 0.0f;
-        }
-#pragma unroll
-        for (int m = 0; m < Q; ++m) a[n][m] = 0.0f;
-      }
-      // k[j] and lw[j + 1] of each step are loaded a step ahead, outside
-      // the branch, so that their latency overlaps the step before
-      float kj[NR][CPG], wj[NR][CPG];
-#pragma unroll
-      for (int n = 0; n < NR; ++n) lds(Kt + max(tr[n] - 1, 0) * K + cc, kj[n]);
-#pragma unroll
-      for (int m = 0; m < Q - 1; ++m) {
-        float kn[NR][CPG], wn[NR][CPG];
-        if (m + 2 < Q) {
-#pragma unroll
-          for (int n = 0; n < NR; ++n) {
-            const int jn = max(tr[n] - 2 - m, 0);
-            lds(Kt + jn * K + cc, kn[n]);
-            lds(W + (jn + 1) * K + cc, wn[n]);
-          }
-        }
-        bool go[NR], any = false;
-#pragma unroll
-        for (int n = 0; n < NR; ++n) {
-          go[n] = tr[n] < rows && m < tr[n];
-          any = any || go[n];
-        }
-        if (any) {
-#pragma unroll
-          for (int n = 0; n < NR; ++n) {
-#pragma unroll
-            for (int i = 0; i < CPG; ++i) {
-              if (m > 0) d2[n][i] = fmaf(wj[n][i], kLog2e, d2[n][i]);
-              const float e = ex2(fminf(d2[n][i], 0.0f));
-              if (go[n]) a[n][m] = fmaf(rr[n][i] * kj[n][i], e, a[n][m]);
-            }
-          }
-        }
-        if (m + 2 < Q) {
-#pragma unroll
-          for (int n = 0; n < NR; ++n) {
-#pragma unroll
-            for (int i = 0; i < CPG; ++i) {
-              kj[n][i] = kn[n][i];
-              wj[n][i] = wn[n][i];
-            }
-          }
-        }
+      for (int c = 0; c < CPG; ++c) {
+        if (!act) ra[c] = rb_[c] = 0.0f;
+        d2[c] = 0.0f;
       }
 #pragma unroll
-      for (int n = 0; n < NR; ++n) {
-        float kt_[CPG];
-        lds(Kt + tr[n] * K + cc, kt_);
-        float d = 0.0f;  // the bonus: r_t . (u * k_t), over the half warp
+      for (int i = 0; i < Q; ++i) a[i] = 0.0f;
 #pragma unroll
-        for (int i = 0; i < CPG; ++i) d = fmaf(rr[n][i] * uu[i], kt_[i], d);
-        d += __shfl_xor_sync(0xffffffffu, d, 8);
-        d += __shfl_xor_sync(0xffffffffu, d, 4);
-        d += __shfl_xor_sync(0xffffffffu, d, 2);
-        d += __shfl_xor_sync(0xffffffffu, d, 1);
-        reduce_scatter16(a[n], lane);
-        // lane cg < t: A[t, t - 1 - cg]; lane t: the bonus; the rest: zero
-        const int t = tr[n];
-        const int j = cg < t ? t - 1 - cg : cg;
-        const float x = cg < t ? a[n][0] : (cg == t ? d : 0.0f);
-        const bf16 xh = __float2bfloat16_rn(x);
-        a_hi[t * AS + j] = xh;
-        a_lo[t * AS + j] = __float2bfloat16_rn(x - __bfloat162float(xh));
+      for (int i = 0; i < Q - 1; ++i) {
+        const bool first = i < t;
+        const int m = first ? i : i - t;      // step down its row
+        const int j = first ? t - 1 - i : Q - 2 - i;
+        float kj[CPG], wj[CPG];
+        lds(Kt + j * K + cc, kj);
+        lds(W + (j + 1) * K + cc, wj);
+#pragma unroll
+        for (int c = 0; c < CPG; ++c) {
+          d2[c] = m == 0 ? 0.0f : fmaf(wj[c], kLog2e, d2[c]);
+          const float e = ex2(fminf(d2[c], 0.0f));
+          a[i] = fmaf((first ? ra[c] : rb_[c]) * kj[c], e, a[i]);
+        }
       }
+      // the bonus of row tb in the free slot 15, of row t over the warp
+      float kt_[CPG];
+      lds(Kt + tb * K + cc, kt_);
+#pragma unroll
+      for (int c = 0; c < CPG; ++c) a[Q - 1] = fmaf(rb_[c] * uu[c], kt_[c], a[Q - 1]);
+      lds(Kt + t * K + cc, kt_);
+      float d = 0.0f;
+#pragma unroll
+      for (int c = 0; c < CPG; ++c) d = fmaf(ra[c] * uu[c], kt_[c], d);
+#pragma unroll
+      for (int i = 0; i < Q; ++i) a[i] += __shfl_xor_sync(0xffffffffu, a[i], 16);
+      d += __shfl_xor_sync(0xffffffffu, d, 16);
+      d += __shfl_xor_sync(0xffffffffu, d, 8);
+      d += __shfl_xor_sync(0xffffffffu, d, 4);
+      d += __shfl_xor_sync(0xffffffffu, d, 2);
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      reduce_scatter16(a, lane);
+      // lanes 0..15: slot s: row t's A[t, t - 1 - s] (s < t), row tb's
+      // A[tb, 14 - s] (t <= s < 15), tb's bonus (s = 15). Lanes 16 + e:
+      // row t's bonus (e = 0) and zeros A[t, t + e] (e < 16 - t), then
+      // zeros A[tb, e].
+      const int s2 = lane & (Q - 1);
+      int row, j;
+      float x;
+      if (lane < Q) {
+        row = s2 < t ? t : tb;
+        j = s2 < t ? t - 1 - s2 : (s2 < Q - 1 ? Q - 2 - s2 : tb);
+        x = a[0];
+      } else {
+        row = s2 < Q - t ? t : tb;
+        j = s2 < Q - t ? t + s2 : s2;
+        x = s2 == 0 ? d : 0.0f;
+      }
+      const bf16 xh = __float2bfloat16_rn(x);
+      a_hi[row * AS + j] = xh;
+      a_lo[row * AS + j] = __float2bfloat16_rn(x - __bfloat162float(xh));
     }
     __syncthreads();
 

@@ -244,6 +244,57 @@ def test_wkv6_kernel_decode_step_in_place(card, dtype):
     torch.testing.assert_close(st, want_st, atol=1e-3, rtol=1e-3)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_decode_steps_replay_in_a_cuda_graph(card, dtype):
+    """rwkv6-7b's decode step (B = 8 slots, H = 64, K = 64, the state in
+    place) captured in a CUDA graph for 8 steps and replayed: the same y
+    and state as the steps run one by one on the plain version. Prints the
+    kernel's time a step on the device alone (the graph has no host cost)."""
+    B, H, K, steps = 8, 64, 64, 8
+    r, k, v = (randn(card, 100 + i, (steps, B, 1, H, K), dtype) for i in range(3))
+    lw = -torch.exp(-0.6 + 0.5 * randn(card, 103, (steps, B, 1, H, K),
+                                       torch.float32))
+    u = 0.1 * randn(card, 104, (H, K), torch.float32)
+    state0 = randn(card, 105, (B, H, K, K), torch.float32)
+    state = state0.clone()
+    ys = torch.empty((steps, B, 1, H, K), dtype=torch.float32, device=card)
+
+    def run():
+        for i in range(steps):
+            y, _ = wkv6(r[i], k[i], v[i], lw[i], u, state=state, state_out=state)
+            ys[i].copy_(y)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()                                    # warm-up off the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run()
+    state.copy_(state0)
+    graph.replay()
+    want_st = state0.clone()
+    for i in range(steps):
+        want_y, want_st = wkv6_plain(r[i], k[i], v[i], lw[i], u, state=want_st)
+        torch.testing.assert_close(ys[i], want_y, atol=WKV_TOL[dtype][0],
+                                   rtol=WKV_TOL[dtype][1])
+    torch.testing.assert_close(state, want_st, atol=1e-3, rtol=1e-3)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    best = None
+    for _ in range(3):
+        start.record()
+        for _ in range(20):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        us = start.elapsed_time(end) / (20 * steps) * 1e3
+        best = us if best is None else min(best, us)
+    print(f"wkv6 {dtype} decode step (8, 1, 64, 64) in place, in a CUDA "
+          f"graph: {best:.2f} us a step on the device (with the copy of y; "
+          f"least of 3 rounds of 20 replays)")
+
+
 def test_wkv6_kernel_reads_unaligned_rows(card):
     """r, k, v and lw one element off 16 bytes: element-wise loads in the
     bf16 kernel instead of cp.async."""
