@@ -344,8 +344,9 @@ def phase_kernels(state):
                 y, st_out = wkv6(r, k, v, lw, u, state=st)
                 check_wkv6((B, S, H, K), dtype, r, k, v, lw, u, st, y, st_out)
     # the bf16 kernel at its boundaries: one row, a short, a whole and one
-    # more chunk, past two chunks and many; every K (value columns split in
-    # blocks of 8, 16, 32 and 2 x 32); no state, a state, a state in place
+    # more chunk, past two chunks and many; every K (four warps up to 32,
+    # eight at 64; K = 8 padded to an mma step); no state, a state, a state
+    # in place
     for S in (1, 15, 16, 17, 33, 200):
         for K in (8, 16, 32, 64):
             for state_mode in ("none", "given", "in_place"):

@@ -226,9 +226,9 @@ __device__ __forceinline__ void reduce_scatter_step(float (&v)[16], int lane) {
   }
 }
 
-// v[0..15] of the 16 lanes of a half warp, summed over the half warp and
-// scattered: v[0] of lane l then holds the sum of v[l % 16]. (Every index
-// is a constant, so v stays in registers.)
+// v[0..15] of the lanes l of a half warp (l % 16), summed over the half
+// warp and scattered: v[0] of lane l then holds the sum of v[l % 16].
+// (Every index is a constant, so v stays in registers.)
 __device__ __forceinline__ void reduce_scatter16(float (&v)[16], int lane) {
   reduce_scatter_step<8>(v, lane);
   reduce_scatter_step<4>(v, lane);
@@ -236,19 +236,11 @@ __device__ __forceinline__ void reduce_scatter16(float (&v)[16], int lane) {
   reduce_scatter_step<1>(v, lane);
 }
 
-// N consecutive bfloat16 or float32 from shared memory (N in 1, 2, 4, the
+// N consecutive bfloat16 or float32 from shared memory (N in 1, 2, the
 // address a multiple of N elements), as floats.
 template <int N>
 __device__ __forceinline__ void lds(const __nv_bfloat16* p, float (&o)[N]) {
-  if constexpr (N == 4) {
-    const uint2 w = *reinterpret_cast<const uint2*>(p);
-    const float2 a = unpack2(w.x);
-    const float2 b = unpack2(w.y);
-    o[0] = a.x;
-    o[1] = a.y;
-    o[2] = b.x;
-    o[3] = b.y;
-  } else if constexpr (N == 2) {
+  if constexpr (N == 2) {
     const float2 a = unpack2(*reinterpret_cast<const uint32_t*>(p));
     o[0] = a.x;
     o[1] = a.y;
@@ -258,13 +250,7 @@ __device__ __forceinline__ void lds(const __nv_bfloat16* p, float (&o)[N]) {
 }
 template <int N>
 __device__ __forceinline__ void lds(const float* p, float (&o)[N]) {
-  if constexpr (N == 4) {
-    const float4 a = *reinterpret_cast<const float4*>(p);
-    o[0] = a.x;
-    o[1] = a.y;
-    o[2] = a.z;
-    o[3] = a.w;
-  } else if constexpr (N == 2) {
+  if constexpr (N == 2) {
     const float2 a = *reinterpret_cast<const float2*>(p);
     o[0] = a.x;
     o[1] = a.y;

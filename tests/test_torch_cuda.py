@@ -193,8 +193,8 @@ def test_rmsnorm_kernel_runs_on_the_current_stream(card):
 
 
 # + the bf16 kernel's boundaries: one row (a decode step), 15, 16 and 17
-# rows and 33 (a short last chunk, one whole chunk, one past it), every K,
-# so that each split of the value columns (8, 16, 32 and 2 x 32) is crossed
+# rows and 33 (a short last chunk, one whole chunk, one past it), every K
+# (four warps up to K = 32, eight at 64; K = 8 padded to an mma step)
 @pytest.mark.parametrize("B,S,H,K", [(1, 16, 1, 8), (2, 40, 3, 16),
                                      (1, 33, 2, 32), (2, 100, 4, 64),
                                      (2, 1, 3, 64), (1, 15, 2, 8),

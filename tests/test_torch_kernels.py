@@ -233,16 +233,18 @@ def test_ssd_p_block_leaves_no_column_idle():
 
 def test_wkv6_kernels_take_every_head_size_with_no_idle_lane():
     """Every configuration with the wkv recurrence has a head size the
-    kernels take, and each K they take fills whole mma tiles of 8 value
-    columns (one a warp of the bf16 kernel, K / 8 warps at K = 64) and 16
-    lanes of a half warp with K / 16 channels each in A (K = 8: 8 lanes);
+    kernels take. Each K they take fills whole mma tiles of 8 value columns
+    (one a warp of the bf16 kernel, K / 8 warps at K = 64), and the full
+    size's (64) fills the 32 lanes of a warp in A with K / 32 channels each;
     bfloat16 takes the bf16 kernel, float32 the float32 one."""
     for cfg in ARCHS.values():
         for c in (cfg, cfg.reduced()):
             if c.family == "ssm":
                 assert c.d_head in HEAD_DIMS, c.name
+        if cfg.family == "ssm":
+            assert cfg.d_head % 32 == 0, cfg.name
     for K in HEAD_DIMS:
-        assert K % 8 == 0 and (K % 16 == 0 or K == 8) and K <= 64, K
+        assert K % 8 == 0 and K <= 64, K
         r = torch.zeros((1, 2, 1, K))
         args = (torch.zeros((1, 2, 1, K)), torch.zeros((1, K)), None, None)
         assert _kernel_checks(r, r, r, *args) == build.DTYPE_CODES[torch.float32]
