@@ -3,20 +3,24 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``src/repro_torch/kernels/csrc/`` (rmsnorm,
-flash_attention, wkv6, ssd), holds each against its plain PyTorch version on
-the card, and drives the serving paths of deepseek-7b, rwkv6-7b and
-zamba2-7b at full width and depth (random weights from a seed) through
-``Model.forward``, ``Model.prefill``, ``Model.decode_step`` and the
-``repro_torch.launch.serve`` command line. Every line of standard output is
+Builds the CUDA kernels from ``src/repro_torch/kernels/csrc/`` (rmsnorm and
+its backward, flash_attention, wkv6, ssd), holds each against its plain
+PyTorch version on the card, drives the serving paths of deepseek-7b,
+rwkv6-7b and zamba2-7b at full width and depth (random weights from a seed)
+through ``Model.forward``, ``Model.prefill``, ``Model.decode_step`` and the
+``repro_torch.launch.serve`` command line, and the training path of
+deepseek-7b at full width (depth cut to 4 layers, so that the float32 state
+fits) through the ``repro_torch.launch.train`` command line, with a resume
+from its checkpoint. Every line of standard output is
 one JSON object, except the line before the last, which is the card's name
 and power limit as ``nvidia-smi`` prints them. The last line is
 ``{"ok": true, "device": {...}}``. Any failure (no card, a kernel that does
 not build, launch or agree, a phase out of its gate) ends the run with a
 traceback and a non-zero exit code; no failure is caught.
 
-Phases, in order: env, kernels, parity, prefill, serve. ``--phases`` runs a
-subset while developing; such a run never prints the last line and exits 2.
+Phases, in order: env, kernels, parity, prefill, serve, train. ``--phases``
+runs a subset while developing; such a run never prints the last line and
+exits 2.
 The kernels phase times each kernel on the device (CUDA events) beside its
 plain version and, where there is one, a PyTorch call; for rmsnorm at a
 decode step's rows it also prints the wrapper's cost on the host per call
@@ -36,6 +40,7 @@ import importlib.util
 import io
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -46,7 +51,7 @@ import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("env", "kernels", "parity", "prefill", "serve")
+PHASES = ("env", "kernels", "parity", "prefill", "serve", "train")
 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -59,7 +64,7 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}    # atol = rtol
 
 WKV_TOL = {torch.float32: (1e-4, 5e-4), torch.bfloat16: (2e-2, 2e-2)}  # atol, rtol
 WKV_STATE_TOL = 1e-3
-KERNELS = ("rmsnorm", "flash_attention", "wkv6", "ssd")
+KERNELS = ("rmsnorm", "rmsnorm_backward", "flash_attention", "wkv6", "ssd")
 
 # Launches a forward (or prefill) and a decode step make, from the configs:
 #   deepseek-7b: 30 layers, 2 norms each + the final one; attention each layer
@@ -68,16 +73,29 @@ KERNELS = ("rmsnorm", "flash_attention", "wkv6", "ssd")
 #                (ln, ssm_norm), 13 shared attention blocks with 2 norms each,
 #                + 1 = 183; ssd each Mamba2 block and flash attention each
 #                shared block, neither at decode
+# (inference: no rmsnorm backward anywhere)
 PER_CALL = {
-    "deepseek-7b": {"rmsnorm": 61, "flash_attention": 30, "wkv6": 0, "ssd": 0},
-    "rwkv6-7b": {"rmsnorm": 65, "flash_attention": 0, "wkv6": 32, "ssd": 0},
-    "zamba2-7b": {"rmsnorm": 183, "flash_attention": 13, "wkv6": 0, "ssd": 78},
+    "deepseek-7b": {"rmsnorm": 61, "rmsnorm_backward": 0,
+                    "flash_attention": 30, "wkv6": 0, "ssd": 0},
+    "rwkv6-7b": {"rmsnorm": 65, "rmsnorm_backward": 0, "flash_attention": 0,
+                 "wkv6": 32, "ssd": 0},
+    "zamba2-7b": {"rmsnorm": 183, "rmsnorm_backward": 0,
+                  "flash_attention": 13, "wkv6": 0, "ssd": 78},
 }
 PER_STEP = {
-    "deepseek-7b": {"rmsnorm": 61, "flash_attention": 0, "wkv6": 0, "ssd": 0},
-    "rwkv6-7b": {"rmsnorm": 65, "flash_attention": 0, "wkv6": 32, "ssd": 0},
-    "zamba2-7b": {"rmsnorm": 183, "flash_attention": 0, "wkv6": 0, "ssd": 0},
+    "deepseek-7b": {"rmsnorm": 61, "rmsnorm_backward": 0,
+                    "flash_attention": 0, "wkv6": 0, "ssd": 0},
+    "rwkv6-7b": {"rmsnorm": 65, "rmsnorm_backward": 0, "flash_attention": 0,
+                 "wkv6": 32, "ssd": 0},
+    "zamba2-7b": {"rmsnorm": 183, "rmsnorm_backward": 0,
+                  "flash_attention": 0, "wkv6": 0, "ssd": 0},
 }
+# the training path: deepseek-7b at full width cut to TRAIN_LAYERS layers,
+# float32, B x S tokens a step, blocked attention (the reference launcher's
+# choice above 512 tokens), no remat; a step launches 2L + 1 rmsnorm
+# forwards and as many backwards, and no other kernel
+TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2, 2048, 5
+PARITY_TRAIN = {"layers": 2, "batch": 1, "seq": 128, "block": 64}
 N_LAYERS = {"deepseek-7b": 30, "rwkv6-7b": 32, "zamba2-7b": 81}
 
 
@@ -169,6 +187,17 @@ def phase_env(state):
           "capability": list(torch.cuda.get_device_capability(0))})
 
 
+def norm_bwd_bound(rows, d, dtype, scale_dtype):
+    """x and g read once, dx written once, scale read and dscale written
+    once; about 10 float32 operations an element."""
+    size = torch.empty((), dtype=dtype).element_size()
+    ssize = torch.empty((), dtype=scale_dtype).element_size()
+    nbytes = 3 * rows * d * size + 2 * d * ssize
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = 10.0 * rows * d / PEAK_FLOPS[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations", nbytes
+
+
 def attn_bound(B, Sq, Skv, H, Hkv, D, causal, dtype):
     """Least time for the call: bytes of q, k, v, out once each over the
     memory rate, against 4*D operations for every visible (query, key) pair
@@ -245,7 +274,9 @@ def phase_kernels(state):
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
-    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+    from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_backward,
+                                             rmsnorm_backward_plain,
+                                             rmsnorm_plain)
     from repro_torch.kernels.ssd import TILE, ssd, ssd_plain
     from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
     from repro_torch.models.rwkv import wkv_recurrent
@@ -464,6 +495,72 @@ def phase_kernels(state):
                 "library_us": lambda: F.rms_norm(x, (d,), weight=sc, eps=1e-5),
             })})
         del x, got
+
+    # the rmsnorm backward: every norm width at a prefill's rows, a decode
+    # step's and the train phase's (B x S = 4096 rows of 4096, float32),
+    # with and without residual, against the plain backward and against
+    # autograd of the plain forward; dscale twice, the same bits
+    bwd_tol = {f32: (2e-5, 1e-4), bf16: (2e-2, 2e-2)}    # dx atol=rtol, dscale
+
+    def rel_err(got, want):
+        return float((got.float() - want.float()).abs().max()) / \
+            max(float(want.float().abs().max()), 1e-30)
+
+    for rows, d in ((8192, 4096), (8192, 3584), (8192, 7168), (8, 4096),
+                    (4096, 4096)):
+        for dtype in (f32, bf16):
+            for residual in (False, True):
+                x, g = randn((rows, d), dtype), randn((rows, d), dtype)
+                r = randn((rows, d), dtype) if residual else None
+                sc = (1.0 + 0.1 * randn((d,), torch.float32)).to(dtype)
+                dx, ds = rmsnorm_backward(x, sc, g, residual=r)
+                dx2, ds2 = rmsnorm_backward(x, sc, g, residual=r)
+                want_dx, want_ds = rmsnorm_backward_plain(x, sc, g, residual=r)
+                leaves = [t.clone().requires_grad_() for t in (x, sc)] + \
+                    ([r.clone().requires_grad_()] if residual else [])
+                auto = torch.autograd.grad(
+                    rmsnorm_plain(leaves[0], leaves[1],
+                                  residual=leaves[2] if residual else None),
+                    leaves, g)
+                torch.cuda.synchronize()
+                tol_dx, tol_ds = bwd_tol[dtype]
+                err, ok = close(dx, want_dx, dtype)
+                auto_err, auto_ok = close(dx, auto[0], dtype)
+                ds_rel = rel_err(ds, want_ds)
+                ds_auto_rel = rel_err(ds, auto[1])
+                same_bits = bool(torch.equal(ds, ds2)) and bool(torch.equal(dx, dx2))
+                res_ok = True
+                if residual:
+                    res_ok = close(dx, auto[2], dtype)[1]
+                checks.append({
+                    "kernel": "rmsnorm_backward", "shape": [rows, d],
+                    "dtype": str(dtype), "residual": residual,
+                    "max_abs_err": err, "vs_autograd_max_abs_err": auto_err,
+                    "dscale_rel_err": ds_rel, "dscale_vs_autograd_rel_err": ds_auto_rel,
+                    "tol": tol_dx, "dscale_tol": tol_ds, "same_bits_twice": same_bits,
+                    "ok": ok and auto_ok and res_ok and same_bits and
+                          ds_rel <= tol_ds and ds_auto_rel <= tol_ds and
+                          bool(torch.isfinite(ds).all())})
+                if not residual:
+                    xr = x.clone().requires_grad_()
+                    scr = sc.clone().requires_grad_()
+                    y_lib = F.rms_norm(xr, (d,), weight=scr, eps=1e-5)
+                    t = time_in_turns({
+                        "ms": lambda: rmsnorm_backward(x, sc, g),
+                        "forward_ms": lambda: rmsnorm(x, sc),
+                        "plain_ms": lambda: rmsnorm_backward_plain(x, sc, g),
+                        # the backward alone of F.rms_norm (its graph kept)
+                        "library_ms": lambda: torch.autograd.grad(
+                            y_lib, (xr, scr), g, retain_graph=True),
+                    }, iters=20)
+                    bnd, by, nbytes = norm_bwd_bound(rows, d, dtype, dtype)
+                    timed.append({"name": "rmsnorm_backward", "shape": [rows, d],
+                                  "dtype": str(dtype), "max_abs_err": err, **t,
+                                  "bound_ms": bnd, "bound_by": by,
+                                  "share_of_bound": bnd / t["ms"],
+                                  "gbytes_per_s": nbytes / t["ms"] / 1e6})
+                    del xr, scr, y_lib
+                del x, g, r, dx, dx2, want_dx, leaves, auto
     B, S = 4, 2048
     # deepseek-7b (D=128, three kv-head counts) and zamba2-7b (D=112)
     for H, Hkv, D in ((32, 32, 128), (32, 8, 128), (32, 2, 128), (32, 32, 112)):
@@ -668,19 +765,20 @@ def phase_parity(state):
 
 def reset_counts():
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_backward
     from repro_torch.kernels.ssd import ssd
     from repro_torch.kernels.wkv6 import wkv6
-    for fn in (rmsnorm, flash_attention, wkv6, ssd):
+    for fn in (rmsnorm, rmsnorm_backward, flash_attention, wkv6, ssd):
         fn.launches = 0
 
 
 def read_counts():
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_backward
     from repro_torch.kernels.ssd import ssd
     from repro_torch.kernels.wkv6 import wkv6
     return {"rmsnorm": rmsnorm.launches,
+            "rmsnorm_backward": rmsnorm_backward.launches,
             "flash_attention": flash_attention.launches,
             "wkv6": wkv6.launches, "ssd": ssd.launches}
 
@@ -898,13 +996,214 @@ def phase_serve(state):
                max_len=64)
 
 
+def train_parity(state):
+    """One train step of deepseek-7b at full width, cut to 2 layers,
+    float32, on the card and on the CPU (the plain path) from one converted
+    state: the loss, the gradients' norm and every leaf's first moment,
+    which after one step is (1 - b1) x the clipped gradient. Parameters are
+    not compared: step 1 moves each weight by about lr * sign(g), so a
+    gradient near 0 whose sign differs between the two moves it 2 lr apart,
+    which says nothing of the kernels."""
+    from dataclasses import replace
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.convert import (flatten_tree, train_state_from_numpy,
+                                     unflatten_tree)
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train.step import make_train_step
+
+    P = PARITY_TRAIN
+    cfg = replace(get_arch("deepseek-7b"), n_layers=P["layers"])
+    run = RunConfig(param_dtype="float32", compute_dtype="float32",
+                    attn_impl="blocked", remat="nothing",
+                    attn_block_q=P["block"], attn_block_kv=P["block"])
+    cpu = Model(cfg, run, device="cpu")
+    params = numpy_weights(cpu, state["seed"])
+
+    def zeros():
+        return unflatten_tree({k: np.zeros_like(v)
+                               for k, v in flatten_tree(params).items()})
+
+    tree = {"params": params, "residual": None,
+            "opt": {"step": np.zeros((), np.int32), "m": zeros(), "v": zeros(),
+                    "master": None}}
+    cpu_state = train_state_from_numpy(tree, cpu)
+    gpu = Model(cfg, run)
+    gpu_state = train_state_from_numpy(tree, gpu)
+    del tree, params
+    toks = np.random.default_rng(state["seed"] + 3).integers(
+        0, cfg.vocab_size, size=(P["batch"], P["seq"] + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy()}
+    acfg = AdamWConfig(lr=1e-3)
+    t0 = time.monotonic()
+    cpu_state, cpu_met = make_train_step(cpu, acfg)(cpu_state, batch)
+    cpu_s = time.monotonic() - t0
+    reset_counts()
+    (gpu_state, gpu_met), gpu_ms = timed_call(
+        lambda: make_train_step(gpu, acfg)(gpu_state, batch))
+    counts = read_counts()
+    per_step = 2 * P["layers"] + 1
+    want = {"rmsnorm": per_step, "rmsnorm_backward": per_step,
+            "flash_attention": 0, "wkv6": 0, "ssd": 0}
+    loss_cpu, loss_gpu = float(cpu_met["loss"]), float(gpu_met["loss"])
+    loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    gn_rel = abs(float(gpu_met["grad_norm"]) - float(cpu_met["grad_norm"])) / \
+        float(cpu_met["grad_norm"])
+    names = sorted(flatten_tree(cpu_state.opt.m))
+    per_leaf = {}
+    for name, a, b in zip(names, leaves(gpu_state.opt.m), leaves(cpu_state.opt.m)):
+        per_leaf[name] = float((a.cpu() - b).abs().max()) / \
+            max(float(b.abs().max()), 1e-30)
+    grad_gate, loss_gate = 1e-3, 1e-4
+    emit({"phase": "train", "part": "parity", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "cut": "depth 30 -> 2; width and vocabulary full",
+          "dtype": "float32", "allow_tf32": False, "batch": P["batch"],
+          "seq": P["seq"], "attn_impl": "blocked", "attn_block": P["block"],
+          "loss_cpu": loss_cpu, "loss_gpu": loss_gpu, "loss_rel_err": loss_rel,
+          "loss_gate": loss_gate, "grad_norm_rel_err": gn_rel,
+          "grad_rel_err_by_leaf": per_leaf, "grad_gate": grad_gate,
+          "grad_gate_reason": "max |m_gpu - m_cpu| / max |m_cpu| a leaf; m after "
+                              "one step is (1 - b1) x the clipped gradient; the same "
+                              "float32 arithmetic, sums over the width, the tokens "
+                              "and the vocabulary taken in another order",
+          "launches": counts, "gpu_step_ms": gpu_ms, "cpu_step_seconds": cpu_s,
+          "gpu": state["smi"]})
+    require(counts == want, f"train parity: launches {counts}, expected {want}")
+    require(math.isfinite(loss_gpu), "train parity: loss not finite")
+    require(loss_rel < loss_gate, f"train parity: loss {loss_gpu} vs {loss_cpu}")
+    require(max(per_leaf.values()) < grad_gate,
+            f"train parity: gradients differ: {per_leaf}")
+    del cpu, gpu, cpu_state, gpu_state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_full_width(state):
+    """deepseek-7b at full width, cut to TRAIN_LAYERS layers, float32,
+    through the command line a user would call: TRAIN_STEPS steps that
+    write a checkpoint at the end; the launches of each kernel counted and
+    asserted; then one more step from the state in memory and the same
+    step from the checkpoint, which must agree to the bit."""
+    from dataclasses import replace
+    from repro_torch.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    L, B, S, N = TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS
+    lr = 3e-4
+    ck = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    argv = ["--arch", "deepseek-7b", "--layers", str(L), "--steps", str(N),
+            "--batch", str(B), "--seq", str(S), "--lr", str(lr),
+            "--ckpt-dir", str(ck), "--ckpt-every", "1000",
+            "--seed", str(state["seed"])]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        (train_state, report), wall_ms = timed_call(lambda: train_cli.main(argv))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = 2 * L + 1
+    want = {"rmsnorm": N * per_step, "rmsnorm_backward": N * per_step,
+            "flash_attention": 0, "wkv6": 0, "ssd": 0}
+    n_params = sum(t.numel() for t in leaves(train_state.params))
+    losses = report.losses
+    steady = sorted(report.step_times[1:])
+    step_s = steady[len(steady) // 2]
+
+    # one more step from the state in memory, and from the checkpoint
+    cfg = replace(get_arch("deepseek-7b"), n_layers=L)
+    run = RunConfig(attn_impl="blocked", remat="nothing",
+                    compute_dtype="float32")          # the launcher's
+    acfg = AdamWConfig(lr=lr)
+    model = Model(cfg, run)
+    step_fn = make_train_step(model, acfg, total_steps=N)
+    batch = make_batch_fn(cfg.vocab_size, B, S, state["seed"])(N)
+    state_a, met_a = step_fn(train_state, batch)
+    loss_a = float(met_a["loss"])
+    want_params = [t.detach().cpu() for t in leaves(state_a.params)]
+    del train_state, state_a, met_a
+    gc.collect()
+    torch.cuda.empty_cache()
+    state_b = init_train_state(model, None, acfg)
+    (_, extra), restore_ms = timed_call(
+        lambda: restore_checkpoint(str(ck), latest_step(str(ck)), state_b))
+    restored_step = int(state_b.opt.step)
+    reset_counts()
+    (state_b, met_b), resume_step_ms = timed_call(lambda: step_fn(state_b, batch))
+    one_step = read_counts()
+    loss_b = float(met_b["loss"])
+    bit_exact = loss_a == loss_b and all(
+        torch.equal(a.cpu(), b) for a, b in zip(leaves(state_b.params), want_params))
+    ckpt_bytes = sum(f.stat().st_size for f in ck.rglob("*") if f.is_file())
+    emit({"phase": "train", "part": "full_width", "arch": cfg.name,
+          "argv": argv, "n_layers": L,
+          "cut": "depth 30 -> 4: the float32 state (16 bytes a parameter: "
+                 "weights, gradients, m, v) of 30 layers is 110 GB; width, "
+                 "heads and vocabulary full",
+          "params": n_params, "dtype": "float32", "batch": B, "seq": S,
+          "attn_impl": "blocked", "remat": "nothing", "lr": lr,
+          "losses": losses, "step_seconds": report.step_times,
+          "step_ms": step_s * 1e3, "tokens_per_s": B * S / step_s,
+          "timing": "host clock around each step (it waits for the loss); "
+                    "step_ms the median of steps 2..N",
+          "peak_memory_bytes": peak, "state_bytes": 16 * n_params,
+          "launches": counts, "launches_per_step": per_step,
+          "launcher_wall_ms": wall_ms, "checkpoint_bytes": ckpt_bytes,
+          "restore_ms": restore_ms, "restored_step": restored_step,
+          "resume_step_ms": resume_step_ms, "resume_step_launches": one_step,
+          "loss_step_in_memory": loss_a, "loss_step_from_checkpoint": loss_b,
+          "resume_bit_exact": bit_exact,
+          "stdout": text.getvalue().strip().splitlines(), "gpu": state["smi"]})
+    shutil.rmtree(ck, ignore_errors=True)
+    require(counts == want, f"train: launches {counts}, expected {want}")
+    require(one_step == {"rmsnorm": per_step, "rmsnorm_backward": per_step,
+                         "flash_attention": 0, "wkv6": 0, "ssd": 0},
+            f"train: one step launched {one_step}")
+    require(len(losses) == N and all(math.isfinite(x) for x in losses),
+            f"train: losses {losses}")
+    require(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
+    require(restored_step == N and extra.get("step") == N,
+            f"train: restored step {restored_step}, extra {extra}")
+    require(bit_exact, f"train: resume not bit-exact (loss {loss_a} vs {loss_b})")
+    for name in counts:
+        state["launches"][name] += counts[name]
+    del model, state_b, want_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train(state):
+    # full float32 products on the card, said and set
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    train_parity(state)
+    train_full_width(state)
+
+
 def kernels_line(state):
     """One entry for each kernel at the prefill shape of the model that
-    carries it; `launches` counts the prefill and serve phases."""
+    carries it (the rmsnorm backward: at the train phase's, in its float32);
+    `launches` counts the prefill, serve and train phases."""
     meta = {
         "rmsnorm": {"source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
                     "replaces": "src/repro/kernels/rmsnorm.py:28",
                     "shape": [8192, 4096]},
+        # the reference differentiates its rms_norm with XLA: the backward
+        # of the function its rmsnorm kernel computes
+        "rmsnorm_backward": {"source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                             "replaces": "src/repro/kernels/rmsnorm.py:28",
+                             "shape": [TRAIN_B * TRAIN_S, 4096],
+                             "dtype": str(torch.float32)},
         "flash_attention": {
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:86",
@@ -920,7 +1219,8 @@ def kernels_line(state):
     bf16 = str(torch.bfloat16)
     for name, m in meta.items():
         t = next(x for x in state["timed"] if x["name"] == name
-                 and x["shape"] == m["shape"] and x["dtype"] == bf16)
+                 and x["shape"] == m["shape"]
+                 and x["dtype"] == m.get("dtype", bf16))
         launches = state["launches"][name]
         require(launches > 0, f"{name}: the main path never launched it")
         out.append({"name": name, "route": "cuda", "source": m["source"],
@@ -954,7 +1254,7 @@ def main(argv=None) -> int:
     state = {"seed": args.seed, "verbose": args.verbose, "smi": smi_line(),
              "launches": dict.fromkeys(KERNELS, 0)}
     run = {"env": phase_env, "kernels": phase_kernels, "parity": phase_parity,
-           "prefill": phase_prefill, "serve": phase_serve}
+           "prefill": phase_prefill, "serve": phase_serve, "train": phase_train}
     t0 = time.monotonic()
     for name in PHASES:
         if name in phases:

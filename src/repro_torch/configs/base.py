@@ -247,7 +247,7 @@ class RunConfig:
     param_dtype: str = "float32"         # master/param storage dtype
     compute_dtype: str = "bfloat16"
     moment_dtype: str = "float32"        # adam m/v storage (bf16 = compressed)
-    attn_impl: str = "kernel"            # kernel | full (blocked | zigzag: not ported yet)
+    attn_impl: str = "kernel"            # kernel | full | blocked | zigzag
     attn_block_q: int = 512
     attn_block_kv: int = 1024
     seq_shard: bool = False              # sequence parallelism for prefill

@@ -9,12 +9,14 @@ missing, extra or mis-shaped leaf raises.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.models.model import Model
+from repro_torch.optim import OptState
+from repro_torch.train.step import TrainState
 
 # the cache leaves of each ported family, as paths joined by dots
 CACHE_LEAVES = {
@@ -57,6 +59,15 @@ def _to_tensor(value, dtype: torch.dtype, device) -> torch.Tensor:
     # torch.tensor copies: the result never shares memory with the array,
     # which may be read-only and is not the port's to update in place
     return torch.tensor(arr).to(device=device, dtype=dtype)
+
+
+def _own_dtype(value) -> torch.dtype:
+    """The torch dtype of a numpy leaf (numpy's float32 / int32, or the
+    bfloat16 that JAX arrays convert to)."""
+    arr = np.asarray(value)
+    if arr.dtype.kind == "V" or arr.dtype.name == "bfloat16":
+        return torch.bfloat16
+    return torch.from_numpy(np.zeros((), dtype=arr.dtype)).dtype
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -145,3 +156,66 @@ def caches_to_numpy(caches: Mapping) -> Dict:
         raise KeyError(f"caches: leaves {sorted(flat)} are no ported "
                        f"family's ({CACHE_LEAVES})")
     return unflatten_tree({path: _to_numpy(t) for path, t in flat.items()})
+
+
+def _field(tree, name: str):
+    """A field of a train state: an attribute (the reference's NamedTuples
+    after ``jax.tree.map(np.asarray, state)``) or a key (a dict)."""
+    return tree[name] if isinstance(tree, Mapping) else getattr(tree, name)
+
+
+def _tensors_like(tree: Mapping, params: Mapping, kind: str) -> Dict:
+    """A numpy tree with the leaves of `params` as tensors on their device,
+    each in the numpy leaf's own dtype."""
+    flat, own = flatten_tree(tree), flatten_tree(params)
+    _check_leaves(kind, flat, own)
+    out = {}
+    for path, p in own.items():
+        shape = tuple(np.shape(flat[path]))
+        if shape != tuple(p.shape):
+            raise ValueError(f"{kind}: leaf {path} has shape {shape}, the "
+                             f"model wants {tuple(p.shape)}")
+        out[path] = _to_tensor(flat[path], _own_dtype(flat[path]), p.device)
+    return unflatten_tree(out)
+
+
+def train_state_from_numpy(tree, model: Model) -> TrainState:
+    """A train state of the reference (``TrainState(params, OptState(step,
+    m, v, master), residual)`` with numpy leaves, or a dict of the same
+    fields) as the port's: the params loaded into `model` and made
+    trainable, the moments, master and residual on the model's device in
+    their own dtypes, the step a 0-d int32 tensor on the CPU."""
+    params_from_numpy(_field(tree, "params"), model)
+    params = model.trainable().params
+    opt = _field(tree, "opt")
+    master = _field(opt, "master")
+    residual = _field(tree, "residual")
+    step = torch.tensor(int(np.asarray(_field(opt, "step"))),
+                        dtype=torch.int32)
+    return TrainState(
+        params,
+        OptState(step, _tensors_like(_field(opt, "m"), params, "m"),
+                 _tensors_like(_field(opt, "v"), params, "v"),
+                 None if master is None else
+                 _tensors_like(master, params, "master")),
+        None if residual is None else
+        _tensors_like(residual, params, "residual"))
+
+
+def train_state_to_numpy(state: TrainState) -> Dict:
+    """The port's train state as {"params", "opt": {"step", "m", "v",
+    "master"}, "residual"} of numpy arrays (bfloat16 leaves as float32,
+    None kept), the fields of the reference's TrainState and OptState."""
+    def tree(t: Optional[Mapping]):
+        if t is None:
+            return None
+        return unflatten_tree({path: _to_numpy(v)
+                               for path, v in flatten_tree(t).items()})
+
+    opt = state.opt
+    return {"params": tree(state.params),
+            "opt": {"step": np.asarray(int(opt.step), dtype=np.int32),
+                    "m": tree(opt.m), "v": tree(opt.v),
+                    "master": tree(opt.master)},
+            "residual": tree(state.residual)}
+

@@ -119,6 +119,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.rt_rmsnorm.restype = i
     lib.rt_rmsnorm.argtypes = [p, p]
+    lib.rt_rmsnorm_backward.restype = i
+    lib.rt_rmsnorm_backward.argtypes = [p] * 7 + [ll, i, f, i, i, i, p]
     lib.rt_flash_attention.restype = i
     lib.rt_flash_attention.argtypes = (
         [p, p, p, p] + [i] * 6 + [ll] * 9 + [i, f, i, p])
@@ -209,6 +211,18 @@ def launch_packed(name: str, device: torch.device, layout: struct.Struct,
         _packed.addr = (ctypes.addressof(buf),)
     layout.pack_into(buf, 0, *values)
     _call(name, device, _packed.addr)
+
+
+def refuse_gradients(name: str, *tensors) -> None:
+    """Raise if grad mode is on and a tensor needs a gradient: the kernel
+    `name` has no backward, and its output, filled through ctypes, would
+    have none either, so autograd would take the kernel for a constant and
+    lose every gradient upstream of it without a word."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: no backward kernel yet (ROADMAP.md, Queue 2); the "
+            f"training path takes attn_impl='full'/'blocked'")
 
 
 def check(code: int, name: str) -> None:

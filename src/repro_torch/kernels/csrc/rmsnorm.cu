@@ -21,6 +21,28 @@
 // - rmsnorm_smem_kernel, for every other row: one block a row, the row in
 //   shared memory as float32 between the reduction and the scaling, 16-byte
 //   vectors where the length and the addresses allow, else scalars.
+//
+// The backward (rmsnorm_bwd_rows_kernel, then rmsnorm_dscale_kernel), for
+// h = x [+ residual], rstd = rsqrt(mean(h^2) + eps), x_hat = h * rstd and
+// the output's gradient g:
+//
+//   dx     = rstd * (g * scale - x_hat * mean(g * scale * x_hat))
+//   dscale = sum over rows of g * x_hat
+//
+// (the residual's gradient is dx as well). It is bound by bytes too: x and g
+// are read once and dx written once, so at (8192, 4096) bf16 it moves
+// 3 x 67 MB, ~0.060 ms at 3.35 TB/s (twice that in float32). A block walks
+// over rows with the stride of the grid; each thread owns the same columns
+// of every row (16-byte vectors where the row and the addresses allow),
+// holds h and g of the current row in shared memory as float32 between the
+// reduction (sum of h^2 and of g * scale * h, one block reduction for both)
+// and the write of dx, and keeps its columns' running sum of g * x_hat in
+// shared memory too, laid out so that a warp's accesses hit no bank twice.
+// No column is shared between threads, so the only barriers are the
+// reduction's. Each block writes its
+// sums to a (blocks, d) float32 buffer and a second kernel adds the rows of
+// that buffer in a fixed order: dscale is the same to the bit from run to
+// run (no atomics), for a grid the caller fixes.
 #include "common.cuh"
 
 namespace rt {
@@ -373,6 +395,286 @@ int launch_rmsnorm(const void* x, const void* residual, const void* scale,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdThreads = 256;
+
+// The h = x [+ residual] and the g of Vec<T>::n columns (kVector) or of one
+// column at i, as float32.
+template <typename T, bool kVector>
+__device__ __forceinline__ void load_cols(const T* __restrict__ x,
+                                          const T* __restrict__ residual,
+                                          const T* __restrict__ g, size_t i,
+                                          float (&h)[kVector ? Vec<T>::n : 1],
+                                          float (&gv)[kVector ? Vec<T>::n : 1]) {
+  if constexpr (kVector) {
+    load16(x + i, h);
+    load16(g + i, gv);
+    if (residual) {
+      float r[Vec<T>::n];
+      load16(residual + i, r);
+#pragma unroll
+      for (int j = 0; j < Vec<T>::n; ++j) h[j] += r[j];
+    }
+  } else {
+    h[0] = to_float(x[i]);
+    if (residual) h[0] += to_float(residual[i]);
+    gv[0] = to_float(g[i]);
+  }
+}
+
+// 4 or 8 scale values at p as floats; p is aligned to their size.
+__device__ __forceinline__ void load_scale(const float* p, float (&s)[4]) {
+  load16(p, s);
+}
+__device__ __forceinline__ void load_scale(const float* p, float (&s)[8]) {
+  float a[4], b[4];
+  load16(p, a);
+  load16(p + 4, b);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    s[j] = a[j];
+    s[4 + j] = b[j];
+  }
+}
+__device__ __forceinline__ void load_scale(const __nv_bfloat16* p,
+                                           float (&s)[8]) {
+  load16(p, s);
+}
+__device__ __forceinline__ void load_scale(const __nv_bfloat16* p,
+                                           float (&s)[4]) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  s[0] = __uint_as_float(raw.x << 16);
+  s[1] = __uint_as_float(raw.x & 0xffff0000u);
+  s[2] = __uint_as_float(raw.y << 16);
+  s[3] = __uint_as_float(raw.y & 0xffff0000u);
+}
+
+// Thread t of a block of nt threads owns the groups of W columns that
+// start at (t + k * nt) * W, k = 0, 1, ... (W = Vec<T>::n with kVector,
+// else 1), the same in every row. Its k-th group sits in shared memory at
+// the float4s (k * W / 4 + c) * nt + t (c < W / 4), or at the float
+// k * nt + t: a warp's accesses are contiguous, with no bank conflict.
+// Nothing in shared memory is read by a thread other than its writer.
+template <bool kVector, int W>
+struct BwdSlots {
+  float* base;
+  int nt, t;
+
+  __device__ __forceinline__ void put(int k, const float (&v)[W]) const {
+    if constexpr (kVector) {
+#pragma unroll
+      for (int c = 0; c < W / 4; ++c) {
+        reinterpret_cast<float4*>(base)[(k * (W / 4) + c) * nt + t] =
+            make_float4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);
+      }
+    } else {
+      base[k * nt + t] = v[0];
+    }
+  }
+
+  __device__ __forceinline__ void get(int k, float (&v)[W]) const {
+    if constexpr (kVector) {
+#pragma unroll
+      for (int c = 0; c < W / 4; ++c) {
+        const float4 u =
+            reinterpret_cast<const float4*>(base)[(k * (W / 4) + c) * nt + t];
+        v[4 * c] = u.x;
+        v[4 * c + 1] = u.y;
+        v[4 * c + 2] = u.z;
+        v[4 * c + 3] = u.w;
+      }
+    } else {
+      v[0] = base[k * nt + t];
+    }
+  }
+};
+
+// Groups of W columns a thread of a block of nt threads owns, at most.
+template <bool kVector, int W>
+__host__ __device__ __forceinline__ int bwd_groups(int d, int nt) {
+  return (d / W + nt - 1) / nt;
+}
+
+// One block of kBwdThreads threads walks over rows blockIdx.x,
+// blockIdx.x + gridDim.x, ... Dynamic shared memory: h and g of the
+// current row and this block's running sum of g * x_hat, each
+// groups * W * nt floats, laid out by BwdSlots. partial: (gridDim.x, d)
+// float32, row b the block b's sums.
+template <typename T, typename TS, bool kVector>
+__global__ void __launch_bounds__(kBwdThreads)
+    rmsnorm_bwd_rows_kernel(const T* __restrict__ x,
+                            const T* __restrict__ residual,
+                            const TS* __restrict__ scale,
+                            const T* __restrict__ g, T* __restrict__ dx,
+                            float* __restrict__ partial, long long rows, int d,
+                            float eps) {
+  extern __shared__ __align__(16) float bwd_smem[];
+  // the block's two sums (of h^2 and of g * scale * h) a warp, two sets so
+  // that a row may write while the last one is still read
+  __shared__ float sums[2][2][32];
+  constexpr int W = kVector ? Vec<T>::n : 1;
+  const int nt = blockDim.x;
+  const int t = threadIdx.x;
+  const int groups = bwd_groups<kVector, W>(d, nt);
+  const int span = groups * W * nt;
+  const BwdSlots<kVector, W> hs{bwd_smem, nt, t};
+  const BwdSlots<kVector, W> gs{bwd_smem + span, nt, t};
+  const BwdSlots<kVector, W> acc{bwd_smem + 2 * span, nt, t};
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int n_warps = nt >> 5;
+  // this thread's groups: k < mine
+  int mine = 0;
+  while (mine < groups && (t + mine * nt) * W < d) ++mine;
+
+  const float zero[W] = {};
+  for (int k = 0; k < mine; ++k) acc.put(k, zero);
+  int set = 0;
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const size_t base = static_cast<size_t>(row) * d;
+    float ss = 0.0f, dot = 0.0f;
+    for (int k = 0; k < mine; ++k) {
+      const int col = (t + k * nt) * W;
+      float h[W], gv[W], s[W];
+      load_cols<T, kVector>(x, residual, g, base + col, h, gv);
+      if constexpr (kVector) {
+        load_scale(scale + col, s);
+      } else {
+        s[0] = to_float(scale[col]);
+      }
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        ss = fmaf(h[j], h[j], ss);
+        dot = fmaf(gv[j] * s[j], h[j], dot);
+      }
+      hs.put(k, h);
+      gs.put(k, gv);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    }
+    if (lane == 0) {
+      sums[set][0][warp] = ss;
+      sums[set][1][warp] = dot;
+    }
+    __syncthreads();
+    ss = lane < n_warps ? sums[set][0][lane] : 0.0f;
+    dot = lane < n_warps ? sums[set][1][lane] : 0.0f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    }
+    set ^= 1;
+    const float inv_d = 1.0f / static_cast<float>(d);
+    const float rstd = rsqrtf(ss * inv_d + eps);
+    // dx = rstd * g * scale - h * rstd^3 * mean(g * scale * h)
+    const float kh = rstd * rstd * rstd * dot * inv_d;
+    for (int k = 0; k < mine; ++k) {
+      const int col = (t + k * nt) * W;
+      float h[W], gv[W], s[W], a[W], out[W];
+      hs.get(k, h);
+      gs.get(k, gv);
+      acc.get(k, a);
+      if constexpr (kVector) {
+        load_scale(scale + col, s);
+      } else {
+        s[0] = to_float(scale[col]);
+      }
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        out[j] = rstd * gv[j] * s[j] - h[j] * kh;
+        a[j] = fmaf(gv[j], h[j] * rstd, a[j]);
+      }
+      acc.put(k, a);
+      if constexpr (kVector) {
+        store16(dx + base + col, out);
+      } else {
+        dx[base + col] = from_float<T>(out[0]);
+      }
+    }
+  }
+  float* own = partial + static_cast<size_t>(blockIdx.x) * d;
+  for (int k = 0; k < mine; ++k) {
+    const int col = (t + k * nt) * W;
+    float a[W];
+    acc.get(k, a);
+    if constexpr (kVector) {
+#pragma unroll
+      for (int c = 0; c < W / 4; ++c) {
+        store4(own + col + 4 * c,
+               make_float4(a[4 * c], a[4 * c + 1], a[4 * c + 2], a[4 * c + 3]));
+      }
+    } else {
+      own[col] = a[0];
+    }
+  }
+}
+
+// dscale[c] = sum over b of partial[b][c], b in a fixed order: four running
+// sums over b = 0, 4, 8, ... / 1, 5, ... added at the end, the same order
+// on every run.
+template <typename TS>
+__global__ void __launch_bounds__(kBwdThreads)
+    rmsnorm_dscale_kernel(const float* __restrict__ partial,
+                          TS* __restrict__ dscale, int blocks, int d) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= d) return;
+  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  int b = 0;
+  for (; b + 4 <= blocks; b += 4) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s[j] += partial[static_cast<size_t>(b + j) * d + c];
+    }
+  }
+  for (; b < blocks; ++b) s[0] += partial[static_cast<size_t>(b) * d + c];
+  dscale[c] = from_float<TS>((s[0] + s[1]) + (s[2] + s[3]));
+}
+
+template <typename T, typename TS>
+int launch_rmsnorm_bwd(const void* x, const void* residual, const void* scale,
+                       const void* g, void* dx, float* partial, void* dscale,
+                       long long rows, int d, float eps, int blocks,
+                       bool vector, cudaStream_t stream) {
+  constexpr int V = Vec<T>::n;
+  if (vector && d % V) return kBadShape;
+  const int per_thread = vector ? V : 1;
+  int threads = (d + per_thread - 1) / per_thread;
+  threads = ((threads + 31) / 32) * 32;
+  if (threads > kBwdThreads) threads = kBwdThreads;
+  const int groups = vector ? bwd_groups<true, V>(d, threads)
+                            : bwd_groups<false, 1>(d, threads);
+  const size_t smem =
+      3 * static_cast<size_t>(groups) * per_thread * threads * sizeof(float);
+  const size_t static_smem = sizeof(float) * 2 * 2 * 32;
+  if (smem + static_smem > kMaxSmem) return kBadShape;
+  auto kernel = vector ? rmsnorm_bwd_rows_kernel<T, TS, true>
+                       : rmsnorm_bwd_rows_kernel<T, TS, false>;
+  if (smem + static_smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(residual),
+      static_cast<const TS*>(scale), static_cast<const T*>(g),
+      static_cast<T*>(dx), partial, rows, d, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rmsnorm_dscale_kernel<TS>
+      <<<static_cast<unsigned>((d + kBwdThreads - 1) / kBwdThreads),
+         kBwdThreads, 0, stream>>>(partial, static_cast<TS*>(dscale), blocks,
+                                   d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace rt
 
 // The arguments of rt_rmsnorm, packed by the caller into one struct
@@ -419,6 +721,50 @@ extern "C" int rt_rmsnorm(const RmsnormArgs* args, void* stream) {
     case kBFloat16 | kBFloat16 << 1:
       return launch_rmsnorm<__nv_bfloat16, __nv_bfloat16>(
           a.x, a.residual, a.scale, a.out, a.rows, a.d, a.eps, a.mode, s);
+    default:
+      return kBadDtype;
+  }
+}
+
+// The backward of rt_rmsnorm. x, residual (may be null), g (the output's
+// gradient), dx: (rows, d) contiguous, of the type of dtypes & 1; scale and
+// dscale: (d,) of the type of dtypes >> 1; partial: (blocks, d) float32
+// scratch, blocks in 1 .. rows, the grid of the first kernel (the caller
+// fixes it, so dscale sums in the same order on every call). vector != 0
+// promises d a multiple of 16 bytes' worth of elements and x, residual, g
+// and dx 16-byte aligned. Returns 0, a CUDA error code, or a negative code
+// for arguments the kernels do not take (a row of more than ~19,000
+// elements does not fit in shared memory).
+extern "C" int rt_rmsnorm_backward(const void* x, const void* residual,
+                                   const void* scale, const void* g, void* dx,
+                                   void* partial, void* dscale, long long rows,
+                                   int d, float eps, int dtypes, int blocks,
+                                   int vector, void* stream) {
+  using namespace rt;
+  if (rows <= 0 || d <= 0 || blocks <= 0 || blocks > rows ||
+      blocks > 2147483647LL / d) {
+    return kBadShape;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* part = static_cast<float*>(partial);
+  const bool vec = vector != 0;
+  switch (dtypes) {
+    case kFloat32 | kFloat32 << 1:
+      return launch_rmsnorm_bwd<float, float>(x, residual, scale, g, dx, part,
+                                              dscale, rows, d, eps, blocks,
+                                              vec, s);
+    case kFloat32 | kBFloat16 << 1:
+      return launch_rmsnorm_bwd<float, __nv_bfloat16>(
+          x, residual, scale, g, dx, part, dscale, rows, d, eps, blocks, vec,
+          s);
+    case kBFloat16 | kFloat32 << 1:
+      return launch_rmsnorm_bwd<__nv_bfloat16, float>(
+          x, residual, scale, g, dx, part, dscale, rows, d, eps, blocks, vec,
+          s);
+    case kBFloat16 | kBFloat16 << 1:
+      return launch_rmsnorm_bwd<__nv_bfloat16, __nv_bfloat16>(
+          x, residual, scale, g, dx, part, dscale, rows, d, eps, blocks, vec,
+          s);
     default:
       return kBadDtype;
   }

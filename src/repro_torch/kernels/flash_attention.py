@@ -79,6 +79,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     A CPU tensor goes to the plain version. A CUDA tensor goes to the kernel,
     or the call raises: there is no other path for it.
+    With grad mode on, a CUDA input that requires a gradient raises: the
+    kernel has no backward yet.
     """
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("flash_attention: q (B,Sq,H,D); k, v (B,Skv,Hkv,D)")
@@ -94,6 +96,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    build.refuse_gradients("flash_attention", q, k, v)
 
     code = build.DTYPE_CODES.get(q.dtype)
     if code is None:

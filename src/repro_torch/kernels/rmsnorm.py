@@ -20,6 +20,15 @@ current one (``build.launch_packed``).
 
 Like the kernel it replaces it returns the normed tensor only, not the sum
 ``x + residual``.
+
+Gradients: on a CUDA tensor that requires a gradient (with grad mode on) the
+wrapper goes through ``_RmsNormFn``, whose backward is the kernel
+``rt_rmsnorm_backward`` of the same source (``rmsnorm_backward``, with
+``rmsnorm_backward_plain`` beside it); the reference has no backward kernel
+of its own, since its models never call their rmsnorm kernel. Under
+``torch.no_grad()``, or when nothing requires a gradient, the call takes the
+lean path above and pays nothing for autograd. A CPU tensor takes
+``rmsnorm_plain``, which autograd differentiates.
 """
 from __future__ import annotations
 
@@ -112,6 +121,11 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5,
         if device.type == "cpu":
             return rmsnorm_plain(x, scale, eps=eps, residual=residual)
         raise ValueError(f"rmsnorm: unsupported device {device}")
+    if torch.is_grad_enabled() and (
+            x.requires_grad or scale.requires_grad or
+            (residual is not None and residual.requires_grad)):
+        # the Function's forward runs with grad mode off: back here, lean
+        return _RmsNormFn.apply(x, scale, residual, eps)
 
     rows = x.numel() // d if d else 0
     if rows == 0:
@@ -143,3 +157,124 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5,
 
 # number of kernel launches made through the wrapper
 rmsnorm.launches = 0
+
+
+def rmsnorm_backward_plain(x: torch.Tensor, scale: torch.Tensor,
+                           g: torch.Tensor, *, eps: float = 1e-5,
+                           residual: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward, in float32: for h = x [+
+    residual], rstd = rsqrt(mean(h^2) + eps), x_hat = h * rstd and the
+    output's gradient g, returns (dx in x.dtype, dscale in scale.dtype) with
+
+      dx     = rstd * (g * scale - x_hat * mean(g * scale * x_hat))
+      dscale = sum over rows of g * x_hat.
+
+    The residual's gradient is dx as well."""
+    d = x.shape[-1]
+    h = x.float()
+    if residual is not None:
+        h = h + residual.float()
+    rstd = torch.rsqrt(h.square().mean(dim=-1, keepdim=True) + eps)
+    x_hat = h * rstd
+    g32 = g.float()
+    gs = g32 * scale.float()
+    dx = rstd * (gs - x_hat * (gs * x_hat).mean(dim=-1, keepdim=True))
+    dscale = (g32 * x_hat).reshape(-1, d).sum(dim=0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+_SMS: Dict[int, int] = {}      # streaming multiprocessors of each card
+
+
+def backward_grid(device: torch.device, rows: int, d: int) -> int:
+    """Blocks of the backward's row kernel: about as many as the card holds
+    at once (its shared memory is about 3 floats a column, and each SM has
+    228 KB of which a block's own 1 KB is reserved), at most 8 an SM and at
+    most one a row. The grid fixes the order in which dscale is summed, so
+    it depends on the card and the shape only, never on the data."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    sms = _SMS.get(index)
+    if sms is None:
+        sms = _SMS[index] = \
+            torch.cuda.get_device_properties(index).multi_processor_count
+    per_block = 12 * ((d + 3) // 4 * 4) + 512 + 1024
+    per_sm = max(1, min(8, 228 * 1024 // per_block))
+    return max(1, min(rows, sms * per_sm))
+
+
+def rmsnorm_backward(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                     *, eps: float = 1e-5,
+                     residual: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward of `rmsnorm`: (dx, dscale) for the output's gradient g,
+    as `rmsnorm_backward_plain` computes them (the residual's gradient is
+    dx). A CPU tensor goes to the plain version. A CUDA tensor goes to the
+    kernel, or the call raises: there is no other path for it. dscale is
+    the same to the bit on every call with the same inputs on one card."""
+    d = x.shape[-1]
+    if scale.shape != (d,) or g.shape != x.shape:
+        raise ValueError(f"rmsnorm_backward: x {tuple(x.shape)}, scale "
+                         f"{tuple(scale.shape)}, g {tuple(g.shape)} do not "
+                         f"go together")
+    device = x.device
+    if residual is not None and (residual.shape != x.shape or
+                                 residual.dtype != x.dtype or
+                                 residual.device != device):
+        raise ValueError("residual must match x in shape, dtype and device")
+    if scale.device != device or g.device != device:
+        raise ValueError(f"rmsnorm_backward: scale on {scale.device}, g on "
+                         f"{g.device}, x on {device}")
+    if device.type == "cpu":
+        return rmsnorm_backward_plain(x, scale, g.to(x.dtype), eps=eps,
+                                      residual=residual)
+    if not x.is_cuda:
+        raise ValueError(f"rmsnorm_backward: unsupported device {device}")
+    codes, _, whole = _PLANS.get((d, x.dtype, scale.dtype)) or \
+        _plan(d, x.dtype, scale.dtype)
+    rows = x.numel() // d if d else 0
+    if rows == 0:
+        return torch.empty_like(x), torch.zeros_like(scale)
+    x, scale = x.contiguous(), scale.contiguous()
+    g = g.to(x.dtype).contiguous()
+    res_ptr = 0
+    if residual is not None:
+        residual = residual.contiguous()
+        res_ptr = residual.data_ptr()
+    dx = torch.empty_like(x)
+    dscale = torch.empty_like(scale)
+    blocks = backward_grid(device, rows, d)
+    partial = torch.empty((blocks, d), dtype=torch.float32, device=device)
+    vector = whole and not (x.data_ptr() | g.data_ptr() | dx.data_ptr() |
+                            res_ptr | scale.data_ptr()) & 15
+    build.launch("rmsnorm_backward", device, x.data_ptr(), res_ptr,
+                 scale.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                 partial.data_ptr(), dscale.data_ptr(), rows, d, eps, codes,
+                 blocks, int(vector))
+    rmsnorm_backward.launches += 1
+    return dx, dscale
+
+
+# number of kernel launches made through the backward's wrapper
+rmsnorm_backward.launches = 0
+
+
+class _RmsNormFn(torch.autograd.Function):
+    """`rmsnorm` on CUDA tensors under autograd: the forward kernel, and the
+    backward kernel for its gradient. x, scale and the residual are saved;
+    the statistics are recomputed in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale, residual, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, scale, residual)
+        return rmsnorm(x, scale, eps=eps, residual=residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, residual = ctx.saved_tensors
+        dx, dscale = rmsnorm_backward(x, scale, g, eps=ctx.eps,
+                                      residual=residual)
+        return dx, dscale, (dx if residual is not None else None), None
+

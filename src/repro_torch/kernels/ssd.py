@@ -109,6 +109,8 @@ def ssd(xs: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     A CPU tensor goes to the plain version (chunked with `chunk`). A CUDA
     tensor goes to the kernel (tile of 64 rows whatever `chunk` says), or
     the call raises: there is no other path for it.
+    With grad mode on, a CUDA input that requires a gradient raises: the
+    kernel has no backward yet.
     """
     if xs.dim() != 4 or Bm.dim() != 4 or Cm.shape != Bm.shape:
         raise ValueError("ssd: xs (B,S,H,P); Bm, Cm (B,S,H,N)")
@@ -127,6 +129,7 @@ def ssd(xs: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return ssd_plain(xs, dt, A, Bm, Cm, chunk=chunk)
     if xs.device.type != "cuda":
         raise ValueError(f"ssd: unsupported device {xs.device}")
+    build.refuse_gradients("ssd", xs, dt, A, Bm, Cm)
 
     code = build.DTYPE_CODES.get(xs.dtype)
     if code is None:

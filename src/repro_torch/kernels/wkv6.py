@@ -144,6 +144,8 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
     tensor goes to the kernel, whose chunk is 16 whatever `chunk` says (the
     closed form is exact for any chunk), or the call raises: there is no
     other path for it.
+    With grad mode on, a CUDA input that requires a gradient raises: the
+    kernel has no backward yet.
     """
     _check(r, k, v, lw, u, state, state_out)
     if r.device.type == "cpu":
@@ -154,6 +156,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
         return y, new
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: unsupported device {r.device}")
+    build.refuse_gradients("wkv6", r, k, v, lw, u, state)
 
     code = _kernel_checks(r, k, v, lw, u, state, state_out)
     B, S, H, K = r.shape

@@ -171,7 +171,9 @@ def init_embed(generator, vocab: int, d_model: int, *, dtype=torch.float32,
 
 def embed(table: torch.Tensor, ids: torch.Tensor,
           compute_dtype: torch.dtype) -> torch.Tensor:
-    return table[ids].to(compute_dtype)
+    # F.embedding's gradient on the card is a sorted segment sum, the same
+    # bits on every run (an index_put with atomics would not be)
+    return F.embedding(ids, table).to(compute_dtype)
 
 
 def logits(table_or_head: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -181,3 +183,24 @@ def logits(table_or_head: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if w.shape[0] == x.shape[-1]:
         return x @ w
     return x @ w.t()
+
+
+def cross_entropy(lg: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 0.0) -> torch.Tensor:
+    """Token-mean cross entropy with an optional z-loss; labels < 0 are
+    masked. The log-sum-exp is taken in float32 over the whole last axis:
+    padded vocabulary columns hold -1e30 (``Model._logits``), so their
+    exponentials are 0 and they add nothing to it, and no label points at
+    them. The target logit is picked by advanced indexing, whose gradient
+    on the card is deterministic (a gather's is not)."""
+    lg = lg.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    flat = lg.reshape(-1, lg.shape[-1])
+    rows = torch.arange(flat.shape[0], device=lg.device)
+    tgt = flat[rows, labels.clamp(min=0).reshape(-1)].reshape(labels.shape)
+    nll = lse - tgt
+    if z_loss:
+        nll = nll + z_loss * lse.square()
+    mask = (labels >= 0).float()
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+

@@ -5,6 +5,7 @@
   logits = model.forward({"tokens": tokens})
   logits, caches = model.prefill({"tokens": tokens}, max_len)
   logits, caches = model.decode_step({"tokens": tokens}, caches)
+  loss, metrics = model.trainable().loss_fn({"tokens": t, "labels": l})
 
 ``Model`` is an ``nn.Module`` that owns its parameters. Their names
 (``state_dict()`` keys) are the paths of the JAX package's parameter tree
@@ -12,8 +13,11 @@ joined by dots, and their layouts are the same, layers stacked on a leading
 axis: ``embed``, ``head``, ``norm``, ``layers.ln1``, ``layers.attn.wq``,
 ``layers.mlp.gate`` ...; for RWKV6 ``layers.wr``, ``layers.cm_k`` ...; for the
 hybrid ``layers.mamba.in_proj`` (groups, then layers in a group) and
-``layers.shared.attn.wq`` (weight sets). Inference only: every entry point
-runs under ``torch.no_grad()``.
+``layers.shared.attn.wq`` (weight sets). The serving entry points run under
+``torch.no_grad()``; ``loss_fn`` runs the same forward with grad mode on, and
+``trainable()`` makes the parameters require gradients (they are created
+frozen). On the card only the dense family trains: the wkv6 and ssd kernels
+have no backward yet and refuse an input that needs one.
 """
 from __future__ import annotations
 
@@ -134,6 +138,11 @@ class Model(nn.Module):
     def load_state_dict(self, state_dict, *args, **kwargs):
         return self.tree.load_state_dict(state_dict, *args, **kwargs)
 
+    def trainable(self, flag: bool = True) -> "Model":
+        """Make every parameter require a gradient (or none, flag=False)."""
+        self.tree.requires_grad_(flag)
+        return self
+
     # --------------------------------------------------------------- forward
     def _tokens(self, batch) -> torch.Tensor:
         return torch.as_tensor(batch["tokens"]).to(self.device).long()
@@ -152,7 +161,21 @@ class Model(nn.Module):
     @torch.no_grad()
     def forward(self, batch) -> torch.Tensor:
         """Full-sequence forward -> logits (B, S, padded_vocab)."""
-        params = self.params
+        return self._forward(self.params, batch)
+
+    def loss_fn(self, batch, params: Optional[Dict] = None):
+        """Token-mean cross entropy of the next-token logits against
+        batch["labels"] (labels < 0 masked) -> (loss, {"ce", "aux"}), on the
+        forward with grad mode as the caller has it. `params` defaults to
+        the model's own. The reference's loss for the dense, ssm and hybrid
+        families: aux is 0 for each."""
+        lg = self._forward(self.params if params is None else params, batch)
+        labels = torch.as_tensor(batch["labels"]).to(self.device).long()
+        loss = L.cross_entropy(lg, labels)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        return loss, {"ce": loss.detach(), "aux": aux}
+
+    def _forward(self, params, batch) -> torch.Tensor:
         tokens = self._tokens(batch)
         x = self._embed(params, tokens)
         positions = torch.arange(tokens.shape[1], device=self.device)

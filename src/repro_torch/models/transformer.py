@@ -6,12 +6,21 @@ Every leaf of a stack's parameters has the layer count as its first
 dimension (the hybrid's Mamba2 leaves: groups, then layers in a group); the
 stack is applied by a plain Python loop over that axis, each layer reading
 its slice as a view. Decode caches are updated in place.
+
+Under autograd the dense stack takes its layers out with one
+``torch.unbind`` of each leaf, whose backward stacks the layers' gradients
+once; indexing a[i] for every layer would give each layer's backward a
+zero tensor the size of the whole leaf. ``RunConfig.remat`` then wraps each
+layer as the reference wraps its scan body (``remat_wrap``).
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import attention as A
@@ -152,11 +161,54 @@ def init_stack(cfg: ModelConfig, n: int, kind="dense", d_ff=None, *,
                         dtype=dtype, device=device)
 
 
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the outputs of products with a weight (2-D
+    ``mm``, no batch dimension) and recompute the rest, the attention
+    scores (batched) included, as the reference's
+    ``dots_with_no_batch_dims_saveable`` does."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_wrap(fn, policy: str):
+    """A layer function under `policy`, as the reference's ``remat_wrap``:
+    "nothing" keeps every activation; "boundaries" keeps only the layer's
+    input and recomputes the layer in the backward; "dots" keeps the
+    products with weights and recomputes the rest."""
+    if policy == "nothing":
+        return fn
+    if policy == "boundaries":
+        return partial(checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return partial(checkpoint, fn, use_reentrant=False,
+                       context_fn=partial(create_selective_checkpoint_contexts,
+                                          _save_weight_products))
+    raise ValueError(f"unknown remat policy {policy!r}")
+
+
+def unstack(params, n: int):
+    """The n layers of a stacked tree, each leaf taken apart by one
+    ``torch.unbind``."""
+    parts = tree_map(lambda a: a.unbind(0), params)
+    return [tree_map(lambda t: t[i], parts) for i in range(n)]
+
+
 def stack(params, x, cfg, run, *, kind="dense", positions=None, causal=True):
-    """Run x through a stacked block group."""
-    for i in range(n_stacked(params)):
-        x = block(tree_map(lambda a: a[i], params), x, cfg, run, kind=kind,
-                  positions=positions, causal=causal)
+    """Run x through a stacked block group. With grad mode on the layers
+    come out of one unbind a leaf and each runs under `run.remat` (when
+    `run.scan_layers`, as the reference remats its scan body only); the
+    serving path (no grad) reads each layer's slices as before."""
+    n = n_stacked(params)
+    if not torch.is_grad_enabled():
+        for i in range(n):
+            x = block(tree_map(lambda a: a[i], params), x, cfg, run,
+                      kind=kind, positions=positions, causal=causal)
+        return x
+    layer = remat_wrap(block, run.remat if run.scan_layers else "nothing")
+    for lp in unstack(params, n):
+        x = layer(lp, x, cfg, run, kind=kind, positions=positions,
+                  causal=causal)
     return x
 
 

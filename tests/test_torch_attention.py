@@ -150,9 +150,74 @@ def test_gqa_decode_drops_a_write_past_the_end():
 
 @pytest.mark.parametrize("impl", ["blocked", "zigzag"])
 def test_unported_attention_paths_raise(impl):
-    _, cfg, _, tw, x = gqa_setup("deepseek-7b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TA.gqa(tw, to_torch(x), cfg, RunConfig(attn_impl=impl))
+    """The two paths that once raised here are ported: the module runs
+    them as the reference does (blocks of 4 on 12 tokens, so zigzag's three
+    blocks of queries take the plain schedule, as the reference's would),
+    and an attn_impl no package knows still raises."""
+    jcfg, cfg, jw, tw, x = gqa_setup("deepseek-7b")
+    jrun = jax_run("full").__class__(attn_impl=impl, remat="nothing",
+                                     compute_dtype="float32",
+                                     attn_block_q=4, attn_block_kv=4)
+    want = JA.gqa(jw, to_jax(x), jcfg, jrun)
+    got = TA.gqa(tw, to_torch(x), cfg,
+                 RunConfig(attn_impl=impl, attn_block_q=4, attn_block_kv=4))
+    np.testing.assert_allclose(as_f32(got), as_f32(want), **TOL)
+    with pytest.raises(ValueError, match="attn_impl"):
+        TA.gqa(tw, to_torch(x), cfg, RunConfig(attn_impl="nonesuch"))
+
+
+# the reference's blocked walk at several block shapes: ragged edges on
+# both sides, Sq != Sk, one block, many, and the zigzag schedule with an
+# even number of square blocks (and an odd one, where it takes the plain walk)
+BLOCKED_CASES = [
+    # B, Sq, Sk, H, K, D, block_q, block_kv, causal, zigzag
+    (2, 64, 64, 4, 2, 16, 16, 32, True, False),
+    (1, 50, 70, 4, 1, 8, 16, 32, False, False),
+    (2, 37, 37, 4, 2, 8, 8, 16, True, False),
+    (1, 40, 40, 2, 2, 8, 64, 64, True, False),
+    (2, 64, 64, 4, 2, 16, 16, 16, True, True),
+    (2, 96, 96, 4, 4, 8, 16, 16, True, True),
+    (1, 48, 48, 4, 2, 8, 16, 16, True, True),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,K,D,bq,bkv,causal,zigzag", BLOCKED_CASES)
+def test_blocked_attention_matches_the_reference(B, Sq, Sk, H, K, D, bq, bkv,
+                                                 causal, zigzag):
+    q, k, v = qkv(B, Sq, Sk, H, K, D, seed=30)
+    want = JA.blocked_attention(to_jax(q), to_jax(k), to_jax(v),
+                                causal=causal, block_q=bq, block_kv=bkv,
+                                zigzag=zigzag)
+    got = TA.blocked_attention(to_torch(q), to_torch(k), to_torch(v),
+                               causal=causal, block_q=bq, block_kv=bkv,
+                               zigzag=zigzag)
+    np.testing.assert_allclose(as_f32(got), as_f32(want), **TOL)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,K,D,bq,bkv,causal,zigzag", BLOCKED_CASES)
+def test_blocked_attention_gradients_match_full(B, Sq, Sk, H, K, D, bq, bkv,
+                                                causal, zigzag):
+    """Under autograd the blocked walk (its running maximum off the graph)
+    gives full attention's gradients, for q, k and v."""
+    arrays = qkv(B, Sq, Sk, H, K, D, seed=40)
+    g = to_torch(randn(41, B, Sq, H, D))
+    grads = []
+    for fn in (lambda q, k, v: TA.blocked_attention(
+                   q, k, v, causal=causal, block_q=bq, block_kv=bkv,
+                   zigzag=zigzag),
+               lambda q, k, v: TA.full_attention(q, k, v, causal=causal)):
+        leaves = [to_torch(a).requires_grad_() for a in arrays]
+        fn(*leaves).backward(g)
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        np.testing.assert_allclose(as_f32(got), as_f32(want), **TOL)
+
+
+def test_zigzag_needs_square_blocks():
+    q, k, v = qkv(1, 32, 32, 2, 2, 8)
+    with pytest.raises(ValueError, match="square"):
+        TA.blocked_attention(to_torch(q), to_torch(k), to_torch(v),
+                             causal=True, block_q=8, block_kv=16, zigzag=True)
 
 
 def test_init_gqa_and_cache_shapes():

@@ -12,12 +12,15 @@ from repro_torch.configs import ARCHS, RunConfig, get_arch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
-from repro_torch.kernels.rmsnorm import launch_shape, rmsnorm, rmsnorm_plain
+from repro_torch.kernels.rmsnorm import (launch_shape, rmsnorm,
+                                         rmsnorm_backward,
+                                         rmsnorm_backward_plain, rmsnorm_plain)
 from repro_torch.kernels.ssd import TILE, ssd, ssd_plain
 from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
 from repro_torch.models import Model
 from repro_torch.models.rwkv import wkv_recurrent
 from repro_torch.models.ssm import ssd_recurrent
+from repro_torch.train.step import loss_and_grads
 
 pytestmark = pytest.mark.cuda
 
@@ -190,6 +193,104 @@ def test_rmsnorm_kernel_runs_on_the_current_stream(card):
     assert build.current_stream(card.index or 0) != s.cuda_stream
     s.synchronize()
     assert_close(got, rmsnorm_plain(new, sc), dtype)
+
+
+def assert_dscale_close(got, want, dtype):
+    """dscale is a sum over the rows: held relative to its largest entry,
+    1e-4 in float32 (the sums taken in another order), bf16's 2e-2."""
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    big = float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), atol=tol * big,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("shape", [(4, 64), (3, 17, 96), (5, 70), (16, 4096),
+                                   (8, 3584), (2, 12288), (64, 7168)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_backward_kernel(card, shape, dtype, residual, scale_dtype):
+    x = randn(card, 30, shape, dtype)
+    r = randn(card, 31, shape, dtype) if residual else None
+    g = randn(card, 32, shape, dtype)
+    sc = (1.0 + 0.1 * randn(card, 33, shape[-1:], torch.float32)).to(scale_dtype)
+    before = rmsnorm_backward.launches
+    dx, dscale = rmsnorm_backward(x, sc, g, residual=r)
+    assert rmsnorm_backward.launches == before + 1
+    assert dx.dtype == dtype and dx.shape == x.shape
+    assert dscale.dtype == scale_dtype and dscale.shape == sc.shape
+    want_dx, want_dscale = rmsnorm_backward_plain(x, sc, g, residual=r)
+    assert_close(dx, want_dx, dtype)
+    assert_dscale_close(dscale, want_dscale, scale_dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [False, True])
+def test_rmsnorm_autograd_on_the_card_launches_both_kernels(card, dtype,
+                                                             residual):
+    """Under autograd a CUDA input goes through the forward kernel and the
+    backward kernel, once each, and the gradients are autograd's of the
+    plain version on the CPU."""
+    shape = (2, 24, 4096)
+    x = randn(card, 34, shape, dtype).requires_grad_()
+    r = randn(card, 35, shape, dtype).requires_grad_() if residual else None
+    sc = (1.0 + 0.1 * randn(card, 36, (4096,), torch.float32)).requires_grad_()
+    g = randn(card, 37, shape, dtype)
+    fwd, bwd = rmsnorm.launches, rmsnorm_backward.launches
+    y = rmsnorm(x, sc, residual=r)
+    assert y.grad_fn is not None
+    y.backward(g)
+    assert (rmsnorm.launches, rmsnorm_backward.launches) == (fwd + 1, bwd + 1)
+    leaves = [t.detach().cpu().requires_grad_() for t in (x, sc)]
+    r_cpu = r.detach().cpu().requires_grad_() if residual else None
+    rmsnorm_plain(*leaves, residual=r_cpu).backward(g.cpu())
+    assert_close(x.grad.cpu(), leaves[0].grad, dtype)
+    assert_dscale_close(sc.grad.cpu(), leaves[1].grad, dtype)
+    if residual:
+        assert_close(r.grad.cpu(), r_cpu.grad, dtype)
+    with torch.no_grad():                 # the lean path: no backward
+        assert rmsnorm(x, sc).grad_fn is None
+
+
+def test_rmsnorm_backward_dscale_is_the_same_to_the_bit(card):
+    """No atomics: two calls on the same inputs give the same bits."""
+    x = randn(card, 38, (8192, 4096), torch.float32)
+    g = randn(card, 39, (8192, 4096), torch.float32)
+    sc = 1.0 + 0.1 * randn(card, 40, (4096,), torch.float32)
+    dx1, ds1 = rmsnorm_backward(x, sc, g)
+    dx2, ds2 = rmsnorm_backward(x, sc, g)
+    torch.cuda.synchronize()
+    assert torch.equal(ds1, ds2) and torch.equal(dx1, dx2)
+
+
+def test_wrappers_without_a_backward_refuse_inputs_that_need_one(card):
+    """flash_attention, wkv6 and ssd raise on a CUDA input that requires a
+    gradient instead of handing back an output autograd cannot see
+    through; under no_grad they launch as before."""
+    f32 = torch.float32
+    q = randn(card, 41, (1, 32, 2, 64), f32).requires_grad_()
+    with pytest.raises(RuntimeError, match="Queue 2"):
+        flash_attention(q, q.detach(), q.detach())
+    r = randn(card, 42, (1, 16, 2, 16), f32).requires_grad_()
+    lw = -torch.exp(randn(card, 43, (1, 16, 2, 16), f32))
+    u = randn(card, 44, (2, 16), f32)
+    with pytest.raises(RuntimeError, match="Queue 2"):
+        wkv6(r, r.detach(), r.detach(), lw, u)
+    xs = randn(card, 45, (1, 16, 2, 8), f32).requires_grad_()
+    dt = torch.rand((1, 16, 2), device=card)
+    A = -torch.rand((2,), device=card)
+    Bm = randn(card, 46, (1, 16, 2, 4), f32)
+    with pytest.raises(RuntimeError, match="Queue 2"):
+        ssd(xs, dt, A, Bm, Bm)
+    with torch.no_grad():
+        before = (flash_attention.launches, wkv6.launches, ssd.launches)
+        flash_attention(q, q, q)
+        wkv6(r, r, r, lw, u)
+        ssd(xs, dt, A, Bm, Bm)
+        torch.cuda.synchronize()
+        assert (flash_attention.launches, wkv6.launches, ssd.launches) == \
+            tuple(n + 1 for n in before)
 
 
 # + the bf16 kernel's boundaries: one row (a decode step), 15, 16 and 17
@@ -519,3 +620,46 @@ def test_model_kernel_path_matches_plain_path(card):
     step, caches = gpu.decode_step({"tokens": toks[:, :1]}, caches)
     assert bool(torch.isfinite(step).all())
     assert caches["pos"].tolist() == [[41, 41]] * cfg.n_layers
+
+
+@pytest.mark.parametrize("remat", ["nothing", "boundaries", "dots"])
+def test_train_step_gradients_on_the_card_match_the_cpu(card, remat):
+    """Reduced deepseek-7b, float32, blocked attention (blocks of 8 over 24
+    tokens): the loss and every gradient of one step on the card, through
+    the rmsnorm forward and backward kernels, against the plain path on the
+    CPU. A layer under remat runs its two norms' forward again in the
+    backward."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("deepseek-7b").reduced()
+    run = RunConfig(param_dtype="float32", compute_dtype="float32",
+                    attn_impl="blocked", remat=remat, attn_block_q=8,
+                    attn_block_kv=8)
+    gpu = Model(cfg, run).init(seed=0).trainable()
+    cpu = Model(cfg, run, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    cpu.trainable()
+    toks = np.random.default_rng(11).integers(0, cfg.vocab_size, size=(2, 25))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    fwd, bwd = rmsnorm.launches, rmsnorm_backward.launches
+    loss, _, grads = loss_and_grads(gpu, gpu.params, batch)
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    again = 0 if remat == "nothing" else 2 * L
+    assert (rmsnorm.launches - fwd, rmsnorm_backward.launches - bwd) == \
+        (2 * L + 1 + again, 2 * L + 1)
+    want_loss, _, want = loss_and_grads(cpu, cpu.params, batch)
+    assert float(loss) == pytest.approx(float(want_loss), rel=1e-5)
+    flat = {}
+
+    def walk(a, b, path=""):
+        if isinstance(a, dict):
+            for k in a:
+                walk(a[k], b[k], f"{path}.{k}")
+        else:
+            flat[path] = (a.cpu(), b)
+
+    walk(grads, want)
+    for path, (got, ref) in flat.items():
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4,
+                                   msg=path)
+

@@ -36,7 +36,14 @@ def test_sources_are_found():
             "src/repro_torch/models/rwkv.py",
             "src/repro_torch/models/ssm.py",
             "src/repro_torch/serve/engine.py",
-            "src/repro_torch/launch/serve.py", "chip_smoke.py"} <= names
+            "src/repro_torch/launch/serve.py", "chip_smoke.py",
+            "src/repro_torch/optim/adamw.py",
+            "src/repro_torch/optim/schedule.py",
+            "src/repro_torch/optim/compression.py",
+            "src/repro_torch/train/step.py", "src/repro_torch/train/loop.py",
+            "src/repro_torch/data/pipeline.py",
+            "src/repro_torch/checkpoint/ckpt.py",
+            "src/repro_torch/launch/train.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,

@@ -4,12 +4,14 @@ the wrappers' contract. The CUDA kernels themselves are held against the
 plain versions on the card by chip_smoke.py."""
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ops
+from repro.models.layers import rms_norm as jax_rms_norm
 
 import repro_torch
 from repro_torch.configs import ARCHS
@@ -19,7 +21,8 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  kernel_strides)
 from repro_torch.kernels.rmsnorm import (BLOCK_THREADS, MAX_VECTORS,
                                         ROW_THREADS, launch_shape, rmsnorm,
-                                        rmsnorm_plain)
+                                        rmsnorm_backward,
+                                        rmsnorm_backward_plain, rmsnorm_plain)
 from repro_torch.kernels.ssd import p_block
 from repro_torch.kernels.wkv6 import HEAD_DIMS, _kernel_checks, wkv6
 from test_torch_parity import as_f32, to_jax, to_torch
@@ -76,6 +79,57 @@ def test_rmsnorm_plain_residual_matches_pallas(dtype):
     got = rmsnorm_plain(to_torch(x, dtype), to_torch(sc),
                         residual=to_torch(r, dtype))
     np.testing.assert_allclose(as_f32(got), as_f32(want), **tol(dtype))
+
+
+@pytest.mark.parametrize("shape", [(4, 64), (3, 17, 96), (2, 5, 7, 128)])
+@pytest.mark.parametrize("residual", [False, True])
+def test_rmsnorm_backward_plain_matches_jax_grad(shape, residual):
+    """dx, dscale (and the residual's gradient, which is dx) against
+    jax.vjp of the reference's rms_norm over x [+ residual], float32."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal(shape, dtype=np.float32)
+    r = rng.standard_normal(shape, dtype=np.float32)
+    g = rng.standard_normal(shape, dtype=np.float32)
+    sc = 1.0 + 0.1 * rng.standard_normal(shape[-1:], dtype=np.float32)
+
+    def f(x, r, sc):
+        return jax_rms_norm(x + r if residual else x, sc)
+
+    _, vjp = jax.vjp(f, to_jax(x), to_jax(r), to_jax(sc))
+    want_dx, want_dr, want_ds = vjp(to_jax(g))
+    dx, ds = rmsnorm_backward_plain(to_torch(x), to_torch(sc), to_torch(g),
+                                    residual=to_torch(r) if residual else None)
+    np.testing.assert_allclose(as_f32(dx), as_f32(want_dx), **tol("float32"))
+    np.testing.assert_allclose(as_f32(ds), as_f32(want_ds), **tol("float32"))
+    if residual:
+        np.testing.assert_allclose(as_f32(dx), as_f32(want_dr),
+                                   **tol("float32"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("residual", [False, True])
+def test_rmsnorm_backward_plain_matches_autograd(dtype, residual):
+    """The plain backward against autograd of rmsnorm_plain, which is what
+    the wrapper gives a CPU tensor under autograd; the wrapper of the
+    backward takes the plain version there and counts no launch."""
+    rng = np.random.default_rng(12)
+    shape = (3, 5, 64)
+    x, r, g = (to_torch(rng.standard_normal(shape, dtype=np.float32), dtype)
+               for _ in range(3))
+    sc = to_torch(1.0 + 0.1 * rng.standard_normal((64,), dtype=np.float32))
+    xs = x.clone().requires_grad_()
+    rs = r.clone().requires_grad_() if residual else None
+    scs = sc.clone().requires_grad_()
+    rmsnorm(xs, scs, residual=rs).backward(g)
+    before = rmsnorm_backward.launches
+    dx, ds = rmsnorm_backward(x, sc, g, residual=r if residual else None)
+    assert rmsnorm_backward.launches == before
+    assert torch.equal(dx, rmsnorm_backward_plain(
+        x, sc, g, residual=r if residual else None)[0])
+    np.testing.assert_allclose(as_f32(dx), as_f32(xs.grad), **tol(dtype))
+    np.testing.assert_allclose(as_f32(ds), as_f32(scs.grad), **tol(dtype))
+    if residual:
+        np.testing.assert_allclose(as_f32(dx), as_f32(rs.grad), **tol(dtype))
 
 
 def test_flash_attention_plain_fully_visible_first_row():
