@@ -6,9 +6,11 @@
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc/`` (rmsnorm and
 its backward, flash_attention, wkv6, ssd), holds each against its plain
 PyTorch version on the card, drives the serving paths of deepseek-7b,
-rwkv6-7b and zamba2-7b at full width and depth (random weights from a seed)
-through ``Model.forward``, ``Model.prefill``, ``Model.decode_step`` and the
-``repro_torch.launch.serve`` command line, and the training path of
+rwkv6-7b, zamba2-7b and olmoe-1b-7b at full width and depth, and of
+deepseek-v3-671b at full width cut to 4 layers (its 3 dense layers, 1 MoE
+layer and the MTP block's weights: 53 GB in bfloat16; random weights from a
+seed), through ``Model.forward``, ``Model.prefill``, ``Model.decode_step``
+and the ``repro_torch.launch.serve`` command line, and the training path of
 deepseek-7b at full width (depth cut to 4 layers, so that the float32 state
 fits) through the ``repro_torch.launch.train`` command line, with a resume
 from its checkpoint. Every line of standard output is
@@ -73,6 +75,10 @@ KERNELS = ("rmsnorm", "rmsnorm_backward", "flash_attention", "wkv6", "ssd")
 #                (ln, ssm_norm), 13 shared attention blocks with 2 norms each,
 #                + 1 = 183; ssd each Mamba2 block and flash attention each
 #                shared block, neither at decode
+#   olmoe-1b-7b: 16 layers, 2 norms each + 1; attention (D = 128) each layer
+#   deepseek-v3-671b at 4 layers: ln1, ln2, MLA's q_norm and kv_norm each
+#                layer + 1 = 17; attention (MLA, D = 192) each layer (the
+#                MTP block serves no token)
 # (inference: no rmsnorm backward anywhere)
 PER_CALL = {
     "deepseek-7b": {"rmsnorm": 61, "rmsnorm_backward": 0,
@@ -81,6 +87,10 @@ PER_CALL = {
                  "wkv6": 32, "ssd": 0},
     "zamba2-7b": {"rmsnorm": 183, "rmsnorm_backward": 0,
                   "flash_attention": 13, "wkv6": 0, "ssd": 78},
+    "olmoe-1b-7b": {"rmsnorm": 33, "rmsnorm_backward": 0,
+                    "flash_attention": 16, "wkv6": 0, "ssd": 0},
+    "deepseek-v3-671b": {"rmsnorm": 17, "rmsnorm_backward": 0,
+                         "flash_attention": 4, "wkv6": 0, "ssd": 0},
 }
 PER_STEP = {
     "deepseek-7b": {"rmsnorm": 61, "rmsnorm_backward": 0,
@@ -89,6 +99,10 @@ PER_STEP = {
                  "wkv6": 32, "ssd": 0},
     "zamba2-7b": {"rmsnorm": 183, "rmsnorm_backward": 0,
                   "flash_attention": 0, "wkv6": 0, "ssd": 0},
+    "olmoe-1b-7b": {"rmsnorm": 33, "rmsnorm_backward": 0,
+                    "flash_attention": 0, "wkv6": 0, "ssd": 0},
+    "deepseek-v3-671b": {"rmsnorm": 17, "rmsnorm_backward": 0,
+                         "flash_attention": 0, "wkv6": 0, "ssd": 0},
 }
 # the training path: deepseek-7b at full width cut to TRAIN_LAYERS layers,
 # float32, B x S tokens a step, blocked attention (the reference launcher's
@@ -96,7 +110,26 @@ PER_STEP = {
 # forwards and as many backwards, and no other kernel
 TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2, 2048, 5
 PARITY_TRAIN = {"layers": 2, "batch": 1, "seq": 128, "block": 64}
-N_LAYERS = {"deepseek-7b": 30, "rwkv6-7b": 32, "zamba2-7b": 81}
+N_LAYERS = {"deepseek-7b": 30, "rwkv6-7b": 32, "zamba2-7b": 81,
+            "olmoe-1b-7b": 16, "deepseek-v3-671b": 61}
+# depth cut at full width, where the model does not fit one card whole:
+# deepseek-v3-671b's 61 layers are 682.6 G parameters; 4 (3 dense, 1 MoE,
+# with the MTP block) are 26.7 G, 53.4 GB in bfloat16
+CUT_LAYERS = {"deepseek-v3-671b": 4}
+# Models whose bfloat16 decode is no check of their bfloat16 forward at full
+# depth, so that decode is gated with float32 arithmetic on the same
+# (bfloat16) weights; the bfloat16 numbers are recorded, not gated.
+# rwkv6-7b and zamba2-7b: random init amplifies rounding through the
+# recurrence. The MoE models: the reference's expert init takes the expert
+# count as w_gate's and w_up's fan-in (64 or 256, not d_model), so an MoE
+# layer's output is many times its input, and where a token's 8th and 9th
+# experts nearly tie, bfloat16 rounding on either path can route it to the
+# other, which moves the logits by whole units (olmoe-1b-7b through 16 MoE
+# layers, deepseek-v3-671b's one at S = 2048). Only deepseek-7b keeps the
+# bfloat16 gate.
+DECODE_IN_F32 = ("rwkv6-7b", "zamba2-7b", "olmoe-1b-7b", "deepseek-v3-671b")
+SERVE_ARCHS = ("deepseek-7b", "rwkv6-7b", "zamba2-7b", "olmoe-1b-7b",
+               "deepseek-v3-671b")
 
 
 class SmokeFailure(RuntimeError):
@@ -299,10 +332,14 @@ def phase_kernels(state):
 
     checks = []
     # --- the reference's test grid -----------------------------------------
-    # + ragged 128-row tiles of the bf16 kernel, Sq > Skv and a single query row
+    # + ragged 128-row tiles of the bf16 kernel, Sq > Skv and a single query
+    # row; the same at D = 192 (MLA), whose key tiles are 64 rows
     for (B, Sq, Skv, H, Hkv, D) in ATTN_GRID + [(2, 150, 150, 4, 2, 112),
                                                 (1, 200, 130, 8, 2, 128),
-                                                (2, 1, 300, 4, 1, 128)]:
+                                                (2, 1, 300, 4, 1, 128),
+                                                (2, 150, 150, 4, 4, 192),
+                                                (1, 200, 130, 8, 2, 192),
+                                                (2, 1, 300, 4, 1, 192)]:
         for causal in (True, False):
             for dtype in (torch.float32, torch.bfloat16):
                 q, k, v = (randn((B, Sq, H, D), dtype),
@@ -562,8 +599,35 @@ def phase_kernels(state):
                     del xr, scr, y_lib
                 del x, g, r, dx, dx2, want_dx, leaves, auto
     B, S = 4, 2048
-    # deepseek-7b (D=128, three kv-head counts) and zamba2-7b (D=112)
-    for H, Hkv, D in ((32, 32, 128), (32, 8, 128), (32, 2, 128), (32, 32, 112)):
+    # deepseek-v3's MLA core at float32 too: q and k of 128 + 64, one rotated
+    # key broadcast over the heads, v zero-padded to 192
+    H, D = 128, 192
+    q = randn((B, S, H, D), f32)
+    k = torch.cat([randn((B, S, H, 128), f32),
+                   randn((B, S, 1, 64), f32).expand(B, S, H, 64)], dim=-1)
+    v = F.pad(randn((B, S, H, 128), f32), (0, 64))
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err, ok = close(got, flash_attention_plain(q, k, v, causal=True), f32)
+    checks.append({"kernel": "flash_attention", "shape": [B, S, S, H, H, D],
+                   "causal": True, "dtype": str(f32), "mla_inputs": True,
+                   "max_abs_err": err, "tol": TOL[f32], "ok": ok})
+    t = time_in_turns({
+        "ms": lambda: flash_attention(q, k, v, causal=True),
+        "plain_ms": lambda: flash_attention_plain(q, k, v, causal=True),
+    }, iters=5, rounds=1)
+    bnd, by, flops = attn_bound(B, S, S, H, H, D, True, f32)
+    timed.append({"name": "flash_attention", "shape": [B, S, S, H, H, D],
+                  "causal": True, "dtype": str(f32), "max_abs_err": err, **t,
+                  "library_ms": None, "bound_ms": bnd, "bound_by": by,
+                  "share_of_bound": bnd / t["ms"],
+                  "tflops": flops / t["ms"] / 1e9})
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    # deepseek-7b (D=128, three kv-head counts), zamba2-7b (D=112),
+    # olmoe-1b-7b (D=128, 16 heads) and deepseek-v3-671b (MLA, D=192)
+    for H, Hkv, D in ((32, 32, 128), (32, 8, 128), (32, 2, 128), (32, 32, 112),
+                      (16, 16, 128), (128, 128, 192)):
         q, k, v = (randn((B, S, H, D), bf16), randn((B, S, Hkv, D), bf16),
                    randn((B, S, Hkv, D), bf16))
         got = flash_attention(q, k, v, causal=True)
@@ -587,6 +651,7 @@ def phase_kernels(state):
                       "share_of_bound": bnd / t["ms"],
                       "tflops": flops / t["ms"] / 1e9})
         del q, k, v, qt, kt, vt, got
+        torch.cuda.empty_cache()
     # wkv6 at rwkv6-7b's prefill (B=4, S=2048, H=64, K=64) and decode step
     # (B=8 slots, S=1, the state read and written in place)
     for (B, S, dtype, with_state) in ((4, 2048, bf16, False), (4, 2048, f32, False),
@@ -661,6 +726,9 @@ def phase_kernels(state):
         name: max(c["max_abs_err"] for c in checks
                   if c["kernel"] == name and c["dtype"] == str(bf16))
         for name in KERNELS}
+    state["worst_err"]["flash_attention_d192"] = max(
+        c["max_abs_err"] for c in checks if c["kernel"] == "flash_attention"
+        and c["dtype"] == str(bf16) and c["shape"][5] == 192)
 
 
 def numpy_weights(model, seed):
@@ -690,9 +758,11 @@ def numpy_weights(model, seed):
 def phase_parity(state):
     """The card's kernel path against the same model on the CPU (plain
     versions), float32, each model at full width and cut in depth:
-    deepseek-7b at 2 layers (weights from numpy), rwkv6-7b at 2 layers and
+    deepseek-7b at 2 layers (weights from numpy), rwkv6-7b at 2 layers,
     zamba2-7b at 6 (one group of Mamba2 blocks and one shared attention
-    block; weights drawn on the card by the model's own init)."""
+    block), olmoe-1b-7b at 2 layers, and deepseek-v3-671b at 1 dense and 1
+    MoE layer with 16 of its 256 experts and no MTP block (weights drawn on
+    the card by the model's own init)."""
     from dataclasses import replace
     from repro_torch.configs import RunConfig, get_arch
     from repro_torch.convert import params_from_numpy
@@ -703,15 +773,27 @@ def phase_parity(state):
     torch.backends.cudnn.allow_tf32 = False
     run = RunConfig(param_dtype="float32", compute_dtype="float32",
                     attn_impl="kernel")
-    B, S = 2, 256
     gate = 1e-3
-    for arch, n_layers, cut in (
-            ("deepseek-7b", 2, "depth 30 -> 2; width and vocabulary full"),
-            ("rwkv6-7b", 2, "depth 32 -> 2; width and vocabulary full"),
-            ("zamba2-7b", 6, "depth 81 -> 6: one group of 6 Mamba2 blocks and "
-                             "one shared attention block; width and "
-                             "vocabulary full")):
-        cfg = replace(get_arch(arch), n_layers=n_layers)
+    dsv3 = get_arch("deepseek-v3-671b")
+    for arch, cfg, (B, S), cut in (
+            ("deepseek-7b", replace(get_arch("deepseek-7b"), n_layers=2),
+             (2, 256), "depth 30 -> 2; width and vocabulary full"),
+            ("rwkv6-7b", replace(get_arch("rwkv6-7b"), n_layers=2),
+             (2, 256), "depth 32 -> 2; width and vocabulary full"),
+            ("zamba2-7b", replace(get_arch("zamba2-7b"), n_layers=6),
+             (2, 256), "depth 81 -> 6: one group of 6 Mamba2 blocks and "
+                       "one shared attention block; width and vocabulary full"),
+            ("olmoe-1b-7b", replace(get_arch("olmoe-1b-7b"), n_layers=2),
+             (2, 256), "depth 16 -> 2; width, 64 experts top-8 and "
+                       "vocabulary full"),
+            ("deepseek-v3-671b", replace(
+                dsv3, n_layers=2, mtp_depth=0,
+                moe=replace(dsv3.moe, n_experts=16, first_dense_layers=1)),
+             (2, 128), "depth 61 -> 2 (1 dense, 1 MoE layer), routed experts "
+                       "256 -> 16 (top-8 and the shared expert kept), no MTP "
+                       "block: the float32 model of 1 dense + 1 MoE layer + "
+                       "MTP at full width is over 100 GB; width, MLA ranks, "
+                       "heads and vocabulary full")):
         cpu = Model(cfg, run, device="cpu")
         if arch == "deepseek-7b":
             tree = numpy_weights(cpu, state["seed"])
@@ -734,7 +816,8 @@ def phase_parity(state):
         decode_errs = []
         if cfg.family != "dense":
             # the decode path (wkv6 at S=1 with the state in place; Mamba2's
-            # carried window and state) against the card's own forward, at
+            # carried window and state; MLA's absorbed latent cache and the
+            # MoE dispatch at 2 tokens) against the card's own forward, at
             # the reference's gate (tests/test_models.py)
             caches = gpu.init_caches(B, S)
             for t in range(8):
@@ -797,15 +880,63 @@ def leaves(tree):
     return [tree]
 
 
+def continue_prefill(model, tokens, caches, last, n, call):
+    """Greedy decode steps that continue a prefill of `tokens`, each against
+    the forward over the grown sequence: (max abs errors, argmax agreement,
+    ms of each step). `call(step)` runs a step -> ((logits, caches), ms)."""
+    errs, agree, step_ms = [], [], []
+    seq = tokens.to(model.device)
+    nxt = last.argmax(-1, keepdim=True)
+    for _ in range(n):
+        seq = torch.cat([seq, nxt], dim=1)
+        (lg_d, caches), ms = call(
+            lambda: model.decode_step({"tokens": nxt}, caches))
+        step_ms.append(ms)
+        ref = model.forward({"tokens": seq})[:, -1].float()
+        got = lg_d[:, 0].float()
+        require(bool(torch.isfinite(got).all()),
+                f"{model.cfg.name} decode: logits not finite")
+        errs.append(float((got - ref).abs().max()))
+        agree.append(float((got.argmax(-1) == ref.argmax(-1)).float().mean()))
+        nxt = ref.argmax(-1, keepdim=True)
+    return errs, agree, step_ms
+
+
+@torch.no_grad()
+def rescaled_expert_drift(model, cfg, tokens, max_len, n=4):
+    """The bfloat16 decode-vs-forward continuation with the MoE layers'
+    w_gate and w_up scaled by sqrt(n_experts / d_model), from the
+    reference's fan-in (the expert count) to d_model's; the weights are put
+    back as they were after."""
+    moe = model.params["layers"]["moe"]
+    kept = {name: moe[name].clone() for name in ("w_gate", "w_up")}
+    for name in kept:
+        moe[name].mul_(math.sqrt(cfg.moe.n_experts / cfg.d_model))
+    lg, caches = model.prefill({"tokens": tokens}, max_len)
+    errs, agree, _ = continue_prefill(model, tokens, caches, lg[:, 0].float(),
+                                      n, timed_call)
+    for name, value in kept.items():
+        moe[name].copy_(value)
+    return {"expert_fan_in_d_decode_vs_forward_max_abs_err": errs,
+            "expert_fan_in_d_decode_argmax_agreement": agree}
+
+
 def prefill_path(state, arch):
-    """One model at full width and depth, bfloat16: forward, prefill and
-    decode_step through the kernels, held against each other, with the
-    kernels' launches counted and asserted."""
+    """One model at full width and depth (deepseek-v3-671b: depth cut to
+    CUT_LAYERS), bfloat16: forward, prefill and decode_step through the
+    kernels, held against each other, with the kernels' launches counted
+    and asserted."""
+    from dataclasses import replace
     from repro_torch.configs import RunConfig, get_arch
-    from repro_torch.models.model import Model, build_model
+    from repro_torch.models.model import build_model
 
     cfg = get_arch(arch)
     require(cfg.n_layers == N_LAYERS[arch], f"{arch} depth changed")
+    cut = "none"
+    if arch in CUT_LAYERS:
+        cfg = replace(cfg, n_layers=CUT_LAYERS[arch])
+        cut = (f"depth {N_LAYERS[arch]} -> {cfg.n_layers} (the MTP block's "
+               f"weights kept); width, heads, experts and vocabulary full")
     run = RunConfig(param_dtype="bfloat16", compute_dtype="bfloat16",
                     attn_impl="kernel")
     B, S, max_len, n_decode = 4, 2048, 2304, 8
@@ -846,25 +977,22 @@ def prefill_path(state, arch):
     # 4 x vocabulary logits.
     gate = 0.25
     decode_errs, decode_ms, agree = [], [], []
-    if cfg.family == "dense":
-        require(caches["k"].shape == (cfg.n_layers, B, max_len, cfg.n_kv_heads,
-                                      cfg.d_head), f"cache shape {caches['k'].shape}")
-        # decode continues the prefill: each step against forward over the
-        # grown sequence
-        seq = tokens.to(model.device)
-        nxt = last_f.argmax(-1, keepdim=True)
-        for _ in range(n_decode):
-            seq = torch.cat([seq, nxt], dim=1)
-            (lg_d, caches), ms = counted(
-                lambda: model.decode_step({"tokens": nxt}, caches), per_step)
-            decode_ms.append(ms)
-            ref = model.forward({"tokens": seq})[:, -1].float()
-            got = lg_d[:, 0].float()
-            require(bool(torch.isfinite(got).all()), f"{arch} decode: logits not finite")
-            decode_errs.append(float((got - ref).abs().max()))
-            agree.append(float((got.argmax(-1) == ref.argmax(-1)).float().mean()))
-            nxt = ref.argmax(-1, keepdim=True)
-        del seq
+    if cfg.family in ("dense", "moe"):
+        if cfg.family == "dense":
+            first = caches["k"]
+            want_shape = (cfg.n_layers, B, max_len, cfg.n_kv_heads, cfg.d_head)
+        else:
+            n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+            if cfg.attention_kind == "mla":
+                first = caches["moe"]["ckv"]
+                want_shape = (n_moe, B, max_len, cfg.mla.kv_lora_rank)
+            else:
+                first = caches["moe"]["k"]
+                want_shape = (n_moe, B, max_len, cfg.n_kv_heads, cfg.d_head)
+        require(first.shape == want_shape, f"cache shape {first.shape}")
+        decode_errs, agree, decode_ms = continue_prefill(
+            model, tokens, caches, last_f, n_decode,
+            lambda step: counted(step, per_step))
     else:
         # prefill hands back zeroed caches, as the reference's does for this
         # family; decode feeds the prompt token by token from them (the
@@ -881,19 +1009,42 @@ def prefill_path(state, arch):
             decode_errs.append(float((got - ref).abs().max()))
             agree.append(float((got.argmax(-1) == ref.argmax(-1)).float().mean()))
     peak = torch.cuda.max_memory_allocated()
+    profiled = {}
+    if cfg.family == "moe":
+        # where a MoE model's forward and decode step spend the device's
+        # time (torch.profiler, as benchmarks/torch_serve_profile.py does)
+        sys.path.insert(0, str(ROOT / "benchmarks"))
+        from torch_serve_profile import traced
+        profiled = {
+            "forward_profile": traced(
+                lambda: model.forward({"tokens": tokens}), calls=1, top=10),
+            "decode_step_profile": traced(
+                lambda: model.decode_step({"tokens": tokens[:, :1]}, caches),
+                calls=4, top=10)}
+    rescaled = {}
+    if arch == "olmoe-1b-7b":
+        # recorded, not gated: the same continuation with w_gate and w_up
+        # scaled from the reference's fan-in (the expert count) to d_model's
+        # (deepseek-v3-671b's copy of two expert leaves would not fit)
+        rescaled = rescaled_expert_drift(model, cfg, tokens, max_len)
     f32_errs, f32_gate = [], 1e-2
-    if cfg.family != "dense":
+    if arch in DECODE_IN_F32:
         # Random-init RWKV6 amplifies rounding through its depth: at full
         # depth its two bfloat16 paths (matrix products of other shapes, the
         # recurrence stepped or chunked) part by more than a bfloat16 logit
         # rounds, and are no check of each other (recorded above, not
-        # gated). The check is the same weights with float32 arithmetic:
+        # gated); so do olmoe-1b-7b's, through routing flips (DECODE_IN_F32).
+        # The check is the same weights with float32 arithmetic:
         # decode against forward over the first tokens. The gate leaves room
         # for float32 rounding through 32 layers; a wrong path moves logits
-        # by whole units.
-        exact = Model(cfg, run.with_(compute_dtype="float32"))
-        exact.load_state_dict(model.state_dict())
+        # by whole units. The weights are drawn again from the seed (the
+        # same bfloat16 values) once the first model is freed: two copies of
+        # deepseek-v3-671b's 53 GB do not fit.
         del model, caches
+        gc.collect()
+        torch.cuda.empty_cache()
+        exact = build_model(cfg, run.with_(compute_dtype="float32"),
+                            seed=state["seed"])
         want = exact.forward({"tokens": tokens[:, :n_decode]}).float()
         caches = exact.init_caches(B, n_decode)
         for t in range(n_decode):
@@ -902,7 +1053,7 @@ def prefill_path(state, arch):
         model = exact
         del want
     emit({"phase": "prefill", "arch": cfg.name, "family": cfg.family,
-          "n_layers": cfg.n_layers, "cut": "none", "dtype": "bfloat16",
+          "n_layers": cfg.n_layers, "cut": cut, "dtype": "bfloat16",
           "batch": B, "seq": S, "max_len": max_len,
           "params": sum(p.numel() for p in model.tree.parameters()),
           "init_ms": init_ms, "forward_ms": forward_ms, "prefill_ms": prefill_ms,
@@ -913,14 +1064,15 @@ def prefill_path(state, arch):
           "gate": gate,
           "gate_reason": "bfloat16 rounding at other places on the two paths, "
                          "through every layer; largest of 4 x vocabulary logits"
-                         + ("" if cfg.family == "dense" else
+                         + ("" if arch not in DECODE_IN_F32 else
                             "; gates prefill only: decode is gated in float32"),
           "f32_decode_vs_forward_max_abs_err": f32_errs, "f32_gate": f32_gate,
+          **rescaled, **profiled,
           "launches_per_call": per_call, "launches_per_decode_step": per_step,
           "launches": dict(launches),
           "peak_memory_bytes": peak, "gpu": state["smi"]})
     require(prefill_err < gate, f"{arch} prefill vs forward {prefill_err} (gate {gate})")
-    if cfg.family == "dense":
+    if arch not in DECODE_IN_F32:
         require(max(decode_errs) < gate,
                 f"{arch} decode vs forward {max(decode_errs)} (gate {gate})")
     else:
@@ -928,24 +1080,28 @@ def prefill_path(state, arch):
                 f"{arch} float32 decode vs forward {f32_errs} (gate {f32_gate})")
     for name in launches:
         state["launches"][name] += launches[name]
+    state["prefill_launches"][arch] = dict(launches)
     del model, caches, last_f, head_f
     gc.collect()
     torch.cuda.empty_cache()
 
 
 def phase_prefill(state):
-    for arch in ("deepseek-7b", "rwkv6-7b", "zamba2-7b"):
+    for arch in SERVE_ARCHS:
         prefill_path(state, arch)
 
 
 def serve_path(state, arch, slots, n_req, prompt_len, max_new, max_len):
-    """The command line a user would call, one model at full size."""
+    """The command line a user would call, one model at full size (or at
+    full width cut to CUT_LAYERS, through --layers)."""
     from repro_torch.configs import get_arch
     from repro_torch.launch import serve
     argv = ["--arch", arch, "--dtype", "bfloat16",
             "--slots", str(slots), "--requests", str(n_req),
             "--prompt-len", str(prompt_len), "--max-new", str(max_new),
             "--max-len", str(max_len), "--seed", str(state["seed"])]
+    if arch in CUT_LAYERS:
+        argv += ["--layers", str(CUT_LAYERS[arch])]
     per_step = PER_STEP[arch]
     reset_counts()
     text = io.StringIO()
@@ -994,6 +1150,10 @@ def phase_serve(state):
                max_len=64)
     serve_path(state, "zamba2-7b", slots=8, n_req=8, prompt_len=16, max_new=16,
                max_len=64)
+    serve_path(state, "olmoe-1b-7b", slots=8, n_req=16, prompt_len=16,
+               max_new=16, max_len=64)
+    serve_path(state, "deepseek-v3-671b", slots=8, n_req=8, prompt_len=16,
+               max_new=16, max_len=64)
 
 
 def train_parity(state):
@@ -1192,8 +1352,11 @@ def phase_train(state):
 
 def kernels_line(state):
     """One entry for each kernel at the prefill shape of the model that
-    carries it (the rmsnorm backward: at the train phase's, in its float32);
-    `launches` counts the prefill, serve and train phases."""
+    carries it (the rmsnorm backward: at the train phase's, in its float32;
+    flash attention at D = 128 and, as its own entry, at deepseek-v3's
+    D = 192); `launches` counts the prefill, serve and train phases (the
+    D = 192 instance: deepseek-v3-671b's prefill phase, which alone runs
+    it)."""
     meta = {
         "rmsnorm": {"source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
                     "replaces": "src/repro/kernels/rmsnorm.py:28",
@@ -1215,13 +1378,21 @@ def kernels_line(state):
                 "replaces": "src/repro/kernels/ssd.py:53",
                 "shape": [4, 2048, 112, 64, 64]},
     }
+    # deepseek-v3-671b's MLA core: the D = 192 instance of the same source,
+    # launched by that model's prefill phase only
+    meta["flash_attention_d192"] = {
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:86",
+        "shape": [4, 2048, 2048, 128, 128, 192],
+        "timed_as": "flash_attention",
+        "launches": state["prefill_launches"]["deepseek-v3-671b"]["flash_attention"]}
     out = []
     bf16 = str(torch.bfloat16)
     for name, m in meta.items():
-        t = next(x for x in state["timed"] if x["name"] == name
+        t = next(x for x in state["timed"] if x["name"] == m.get("timed_as", name)
                  and x["shape"] == m["shape"]
                  and x["dtype"] == m.get("dtype", bf16))
-        launches = state["launches"][name]
+        launches = m.get("launches", state["launches"].get(name))
         require(launches > 0, f"{name}: the main path never launched it")
         out.append({"name": name, "route": "cuda", "source": m["source"],
                     "replaces": m["replaces"], "launches": launches,
@@ -1252,7 +1423,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
 
     state = {"seed": args.seed, "verbose": args.verbose, "smi": smi_line(),
-             "launches": dict.fromkeys(KERNELS, 0)}
+             "launches": dict.fromkeys(KERNELS, 0), "prefill_launches": {}}
     run = {"env": phase_env, "kernels": phase_kernels, "parity": phase_parity,
            "prefill": phase_prefill, "serve": phase_serve, "train": phase_train}
     t0 = time.monotonic()

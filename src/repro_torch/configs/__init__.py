@@ -1,8 +1,9 @@
 """Architecture registry of the PyTorch package: --arch <id> resolves here.
 
-Holds the dense decoder-only architectures, rwkv6-7b (``family == "ssm"``)
-and zamba2-7b (``family == "hybrid"``). The other families of the JAX package
-(MoE, VLM, audio) join as their models are ported.
+Holds the dense decoder-only architectures, rwkv6-7b (``family == "ssm"``),
+zamba2-7b (``family == "hybrid"``), olmoe-1b-7b and deepseek-v3-671b
+(``family == "moe"``). The other families of the JAX package (VLM, audio)
+join as their models are ported.
 """
 from repro_torch.configs.base import (ModelConfig, MoEConfig, MLAConfig,
                                       SSMConfig, HybridConfig, EncDecConfig,
@@ -18,9 +19,11 @@ from repro_torch.configs.nemotron_4_15b import CONFIG as _nemotron
 from repro_torch.configs.chatglm3_6b import CONFIG as _chatglm
 from repro_torch.configs.rwkv6_7b import CONFIG as _rwkv
 from repro_torch.configs.zamba2_7b import CONFIG as _zamba2
+from repro_torch.configs.olmoe_1b_7b import CONFIG as _olmoe
+from repro_torch.configs.deepseek_v3_671b import CONFIG as _dsv3
 
 ARCHS = {c.name: c for c in (_mistral, _ds7b, _nemotron, _chatglm, _rwkv,
-                             _zamba2)}
+                             _zamba2, _olmoe, _dsv3)}
 
 
 def get_arch(name: str) -> ModelConfig:

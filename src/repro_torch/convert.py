@@ -18,15 +18,39 @@ from repro_torch.models.model import Model
 from repro_torch.optim import OptState
 from repro_torch.train.step import TrainState
 
-# the cache leaves of each ported family, as paths joined by dots
+
+def _moe_leaves(mla: bool, dense_layers: bool):
+    names = ("ckv", "kr", "pos") if mla else ("k", "v", "pos")
+    groups = ("dense", "moe") if dense_layers else ("moe",)
+    return tuple(f"{g}.{n}" for g in groups for n in names)
+
+
+# the cache leaves of each ported family (the moe family: GQA or MLA, with
+# or without leading dense layers), as paths joined by dots
 CACHE_LEAVES = {
     "dense": ("k", "v", "pos"),
     "ssm": ("wkv", "tm_last", "cm_last"),
     "hybrid": ("mamba.h", "mamba.conv", "attn.k", "attn.v", "attn.pos"),
+    "moe": _moe_leaves(False, False),
+    "moe+dense": _moe_leaves(False, True),
+    "moe-mla": _moe_leaves(True, False),
+    "moe-mla+dense": _moe_leaves(True, True),
 }
 # (leaf, its batch axis, leaf whose axis 2 is the cache length or None)
 _CACHE_SIZES = {"dense": ("k", 1, "k"), "ssm": ("wkv", 1, None),
-                "hybrid": ("mamba.h", 2, "attn.k")}
+                "hybrid": ("mamba.h", 2, "attn.k"),
+                "moe": ("moe.pos", 1, "moe.k"),
+                "moe+dense": ("moe.pos", 1, "moe.k"),
+                "moe-mla": ("moe.pos", 1, "moe.ckv"),
+                "moe-mla+dense": ("moe.pos", 1, "moe.ckv")}
+
+
+def _cache_kind(model: Model) -> str:
+    cfg = model.cfg
+    if cfg.family != "moe":
+        return cfg.family
+    return ("moe-mla" if cfg.attention_kind == "mla" else "moe") + \
+        ("+dense" if cfg.moe.first_dense_layers else "")
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -113,9 +137,9 @@ def params_to_numpy(model: Model) -> Dict:
 def _wanted_caches(flat: Mapping, model: Model) -> Dict[str, torch.Tensor]:
     """The model's caches on the meta device, flattened, at the batch size
     and cache length that `flat` carries."""
-    family = model.cfg.family
-    _check_leaves("caches", flat, CACHE_LEAVES[family])
-    leaf, b_axis, len_leaf = _CACHE_SIZES[family]
+    kind = _cache_kind(model)
+    _check_leaves("caches", flat, CACHE_LEAVES[kind])
+    leaf, b_axis, len_leaf = _CACHE_SIZES[kind]
     shape = np.shape(flat[leaf])
     if len(shape) <= b_axis:
         raise ValueError(f"caches: {leaf} has shape {shape}, no batch axis")
@@ -136,7 +160,10 @@ def caches_from_numpy(tree: Mapping, model: Model) -> Dict:
       dense:  {"k", "v": (L,B,Smax,K,D), "pos": (L,B)};
       ssm:    {"wkv": (L,B,H,K,K) float32, "tm_last", "cm_last": (L,B,d)};
       hybrid: {"mamba": {"h": (G,P,B,H,N,Pd) float32, "conv": (G,P,B,W-1,C)},
-               "attn": {"k", "v": (G,B,Smax,K,D), "pos": (G,B)}}."""
+               "attn": {"k", "v": (G,B,Smax,K,D), "pos": (G,B)}};
+      moe:    {"moe": the dense tree, or for MLA {"ckv": (L,B,Smax,r),
+               "kr": (L,B,Smax,rope), "pos": (L,B)}, and "dense" of the same
+               kind when the config has leading dense layers}."""
     flat = flatten_tree(tree)
     want = _wanted_caches(flat, model)
     for path, w in want.items():

@@ -19,10 +19,12 @@
 //  * bfloat16 (flash_attention_wgmma_kernel), for Hopper: one block owns 128
 //    query rows of one (batch, head). A producer warp loads Q once and then
 //    K and V tiles of 128 keys by TMA into a ring of stages in shared
-//    memory, each stage guarded by a full and an empty mbarrier; it gives
+//    memory (64 keys at D = 192, where a stage of 128 would leave room for
+//    one), each stage guarded by a full and an empty mbarrier; it gives
 //    its registers to the two consumer warpgroups (setmaxnreg), which own
 //    64 query rows each. A consumer computes S = Q K^T with wgmma
-//    m64n128k16 (Q and K from shared memory, both K-major), the online
+//    m64n128k16 (m64n64k16 at D = 192; Q and K from shared memory, both
+//    K-major), the online
 //    softmax in exp2 with scale * log2(e) folded into one multiply (masks
 //    only on tiles that cross the diagonal or the end of Skv), and
 //    O += P V with wgmma whose A operand is the score accumulator itself,
@@ -36,14 +38,16 @@
 //    products of a tile at D = 128. Tiles are 64 columns (128 bytes)
 //    wide with the 128-byte swizzle; TMA fills columns past D and rows past
 //    S with zeros, so every D of HEAD_DIMS takes the same code: D = 112 runs
-//    7 k-steps of Q K^T and P V with N = 112.
+//    7 k-steps of Q K^T and P V with N = 112, D = 192 (MLA's 128 + 64) 12
+//    k-steps and P V with N = 192 over three 64-column boxes of V.
 //  * float32 (flash_attention_fma_kernel): plain float32 FMAs from
 //    shared-memory tiles, exact to rounding (the parity checks at 2e-5 rule
 //    out TF32). 256 threads; each keeps a 4x4 piece of the scores and a
 //    4 x (D/16) piece of the output in registers, rows are reduced with
 //    shuffles across the 16 threads that share them, and K and V take turns
 //    in one buffer so that two blocks fit on a multiprocessor, 64 query rows
-//    a block, keys in tiles of 64.
+//    a block, keys in tiles of 64. At D = 192 the tiles take 117,760 bytes,
+//    so one block fits an SM, and its register cap is lifted to match.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -55,6 +59,14 @@ constexpr int kThreads = 256;  // 16 x 16
 constexpr int kBKP = kBK + 4;  // padded row of the probability tile
 constexpr float kNegInf = -1e30f;
 constexpr float kMasked = -0.5e30f;  // anything below this counts as masked
+
+// Blocks of the float32 kernel an SM holds: its tiles of 64 query and 64 key
+// rows of D + 4 floats, and the 64 x 68 probabilities, take 82,944 bytes at
+// D = 128 and 117,760 at D = 192, over half of an SM's 233,472.
+template <int D>
+constexpr int fma_blocks() {
+  return D > 128 ? 1 : 2;
+}
 
 // Copy `rows` rows of D elements, starting at sequence position row0, into a
 // float32 tile with padded rows. Positions at or past `limit` become zeros.
@@ -103,7 +115,7 @@ __device__ __forceinline__ float row_sum(float v) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, fma_blocks<D>())
     flash_attention_fma_kernel(const float* __restrict__ q,
                                const float* __restrict__ k,
                                const float* __restrict__ v,
@@ -288,36 +300,45 @@ __global__ void __launch_bounds__(kThreads, 2)
 namespace wg {
 
 constexpr int kBQ = 128;           // query rows per block, 64 per consumer warpgroup
-constexpr int kBK = 128;           // keys per stage
 constexpr int kThreads = 384;      // consumer warpgroups 0 and 1, producer 2
 constexpr int kRowBytes = 128;     // a swizzled row: 64 bf16
 constexpr int kBox = 64;           // columns of one TMA box
-constexpr int kHalfBytes = kBQ * kRowBytes;  // 128 rows of one 64-column box
-constexpr int kSmemLimit = 232448;           // a block's shared memory on an H100
+constexpr int kQBox = kBQ * kRowBytes;  // 128 rows of one 64-column box of Q
+constexpr int kSmemLimit = 232448;      // a block's shared memory on an H100
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 constexpr int kTurn = 1;           // named barriers kTurn, kTurn + 1
 
+// Up to D = 128 a stage holds K and V tiles of 128 keys, and three stages
+// fit beside Q. At D = 192 a tile of 128 keys is three boxes of 16 KB, which
+// leaves room for one stage: there a stage holds 64 keys (two tiles of 24 KB)
+// and three stages fit beside Q's 48 KB.
 template <int D>
 struct Cfg {
+  static constexpr int kBK = D > 128 ? 64 : 128;        // keys per stage
   static constexpr int kBoxes = (D + kBox - 1) / kBox;  // 64-column boxes per row
   static constexpr int kKSteps = (D + 15) / 16;         // k-steps of Q K^T
-  static constexpr int kTileBytes = kBoxes * kHalfBytes;  // Q, K or V tile
+  static constexpr int kKVBox = kBK * kRowBytes;        // one box of K or V
+  static constexpr int kQBytes = kBoxes * kQBox;        // the Q tile
+  static constexpr int kKVBytes = kBoxes * kKVBox;      // a K or a V tile
   static constexpr int kBarBytes = 8 * 16;  // room for 1 + 3 x kStages barriers
   static constexpr int kFit =
-      (kSmemLimit - 1024 - kBarBytes - kTileBytes) / (2 * kTileBytes);
+      (kSmemLimit - 1024 - kBarBytes - kQBytes) / (2 * kKVBytes);
   static constexpr int kStages = kFit < 4 ? kFit : 4;
   // + 1024: the dynamic shared memory is aligned up to 1024 bytes in the kernel
   static constexpr int kSmem =
-      1024 + kTileBytes * (1 + 2 * kStages) + kBarBytes;
+      1024 + kQBytes + 2 * kKVBytes * kStages + kBarBytes;
   static_assert(kStages >= 2, "a ring needs two stages");
   static_assert(1 + 3 * kStages <= kBarBytes / 8, "barrier room");
+  static_assert(kKVBox % 1024 == 0, "tiles start on the swizzle's 1024 bytes");
 };
 
-// Key tiles a block walks; the producer and both consumers use this count.
+// Key tiles of BK keys a block walks; the producer and both consumers use
+// this count.
+template <int BK>
 __device__ __forceinline__ int kv_tiles(int q0, int Skv, int causal) {
   const int end = causal ? min(Skv, q0 + kBQ) : Skv;
-  return (end + kBK - 1) / kBK;
+  return (end + BK - 1) / BK;
 }
 
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -341,17 +362,19 @@ struct Rows {
   float scale_log2;  // scale * log2(e)
 };
 
-// Online softmax of one tile of scores, in place: the masks (only where the
-// tile crosses the diagonal or the end of Skv), row maxima over the 4 lanes
-// of a quad, p = exp2(s * scale_log2 - m) in sc, the running maximum m and
-// denominator share l updated, and in corr the factor for what the output
-// accumulated before this tile.
-__device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
+// Online softmax of one tile of BK scores a row, in place: the masks (only
+// where the tile crosses the diagonal or the end of Skv), row maxima over the
+// 4 lanes of a quad, p = exp2(s * scale_log2 - m) in sc, the running maximum
+// m and denominator share l updated, and in corr the factor for what the
+// output accumulated before this tile.
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], float (&m)[2],
                                              float (&l)[2], float (&corr)[2],
                                              int k0, const Rows& r) {
-  if (k0 + kBK > r.Skv || (r.causal && k0 + kBK - 1 > r.first)) {
+  constexpr int kCols = BK / 8;  // column pairs of the accumulator layout
+  if (k0 + BK > r.Skv || (r.causal && k0 + BK - 1 > r.first)) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < kCols; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kpos = k0 + 8 * j + 2 * r.quad + (e & 1);
@@ -369,7 +392,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
     pm[1][c] = fmaxf(sc[4 * c + 2], sc[4 * c + 3]);
   }
 #pragma unroll
-  for (int j = 4; j < 16; ++j) {
+  for (int j = 4; j < kCols; ++j) {
     pm[0][j % 4] = fmaxf(pm[0][j % 4], fmaxf(sc[4 * j], sc[4 * j + 1]));
     pm[1][j % 4] = fmaxf(pm[1][j % 4], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
   }
@@ -386,7 +409,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
   }
   float ps[2][4] = {};
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < kCols; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       sc[4 * j + e] =
@@ -402,10 +425,11 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
 
 // P rounded to bf16 and packed: the accumulator layout of keys 16 kk ..
 // 16 kk + 15 is the A-register layout of k-step kk of P V.
-__device__ __forceinline__ void pack_p(const float (&sc)[64],
-                                       uint32_t (&pa)[kBK / 16][4]) {
+template <int BK>
+__device__ __forceinline__ void pack_p(const float (&sc)[BK / 2],
+                                       uint32_t (&pa)[BK / 16][4]) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < BK / 8; ++j) {
     pa[j / 2][2 * (j % 2)] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
     pa[j / 2][2 * (j % 2) + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
   }
@@ -433,13 +457,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   using C = Cfg<D>;
   using namespace hopper;
   constexpr int S = C::kStages;
+  constexpr int BK = C::kBK;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
   unsigned char* Qs = base;
-  unsigned char* KV = base + C::kTileBytes;  // stage s: K, then V
+  unsigned char* KV = base + C::kQBytes;  // stage s: K, then V
   uint64_t* bars =
-      reinterpret_cast<uint64_t*>(KV + 2 * S * C::kTileBytes);
+      reinterpret_cast<uint64_t*>(KV + 2 * S * C::kKVBytes);
   uint64_t* q_full = bars;
   uint64_t* k_full = bars + 1;
   uint64_t* v_full = bars + 1 + S;
@@ -450,7 +475,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int b = blockIdx.z;
   const int hk = h / (H / Hkv);
   const int q0 = q_tile * kBQ;
-  const int n_tiles = kv_tiles(q0, Skv, causal);
+  const int n_tiles = kv_tiles<BK>(q0, Skv, causal);
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -471,28 +496,28 @@ __global__ void __launch_bounds__(kThreads, 1)
       tma_prefetch_map(&qmap);
       tma_prefetch_map(&kmap);
       tma_prefetch_map(&vmap);
-      mbar_arrive_expect_tx(q_full, C::kTileBytes);
+      mbar_arrive_expect_tx(q_full, C::kQBytes);
 #pragma unroll
       for (int x = 0; x < C::kBoxes; ++x) {
-        tma_load_4d(Qs + x * kHalfBytes, &qmap, q_full, x * kBox, q0, h, b);
+        tma_load_4d(Qs + x * kQBox, &qmap, q_full, x * kBox, q0, h, b);
       }
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % S;
         // the consumers' release of this stage's previous fill
         if (t >= S) mbar_wait(&empty[s], ((t / S) - 1) & 1);
-        unsigned char* Ks = KV + 2 * s * C::kTileBytes;
-        unsigned char* Vs = Ks + C::kTileBytes;
-        mbar_arrive_expect_tx(&k_full[s], C::kTileBytes);
+        unsigned char* Ks = KV + 2 * s * C::kKVBytes;
+        unsigned char* Vs = Ks + C::kKVBytes;
+        mbar_arrive_expect_tx(&k_full[s], C::kKVBytes);
 #pragma unroll
         for (int x = 0; x < C::kBoxes; ++x) {
-          tma_load_4d(Ks + x * kHalfBytes, &kmap, &k_full[s], x * kBox,
-                      t * kBK, hk, b);
+          tma_load_4d(Ks + x * C::kKVBox, &kmap, &k_full[s], x * kBox,
+                      t * BK, hk, b);
         }
-        mbar_arrive_expect_tx(&v_full[s], C::kTileBytes);
+        mbar_arrive_expect_tx(&v_full[s], C::kKVBytes);
 #pragma unroll
         for (int x = 0; x < C::kBoxes; ++x) {
-          tma_load_4d(Vs + x * kHalfBytes, &vmap, &v_full[s], x * kBox,
-                      t * kBK, hk, b);
+          tma_load_4d(Vs + x * C::kKVBox, &vmap, &v_full[s], x * kBox,
+                      t * BK, hk, b);
         }
       }
     }
@@ -512,27 +537,29 @@ __global__ void __launch_bounds__(kThreads, 1)
     rows.causal = causal;
     rows.scale_log2 = scale * 1.4426950408889634f;
     const uint32_t q_addr = smem_addr(Qs) + wgi * 64 * kRowBytes;
-    auto k_addr = [&](int s) { return smem_addr(KV + 2 * s * C::kTileBytes); };
+    auto k_addr = [&](int s) { return smem_addr(KV + 2 * s * C::kKVBytes); };
 
-    // S = Q K^T for the K tile of stage s: 64 rows x 128 keys
-    auto issue_qk = [&](float (&sc)[64], int s) {
+    // S = Q K^T for the K tile of stage s: 64 rows x BK keys
+    auto issue_qk = [&](float (&sc)[BK / 2], int s) {
 #pragma unroll
       for (int ks = 0; ks < C::kKSteps; ++ks) {
-        const uint32_t off = (ks / 4) * kHalfBytes + (ks % 4) * 32;
-        wgmma_m64n128k16_ss(sc, make_desc_sw128(q_addr + off, 16, 1024),
-                            make_desc_sw128(k_addr(s) + off, 16, 1024), ks > 0);
+        const uint32_t step = (ks % 4) * 32;
+        wgmma_m64k16_ss<BK>(
+            sc, make_desc_sw128(q_addr + (ks / 4) * kQBox + step, 16, 1024),
+            make_desc_sw128(k_addr(s) + (ks / 4) * C::kKVBox + step, 16, 1024),
+            ks > 0);
       }
       wgmma_commit();
     };
     // O += P V for the V tile of stage s: V is MN-major, 16 keys a k-step
-    auto issue_pv = [&](float (&o)[D / 2], const uint32_t (&pa)[kBK / 16][4],
+    auto issue_pv = [&](float (&o)[D / 2], const uint32_t (&pa)[BK / 16][4],
                         int s) {
-      const uint32_t v_addr = k_addr(s) + C::kTileBytes;
+      const uint32_t v_addr = k_addr(s) + C::kKVBytes;
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
+      for (int kk = 0; kk < BK / 16; ++kk) {
         wgmma_m64k16_rs<D>(
             o, pa[kk],
-            make_desc_sw128(v_addr + kk * 16 * kRowBytes, kHalfBytes, 1024));
+            make_desc_sw128(v_addr + kk * 16 * kRowBytes, C::kKVBox, 1024));
       }
       wgmma_commit();
     };
@@ -542,8 +569,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
     float m[2] = {-INFINITY, -INFINITY};  // running maximum, scaled by scale_log2
     float l[2] = {0.0f, 0.0f};            // this thread's share of the denominator
-    float sc[64];
-    uint32_t pa[kBK / 16][4];
+    float sc[BK / 2];
+    uint32_t pa[BK / 16][4];
     float corr[2];
 
     // The two warpgroups take turns to issue their products (named barriers
@@ -559,8 +586,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     named_bar_arrive(other_turn, 256);
     wgmma_wait<0>();
     fence_operands(sc);
-    softmax_tile(sc, m, l, corr, 0, rows);
-    pack_p(sc, pa);
+    softmax_tile<BK>(sc, m, l, corr, 0, rows);
+    pack_p<BK>(sc, pa);
     for (int t = 1; t < n_tiles; ++t) {
       const int s = t % S;
       const int prev = (t - 1) % S;
@@ -573,13 +600,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       named_bar_arrive(other_turn, 256);
       wgmma_wait<1>();  // S of tile t; P V of tile t - 1 runs on
       fence_operands(sc);
-      softmax_tile(sc, m, l, corr, t * kBK, rows);
+      softmax_tile<BK>(sc, m, l, corr, t * BK, rows);
       wgmma_wait<0>();
       fence_operands(o);
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[prev]);  // this warp is done with it
       rescale(o, corr);
-      pack_p(sc, pa);
+      pack_p<BK>(sc, pa);
     }
     const int last = (n_tiles - 1) % S;
     mbar_wait(&v_full[last], ((n_tiles - 1) / S) & 1);
@@ -668,12 +695,13 @@ EncodeTiled encode_tiled() {
 }
 
 // A 4-D map (D, S, heads, B) of a bf16 tensor with the given strides in
-// elements, read in boxes of 64 columns x 128 rows with the 128-byte swizzle.
+// elements, read in boxes of 64 columns x `rows` rows with the 128-byte
+// swizzle.
 // TMA wants every stride a multiple of 16 bytes, also that of a dimension of
 // size 1 (the wrapper replaces such strides). Columns past D and rows past S
 // read as zeros.
 int make_map(CUtensorMap* map, const void* ptr, int D, int S, int heads,
-             int B, long long sb, long long ss, long long sh) {
+             int B, long long sb, long long ss, long long sh, int rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return kNoTensorMap;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
@@ -683,7 +711,7 @@ int make_map(CUtensorMap* map, const void* ptr, int D, int S, int heads,
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
                                  static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {wg::kBox, wg::kBQ, 1, 1};
+  const cuuint32_t box[4] = {wg::kBox, static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
@@ -695,14 +723,17 @@ int make_map(CUtensorMap* map, const void* ptr, int D, int S, int heads,
 
 template <int D>
 int launch_wgmma(const AttnArgs& a) {
-  static_assert(wg::kBQ == wg::kBK, "one box shape for Q, K and V");
+  constexpr int kv_rows = wg::Cfg<D>::kBK;
   CUtensorMap qmap, kmap, vmap;
-  int code = make_map(&qmap, a.q, D, a.Sq, a.H, a.B, a.q_sb, a.q_ss, a.q_sh);
+  int code = make_map(&qmap, a.q, D, a.Sq, a.H, a.B, a.q_sb, a.q_ss, a.q_sh,
+                      wg::kBQ);
   if (code == 0) {
-    code = make_map(&kmap, a.k, D, a.Skv, a.Hkv, a.B, a.k_sb, a.k_ss, a.k_sh);
+    code = make_map(&kmap, a.k, D, a.Skv, a.Hkv, a.B, a.k_sb, a.k_ss, a.k_sh,
+                    kv_rows);
   }
   if (code == 0) {
-    code = make_map(&vmap, a.v, D, a.Skv, a.Hkv, a.B, a.v_sb, a.v_ss, a.v_sh);
+    code = make_map(&vmap, a.v, D, a.Skv, a.Hkv, a.B, a.v_sb, a.v_ss, a.v_sh,
+                    kv_rows);
   }
   if (code != 0) return code;
   constexpr int smem = wg::Cfg<D>::kSmem;
@@ -756,6 +787,8 @@ extern "C" int rt_flash_attention(
       return launch_head_dim<112>(a, dtype);
     case 128:
       return launch_head_dim<128>(a, dtype);
+    case 192:  // deepseek-v3's MLA: q and k of 128 + 64, v padded to 192
+      return launch_head_dim<192>(a, dtype);
     default:
       return kBadShape;
   }

@@ -12,7 +12,8 @@ query head reads its kv head directly, so k and v are never repeated.
 
 Because operations are the bound, bfloat16 inputs go to a Hopper kernel:
 K and V arrive by TMA into a ring of shared-memory stages fed by a producer
-warp, and two consumer warpgroups run both products as ``wgmma`` with
+warp (tiles of 128 keys, 64 at D = 192 so that a ring of three stages
+fits), and two consumer warpgroups run both products as ``wgmma`` with
 float32 accumulation (the probabilities are rounded to bfloat16 before the
 second product, as the plain ``full_attention`` rounds them). Float32 inputs
 keep plain float32 FMAs, exact to rounding.
@@ -26,7 +27,8 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 112, 128)
+# 112: zamba2-7b; 192: deepseek-v3's MLA (q and k 128 + 64, v padded to it)
+HEAD_DIMS = (16, 32, 64, 112, 128, 192)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

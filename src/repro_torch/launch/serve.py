@@ -5,12 +5,20 @@
 
 Runs the full-size architecture on the GPU unless told otherwise:
 ``--reduced`` takes the tiny same-family config, ``--device cpu`` the plain
-PyTorch path on the CPU.
+PyTorch path on the CPU. ``--layers N`` cuts the depth and keeps the width,
+so that one card holds a model that does not fit it whole:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-v3-671b --layers 4
+
+(3 dense layers and 1 MoE layer of deepseek-v3-671b, 53 GB in bfloat16 with
+its MTP block). The reference's launcher has no such flag.
 """
 from __future__ import annotations
 
 import argparse
 import time
+from dataclasses import replace
 
 import numpy as np
 
@@ -39,6 +47,9 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="default: the GPU, an error where there is none")
     ap.add_argument("--prompt-len", type=int, default=3)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to N layers at full width (not in "
+                         "the reference's launcher)")
     args = ap.parse_args(argv)
 
     if args.int8_kv:
@@ -51,6 +62,12 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers is not None:
+        first = cfg.moe.first_dense_layers if cfg.moe else 0
+        if args.layers <= first:
+            raise ValueError(f"--layers {args.layers}: {cfg.name} has "
+                             f"{first} dense layers before its MoE layers")
+        cfg = replace(cfg, n_layers=args.layers)
     run = RunConfig(attn_impl="kernel", remat="nothing",
                     param_dtype=args.dtype, compute_dtype=args.dtype)
     model = build_model(cfg, run, device=device, seed=args.seed)
@@ -68,7 +85,8 @@ def main(argv=None):
     lats = [r.finished_at - r.submitted_at for r in done]
     print(f"[serve] {cfg.name}: {len(done)} requests, {toks} tokens in "
           f"{wall:.2f}s ({toks / wall:.1f} tok/s, slots={args.slots}, "
-          f"ticks={engine.ticks}, kv={run.compute_dtype}, device={device})")
+          f"ticks={engine.ticks}, layers={cfg.n_layers}, "
+          f"kv={run.compute_dtype}, device={device})")
     print(f"[serve] latency p50={np.percentile(lats, 50):.2f}s "
           f"p95={np.percentile(lats, 95):.2f}s")
     return done

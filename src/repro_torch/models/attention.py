@@ -1,4 +1,5 @@
-"""Grouped-query attention: full sequence, prefill and one-token decode.
+"""Grouped-query attention and DeepSeek-V3's multi-head latent attention
+(MLA): full sequence, prefill and one-token decode.
 
 ``RunConfig.attn_impl`` selects the softmax core for a full sequence:
 ``"kernel"`` is the hand-written flash-attention kernel
@@ -8,6 +9,11 @@ yet), ``"full"`` the plain version that builds the score matrix,
 blocks of queries and keys in plain tensor code (what its trainer takes
 above 512 tokens). ``gqa_prefill`` honours the setting exactly as ``gqa``
 does. Decode attention over the cache is plain tensor code.
+
+MLA runs its softmax core through the same switch, at the combined q/k dim
+(128 + 64 = 192 at deepseek-v3) with v zero-padded to it and the output
+sliced after, as the reference does; its decode attends over the
+compressed cache {ckv, kr} with wuk and wuv absorbed (plain tensor code).
 """
 from __future__ import annotations
 
@@ -332,4 +338,150 @@ def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, *,
     K, Dh = cfg.n_kv_heads, cfg.d_head
     return {"k": torch.zeros((batch, max_len, K, Dh), dtype=dtype, device=device),
             "v": torch.zeros((batch, max_len, K, Dh), dtype=dtype, device=device),
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(generator, cfg: ModelConfig, *, dtype=torch.float32,
+             device=None):
+    """MLA weights. Nothing sizes from cfg.d_head (deepseek-v3's default,
+    d_model / n_heads = 56, is no head size of MLA's)."""
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "wdq": L.dense_init(generator, (d, m.q_lora_rank), **kw),
+        "q_norm": torch.ones((m.q_lora_rank,), **kw),
+        "wuq": L.dense_init(generator, (m.q_lora_rank, H, qk),
+                            in_axis_size=m.q_lora_rank, **kw),
+        "wdkv": L.dense_init(generator, (d, m.kv_lora_rank), **kw),
+        "kv_norm": torch.ones((m.kv_lora_rank,), **kw),
+        "wuk": L.dense_init(generator, (m.kv_lora_rank, H, m.qk_nope_dim),
+                            in_axis_size=m.kv_lora_rank, **kw),
+        "wuv": L.dense_init(generator, (m.kv_lora_rank, H, m.v_head_dim),
+                            in_axis_size=m.kv_lora_rank, **kw),
+        "wkr": L.dense_init(generator, (d, m.qk_rope_dim), **kw),
+        "wo": L.dense_init(generator, (H, m.v_head_dim, d),
+                           in_axis_size=H * m.v_head_dim, **kw),
+    }
+
+
+def _heads(a, w):
+    """a (..., r) times w (r, H, k) -> (..., H, k)."""
+    r, H, k = w.shape
+    return (a @ w.to(a.dtype).reshape(r, H * k)).view(*a.shape[:-1], H, k)
+
+
+def _mla_q(params, x, cfg: ModelConfig, positions):
+    m = cfg.mla
+    cq = L.rms_norm(x @ params["wdq"].to(x.dtype), params["q_norm"],
+                    cfg.norm_eps)
+    q = _heads(cq, params["wuq"])
+    q_rope = L.rotary(q[..., m.qk_nope_dim:], positions, "full", 1.0,
+                      cfg.rope_theta)
+    return q[..., :m.qk_nope_dim], q_rope
+
+
+def _mla_latent(params, x, cfg: ModelConfig, positions):
+    ckv = L.rms_norm(x @ params["wdkv"].to(x.dtype), params["kv_norm"],
+                     cfg.norm_eps)
+    kr = x @ params["wkr"].to(x.dtype)
+    kr = L.rotary(kr[:, :, None, :], positions, "full", 1.0,
+                  cfg.rope_theta)[:, :, 0, :]
+    return ckv, kr
+
+
+def _mla_core(params, x, cfg: ModelConfig, run: RunConfig, positions,
+              causal: bool):
+    """(out, (ckv, kr)): the latents are computed once, for the attention
+    and for a prefill's cache."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    q_nope, q_rope = _mla_q(params, x, cfg, positions)
+    ckv, kr = _mla_latent(params, x, cfg, positions)
+    k_nope = _heads(ckv, params["wuk"])
+    v = _heads(ckv, params["wuv"])
+    # q, k and the padded v are contiguous: the kernel reads them by strides
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, kr[:, :, None, :].expand(B, S, H, m.qk_rope_dim)],
+                  dim=-1)
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    if m.v_head_dim != qk:
+        v = F.pad(v, (0, qk - m.v_head_dim))
+    o = _sequence_attention(q, k, v, run, causal=causal)[..., :m.v_head_dim]
+    return _project_out(params, o, x), (ckv, kr)
+
+
+def mla(params, x, cfg: ModelConfig, run: RunConfig, *, positions=None,
+        causal: bool = True):
+    """MLA over a full sequence: the latents expanded to per-head k and v,
+    the softmax core (`run.attn_impl`) over the combined (nope | rope) q/k
+    dim, v zero-padded to it and the output sliced back."""
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    return _mla_core(params, x, cfg, run, positions, causal)[0]
+
+
+def mla_prefill(params, x, cfg: ModelConfig, run: RunConfig, *,
+                positions=None, pad_to: int = 0):
+    """MLA forward that also emits the latent cache (ckv (B, max(S, pad_to),
+    r), kr (B, max(S, pad_to), rope)). The reference computes the latents a
+    second time for the cache; here the attention's are kept."""
+    S = x.shape[1]
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    out, (ckv, kr) = _mla_core(params, x, cfg, run, positions, True)
+    if pad_to > S:
+        ckv = F.pad(ckv, (0, 0, 0, pad_to - S))
+        kr = F.pad(kr, (0, 0, 0, pad_to - S))
+    return out, (ckv, kr)
+
+
+def mla_decode(params, x, cache, cfg: ModelConfig, run: RunConfig):
+    """Absorbed-latent decode over the cache {"ckv": (B, Smax, r), "kr":
+    (B, Smax, rope), "pos": (B,) int32}: only the compressed latent and the
+    rotated key are cached, wuk is absorbed into q and wuv into the output.
+    ckv and kr are updated IN PLACE (a row whose pos is at or past Smax
+    writes nothing, as in ``gqa_decode``) and handed back beside a new
+    pos."""
+    m = cfg.mla
+    B = x.shape[0]
+    pos = cache["pos"]
+    positions = pos[:, None]
+    q_nope, q_rope = _mla_q(params, x, cfg, positions)       # (B, 1, H, *)
+    ckv_t, kr_t = _mla_latent(params, x, cfg, positions)     # (B, 1, *)
+    ckv, kr = cache["ckv"], cache["kr"]
+    smax = ckv.shape[1]
+    rows = torch.arange(B, device=x.device)
+    in_range = pos < smax
+    idx = torch.where(in_range, pos, torch.zeros_like(pos)).long()
+    keep = in_range[:, None]
+    ckv[rows, idx] = torch.where(keep, ckv_t[:, 0].to(ckv.dtype), ckv[rows, idx])
+    kr[rows, idx] = torch.where(keep, kr_t[:, 0].to(kr.dtype), kr[rows, idx])
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope,
+                         params["wuk"].to(x.dtype))
+    s = torch.einsum("bshr,btr->bhst", q_lat, ckv.to(x.dtype)) + \
+        torch.einsum("bshk,btk->bhst", q_rope, kr.to(x.dtype))
+    s = s.float() / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    visible = torch.arange(smax, device=x.device)[None, None, None, :] <= \
+        pos[:, None, None, None]
+    s = s.masked_fill(~visible, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhst,btr->bshr", p, ckv.to(x.dtype))
+    o = torch.einsum("bshr,rhk->bshk", ctx, params["wuv"].to(x.dtype))
+    return _project_out(params, o, x), {"ckv": ckv, "kr": kr, "pos": pos + 1}
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, *,
+                   device=None):
+    m = cfg.mla
+    kw = dict(dtype=dtype, device=device)
+    return {"ckv": torch.zeros((batch, max_len, m.kv_lora_rank), **kw),
+            "kr": torch.zeros((batch, max_len, m.qk_rope_dim), **kw),
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}

@@ -1,5 +1,7 @@
-"""Model API of the port: the dense decoder-only family, RWKV6
-(``family == "ssm"``) and the Zamba2 hybrid (``family == "hybrid"``).
+"""Model API of the port: the dense decoder-only family, the mixture of
+experts (``family == "moe"``: olmoe with GQA, deepseek-v3 with MLA, leading
+dense layers and an MTP block), RWKV6 (``family == "ssm"``) and the Zamba2
+hybrid (``family == "hybrid"``).
 
   model = build_model(cfg, run, device="cpu", seed=0)   # device=None: the GPU
   logits = model.forward({"tokens": tokens})
@@ -13,11 +15,14 @@ joined by dots, and their layouts are the same, layers stacked on a leading
 axis: ``embed``, ``head``, ``norm``, ``layers.ln1``, ``layers.attn.wq``,
 ``layers.mlp.gate`` ...; for RWKV6 ``layers.wr``, ``layers.cm_k`` ...; for the
 hybrid ``layers.mamba.in_proj`` (groups, then layers in a group) and
-``layers.shared.attn.wq`` (weight sets). The serving entry points run under
+``layers.shared.attn.wq`` (weight sets); for the MoE family
+``dense_layers.attn.wdq``, ``layers.moe.w_gate`` (experts leading),
+``mtp.block.moe.router`` ... The serving entry points run under
 ``torch.no_grad()``; ``loss_fn`` runs the same forward with grad mode on, and
 ``trainable()`` makes the parameters require gradients (they are created
 frozen). On the card only the dense family trains: the wkv6 and ssd kernels
-have no backward yet and refuse an input that needs one.
+have no backward yet and refuse an input that needs one. The MoE family
+serves; its loss (the router's aux term and the MTP loss) is not ported yet.
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ from repro_torch.models import rwkv as R
 from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 class ParamTree(nn.Module):
@@ -92,6 +97,18 @@ class Model(nn.Module):
             p["head"] = table.clone()
         if cfg.family == "dense":
             p["layers"] = T.init_stack(cfg, cfg.n_layers, "dense", **kw)
+        elif cfg.family == "moe":
+            n_dense = cfg.moe.first_dense_layers
+            if n_dense:
+                p["dense_layers"] = T.init_stack(
+                    cfg, n_dense, "dense", d_ff=cfg.moe.d_ff_dense, **kw)
+            p["layers"] = T.init_stack(cfg, cfg.n_layers - n_dense, "moe",
+                                       **kw)
+            if cfg.mtp_depth:
+                p["mtp"] = {
+                    "proj": torch.empty((2 * cfg.d_model, cfg.d_model), **kw),
+                    "block": T.init_block(None, cfg, "moe", **kw),
+                    "norm": torch.empty((cfg.d_model,), **kw)}
         elif cfg.family == "ssm":
             p["layers"] = T.init_rwkv_stack(cfg, **kw)
         else:
@@ -119,6 +136,17 @@ class Model(nn.Module):
                 in_axis_size=cfg.d_model, **kw))
         if cfg.family == "dense":
             T.fill_stack(params["layers"], generator, cfg, "dense")
+        elif cfg.family == "moe":
+            if "dense_layers" in params:
+                T.fill_stack(params["dense_layers"], generator, cfg, "dense",
+                             d_ff=cfg.moe.d_ff_dense)
+            T.fill_stack(params["layers"], generator, cfg, "moe")
+            if "mtp" in params:
+                mtp = params["mtp"]
+                mtp["proj"].copy_(L.dense_init(
+                    generator, (2 * cfg.d_model, cfg.d_model), **kw))
+                T.fill_block(mtp["block"], generator, cfg, "moe")
+                mtp["norm"].fill_(1.0)
         elif cfg.family == "ssm":
             T.fill_rwkv_stack(params["layers"], generator, cfg)
         else:
@@ -168,27 +196,44 @@ class Model(nn.Module):
         batch["labels"] (labels < 0 masked) -> (loss, {"ce", "aux"}), on the
         forward with grad mode as the caller has it. `params` defaults to
         the model's own. The reference's loss for the dense, ssm and hybrid
-        families: aux is 0 for each."""
-        lg = self._forward(self.params if params is None else params, batch)
+        families: aux is 0 for each. The MoE family's loss adds the router's
+        aux term and the MTP loss, which are not ported yet: it raises."""
+        if self.cfg.family == "moe":
+            raise NotImplementedError(
+                "the MoE family's loss (router aux term, MTP loss) is not "
+                "ported yet (ROADMAP.md, Queue 1)")
+        lg, aux = self._forward_with_aux(
+            self.params if params is None else params, batch)
         labels = torch.as_tensor(batch["labels"]).to(self.device).long()
         loss = L.cross_entropy(lg, labels)
-        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         return loss, {"ce": loss.detach(), "aux": aux}
 
     def _forward(self, params, batch) -> torch.Tensor:
+        return self._forward_with_aux(params, batch)[0]
+
+    def _forward_with_aux(self, params, batch):
+        """(logits, aux): aux is the MoE stack's summed load-balance loss,
+        0 for the other families."""
         tokens = self._tokens(batch)
         x = self._embed(params, tokens)
         positions = torch.arange(tokens.shape[1], device=self.device)
         cfg, run = self.cfg, self.run
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         if cfg.family == "dense":
-            x = T.stack(params["layers"], x, cfg, run, kind="dense",
-                        positions=positions)
+            x, aux = T.stack(params["layers"], x, cfg, run, kind="dense",
+                             positions=positions)
+        elif cfg.family == "moe":
+            if "dense_layers" in params:
+                x, _ = T.stack(params["dense_layers"], x, cfg, run,
+                               kind="dense", positions=positions)
+            x, aux = T.stack(params["layers"], x, cfg, run, kind="moe",
+                             positions=positions)
         elif cfg.family == "ssm":
             x = T.rwkv_stack(params["layers"], x, cfg, run)
         else:
             x = T.hybrid_stack(params["layers"], x, cfg, run,
                                positions=positions)
-        return self._logits(params, x)
+        return self._logits(params, x), aux
 
     # --------------------------------------------------------------- serving
     def init_caches(self, batch: int, max_len: int, *, device=None) -> Dict:
@@ -196,6 +241,9 @@ class Model(nn.Module):
         leading layer axis:
           dense:  k, v (L, B, max_len, K, D) in the compute dtype, pos (L, B)
                   int32;
+          moe:    {"dense": the first dense layers', "moe": the moe
+                  layers'}, each the dense tree or, for MLA, ckv
+                  (L, B, max_len, r), kr (L, B, max_len, rope), pos (L, B);
           ssm:    wkv (L, B, H, K, K) float32, tm_last, cm_last (L, B, d);
           hybrid: {"mamba": {h (G, period, B, H, N, P) float32,
                    conv (G, period, B, W-1, conv_dim)}, "attn": the dense
@@ -207,11 +255,19 @@ class Model(nn.Module):
             return T.tree_map(lambda a: a.new_zeros((n, *a.shape)), one)
 
         def kv():
+            if cfg.attention_kind == "mla":
+                return A.init_mla_cache(cfg, batch, max_len, dt, device=device)
             return A.init_gqa_cache(cfg, batch, max_len, dt, device=device,
                                     quant=self.run.kv_cache_dtype == "int8")
 
         if cfg.family == "dense":
             return stacked(cfg.n_layers, kv())
+        if cfg.family == "moe":
+            n_dense = cfg.moe.first_dense_layers
+            out = {"moe": stacked(cfg.n_layers - n_dense, kv())}
+            if n_dense:
+                out["dense"] = stacked(n_dense, kv())
+            return out
         if cfg.family == "ssm":
             return stacked(cfg.n_layers,
                            R.init_rwkv_cache(cfg, batch, dt, device=device))
@@ -224,23 +280,37 @@ class Model(nn.Module):
     @torch.no_grad()
     def prefill(self, batch, max_len: int):
         """Process a prompt, return (last-position logits (B, 1, V), caches).
-        The dense family fills its KV caches. For ssm and hybrid the
+        The dense and moe families fill their caches (moe: the KV or MLA
+        latent caches of its dense and moe layers). For ssm and hybrid the
         reference runs `forward` and returns ZEROED caches (its serving
         engine teacher-forces prompts through `decode_step`), and so does
         the port."""
         tokens = self._tokens(batch)
         B, S = tokens.shape
-        if self.cfg.family != "dense":
+        cfg, run = self.cfg, self.run
+        if cfg.family not in ("dense", "moe"):
             return self.forward(batch)[:, -1:], self.init_caches(B, max_len)
         params = self.params
         x = self._embed(params, tokens)
         positions = torch.arange(S, device=self.device)
-        x, (k, v) = T.stack_prefill(params["layers"], x, self.cfg, self.run,
-                                    kind="dense", positions=positions,
-                                    pad_to=max_len)
-        pos = torch.full((self.cfg.n_layers, B), S, dtype=torch.int32,
-                         device=self.device)
-        return self._logits(params, x[:, -1:]), {"k": k, "v": v, "pos": pos}
+        names = ("ckv", "kr") if cfg.attention_kind == "mla" else ("k", "v")
+
+        def run_stack(layers, kind):
+            nonlocal x
+            x, kv = T.stack_prefill(layers, x, cfg, run, kind=kind,
+                                    positions=positions, pad_to=max_len)
+            pos = torch.full((kv[0].shape[0], B), S, dtype=torch.int32,
+                             device=self.device)
+            return {**dict(zip(names, kv)), "pos": pos}
+
+        if cfg.family == "dense":
+            caches = run_stack(params["layers"], "dense")
+        else:
+            caches = {}
+            if "dense_layers" in params:
+                caches["dense"] = run_stack(params["dense_layers"], "dense")
+            caches["moe"] = run_stack(params["layers"], "moe")
+        return self._logits(params, x[:, -1:]), caches
 
     @torch.no_grad()
     def decode_step(self, batch, caches):
@@ -253,6 +323,12 @@ class Model(nn.Module):
         if cfg.family == "dense":
             x, caches = T.stack_decode(params["layers"], x, caches, cfg, run,
                                        kind="dense")
+        elif cfg.family == "moe":
+            if "dense_layers" in params:
+                x, _ = T.stack_decode(params["dense_layers"], x,
+                                      caches["dense"], cfg, run, kind="dense")
+            x, _ = T.stack_decode(params["layers"], x, caches["moe"], cfg, run,
+                                  kind="moe")
         elif cfg.family == "ssm":
             x, caches = T.rwkv_stack_decode(params["layers"], x, caches, cfg,
                                             run)
@@ -269,10 +345,20 @@ def build_model(cfg: ModelConfig, run: Optional[RunConfig] = None, *,
     return Model(cfg, run, device=device).init(seed=seed)
 
 
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
 def analytic_param_count(cfg: ModelConfig, active_only: bool = False) -> int:
     """Exact parameter count from the shapes of the model's parameters on
-    the meta device: nothing is allocated. `active_only` counts the
-    parameters one token uses, which for every ported family is all of
-    them."""
+    the meta device: nothing is allocated. `active_only` counts top_k /
+    n_experts of the routed experts' leaves, as the reference does (the MTP
+    block's included); for the other families it is every parameter."""
     model = Model(cfg, RunConfig(), device="meta")
-    return sum(p.numel() for p in model.tree.parameters())
+    total = expert = 0
+    for name, p in model.tree.named_parameters():
+        total += p.numel()
+        if name.rsplit(".", 1)[-1] in EXPERT_LEAVES:
+            expert += p.numel()
+    if not active_only or cfg.moe is None:
+        return total
+    return int(total - expert + expert * (cfg.moe.top_k / cfg.moe.n_experts))

@@ -1,6 +1,6 @@
-"""Layer stacks over parameters stacked on a leading layer axis: the dense
-decoder, the RWKV6 stack and the Zamba2 hybrid (Mamba2 groups with shared
-attention blocks).
+"""Layer stacks over parameters stacked on a leading layer axis: the
+decoder (dense MLP or mixture of experts; GQA or MLA attention), the RWKV6
+stack and the Zamba2 hybrid (Mamba2 groups with shared attention blocks).
 
 Every leaf of a stack's parameters has the layer count as its first
 dimension (the hybrid's Mamba2 leaves: groups, then layers in a group); the
@@ -25,12 +25,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import rwkv as R
 from repro_torch.models import ssm as SSM
 
 
-def _require_dense(kind: str) -> None:
-    if kind != "dense":
+def _require_ported(kind: str) -> None:
+    if kind not in ("dense", "moe"):
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet (ROADMAP.md, Queue 1)")
 
@@ -53,63 +54,85 @@ def n_stacked(params) -> int:
 
 
 # ---------------------------------------------------------------------------
-# standard decoder block (dense MLP)
+# standard decoder block (dense MLP or MoE; GQA or MLA)
 # ---------------------------------------------------------------------------
+
+
+def _mla(cfg: ModelConfig) -> bool:
+    if cfg.attention_kind not in ("gqa", "mla"):
+        raise NotImplementedError(
+            f"attention kind {cfg.attention_kind!r} is not ported yet "
+            f"(ROADMAP.md, Queue 1)")
+    return cfg.attention_kind == "mla"
+
+
+def _init_attn(generator, cfg: ModelConfig, **kw):
+    return (A.init_mla if _mla(cfg) else A.init_gqa)(generator, cfg, **kw)
 
 
 def init_block(generator, cfg: ModelConfig, kind: str = "dense",
                d_ff: Optional[int] = None, *, dtype=torch.float32,
                device=None):
-    _require_dense(kind)
-    if cfg.attention_kind != "gqa":
-        raise NotImplementedError(
-            f"attention kind {cfg.attention_kind!r} is not ported yet "
-            f"(ROADMAP.md, Queue 1)")
+    """kind: dense | moe."""
+    _require_ported(kind)
     kw = dict(dtype=dtype, device=device)
-    return {
-        "ln1": torch.ones((cfg.d_model,), **kw),
-        "ln2": torch.ones((cfg.d_model,), **kw),
-        "attn": A.init_gqa(generator, cfg, **kw),
-        "mlp": L.init_mlp(generator, cfg.d_model, d_ff or cfg.d_ff,
-                          cfg.mlp_kind, **kw),
-    }
+    p = {"ln1": torch.ones((cfg.d_model,), **kw),
+         "ln2": torch.ones((cfg.d_model,), **kw),
+         "attn": _init_attn(generator, cfg, **kw)}
+    if kind == "moe":
+        p["moe"] = M.init_moe(generator, cfg, **kw)
+    else:
+        p["mlp"] = L.init_mlp(generator, cfg.d_model, d_ff or cfg.d_ff,
+                              cfg.mlp_kind, **kw)
+    return p
+
+
+def _ffn(params, h, cfg: ModelConfig, kind: str):
+    """(the block's MLP or MoE of h, the MoE's aux loss or 0)."""
+    if kind == "moe":
+        return M.moe(params["moe"], h, cfg)
+    return L.mlp(params["mlp"], h, cfg.mlp_kind), \
+        torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def block(params, x, cfg: ModelConfig, run: RunConfig, *, kind="dense",
           positions=None, causal=True):
-    """One transformer block."""
-    _require_dense(kind)
+    """One transformer block. Returns (x, aux_loss)."""
+    _require_ported(kind)
     h = L.rms_norm(x, params["ln1"], cfg.norm_eps)
-    h = A.gqa(params["attn"], h, cfg, run, positions=positions, causal=causal)
+    attn = A.mla if _mla(cfg) else A.gqa
+    h = attn(params["attn"], h, cfg, run, positions=positions, causal=causal)
     x = x + h
-    h = L.rms_norm(x, params["ln2"], cfg.norm_eps)
-    h = L.mlp(params["mlp"], h, cfg.mlp_kind)
-    return x + h
+    h, aux = _ffn(params, L.rms_norm(x, params["ln2"], cfg.norm_eps), cfg,
+                  kind)
+    return x + h, aux
 
 
 def block_decode(params, x, cache, cfg: ModelConfig, run: RunConfig, *,
                  kind="dense"):
     """One-token decode through a block; returns (x, new_cache). The
-    cache's k and v are updated in place (see attention.gqa_decode)."""
-    _require_dense(kind)
+    cache's tensors are updated in place (see attention.gqa_decode and
+    attention.mla_decode)."""
+    _require_ported(kind)
     h = L.rms_norm(x, params["ln1"], cfg.norm_eps)
-    h, new_cache = A.gqa_decode(params["attn"], h, cache, cfg, run)
+    decode = A.mla_decode if _mla(cfg) else A.gqa_decode
+    h, new_cache = decode(params["attn"], h, cache, cfg, run)
     x = x + h
-    h = L.rms_norm(x, params["ln2"], cfg.norm_eps)
-    h = L.mlp(params["mlp"], h, cfg.mlp_kind)
+    h, _ = _ffn(params, L.rms_norm(x, params["ln2"], cfg.norm_eps), cfg, kind)
     return x + h, new_cache
 
 
 def block_prefill(params, x, cfg: ModelConfig, run: RunConfig, *,
                   kind="dense", positions=None, pad_to=0):
-    """Block forward that also returns KV-cache contents."""
-    _require_dense(kind)
+    """Block forward that also returns the cache contents: (k, v) for GQA,
+    (ckv, kr) for MLA."""
+    _require_ported(kind)
     h = L.rms_norm(x, params["ln1"], cfg.norm_eps)
-    h, kv = A.gqa_prefill(params["attn"], h, cfg, run, positions=positions,
-                          pad_to=pad_to)
+    prefill = A.mla_prefill if _mla(cfg) else A.gqa_prefill
+    h, kv = prefill(params["attn"], h, cfg, run, positions=positions,
+                    pad_to=pad_to)
     x = x + h
-    h = L.rms_norm(x, params["ln2"], cfg.norm_eps)
-    h = L.mlp(params["mlp"], h, cfg.mlp_kind)
+    h, _ = _ffn(params, L.rms_norm(x, params["ln2"], cfg.norm_eps), cfg, kind)
     return x + h, kv
 
 
@@ -148,10 +171,27 @@ def init_stacked(n: int, make, *, dtype=torch.float32, device=None):
         shapes)
 
 
+def fill_block(dst, generator, cfg: ModelConfig, kind="dense", d_ff=None):
+    """Draw one block's parameters into `dst`, IN PLACE. A moe block's
+    experts are drawn into their slices one at a time (``moe.fill_moe``)."""
+    leaf = first_leaf(dst)
+    kw = dict(dtype=leaf.dtype, device=leaf.device)
+    if kind != "moe":
+        copy_tree(dst, init_block(generator, cfg, kind, d_ff, **kw))
+        return dst
+    dst["ln1"].fill_(1.0)
+    dst["ln2"].fill_(1.0)
+    copy_tree(dst["attn"], _init_attn(generator, cfg, **kw))
+    M.fill_moe(dst["moe"], generator, cfg)
+    return dst
+
+
 def fill_stack(stacked, generator, cfg: ModelConfig, kind="dense", d_ff=None):
-    """Draw the blocks of a stack, IN PLACE."""
-    return fill_stacked(stacked, lambda **kw: init_block(generator, cfg, kind,
-                                                         d_ff, **kw))
+    """Draw the blocks of a stack, IN PLACE, layer by layer."""
+    for i in range(n_stacked(stacked)):
+        fill_block(tree_map(lambda a: a[i], stacked), generator, cfg, kind,
+                   d_ff)
+    return stacked
 
 
 def init_stack(cfg: ModelConfig, n: int, kind="dense", d_ff=None, *,
@@ -195,21 +235,23 @@ def unstack(params, n: int):
 
 
 def stack(params, x, cfg, run, *, kind="dense", positions=None, causal=True):
-    """Run x through a stacked block group. With grad mode on the layers
-    come out of one unbind a leaf and each runs under `run.remat` (when
-    `run.scan_layers`, as the reference remats its scan body only); the
-    serving path (no grad) reads each layer's slices as before."""
+    """Run x through a stacked block group -> (x, summed aux). With grad
+    mode on the layers come out of one unbind a leaf and each runs under
+    `run.remat` (when `run.scan_layers`, as the reference remats its scan
+    body only); the serving path (no grad) reads each layer's slices."""
     n = n_stacked(params)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if not torch.is_grad_enabled():
-        for i in range(n):
-            x = block(tree_map(lambda a: a[i], params), x, cfg, run,
-                      kind=kind, positions=positions, causal=causal)
-        return x
-    layer = remat_wrap(block, run.remat if run.scan_layers else "nothing")
-    for lp in unstack(params, n):
-        x = layer(lp, x, cfg, run, kind=kind, positions=positions,
-                  causal=causal)
-    return x
+        layers = (tree_map(lambda a: a[i], params) for i in range(n))
+        layer = block
+    else:
+        layers = unstack(params, n)
+        layer = remat_wrap(block, run.remat if run.scan_layers else "nothing")
+    for lp in layers:
+        x, aux = layer(lp, x, cfg, run, kind=kind, positions=positions,
+                       causal=causal)
+        aux_total = aux_total + aux
+    return x, aux_total
 
 
 def stack_decode(params, x, caches, cfg, run, *, kind="dense"):
@@ -227,20 +269,21 @@ def stack_decode(params, x, caches, cfg, run, *, kind="dense"):
 
 def stack_prefill(params, x, cfg, run, *, kind="dense", positions=None,
                   pad_to=0):
-    """Run a stacked group, collecting per-layer KV caches stacked on a
-    leading axis: (x, (k, v)) with k, v (L, B, max(S, pad_to), K, D)."""
+    """Run a stacked group, collecting per-layer caches stacked on a
+    leading axis: (x, (k, v)) with k, v (L, B, max(S, pad_to), K, D), or
+    for MLA (x, (ckv, kr)) with ckv (L, B, max(S, pad_to), r) and kr
+    (L, B, max(S, pad_to), rope)."""
     n = n_stacked(params)
-    ks = vs = None
+    out = None
     for i in range(n):
-        x, (k, v) = block_prefill(tree_map(lambda a: a[i], params), x, cfg,
-                                  run, kind=kind, positions=positions,
-                                  pad_to=pad_to)
-        if ks is None:
-            ks = torch.empty((n, *k.shape), dtype=k.dtype, device=k.device)
-            vs = torch.empty_like(ks)
-        ks[i].copy_(k)
-        vs[i].copy_(v)
-    return x, (ks, vs)
+        x, kv = block_prefill(tree_map(lambda a: a[i], params), x, cfg, run,
+                              kind=kind, positions=positions, pad_to=pad_to)
+        if out is None:
+            out = tuple(torch.empty((n, *t.shape), dtype=t.dtype,
+                                    device=t.device) for t in kv)
+        for dst, t in zip(out, kv):
+            dst[i].copy_(t)
+    return x, out
 
 
 # ---------------------------------------------------------------------------
@@ -342,8 +385,8 @@ def hybrid_stack(params, x, cfg, run, *, positions=None):
             lp = tree_map(lambda a: a[g, i], mamba)
             x = x + SSM.mamba2(lp, L.rms_norm(x, lp["ln"], cfg.norm_eps),
                                cfg, run)
-        x = block(tree_map(lambda a: a[g % n_sets], shared), x, cfg, run,
-                  kind="dense", positions=positions)
+        x, _ = block(tree_map(lambda a: a[g % n_sets], shared), x, cfg, run,
+                     kind="dense", positions=positions)
     return x
 
 

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import ARCHS, RunConfig, get_arch
+from repro_torch.configs import ARCHS, MLAConfig, RunConfig, get_arch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
@@ -18,6 +18,7 @@ from repro_torch.kernels.rmsnorm import (launch_shape, rmsnorm,
 from repro_torch.kernels.ssd import TILE, ssd, ssd_plain
 from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
 from repro_torch.models import Model
+from repro_torch.models import moe as M
 from repro_torch.models.rwkv import wkv_recurrent
 from repro_torch.models.ssm import ssd_recurrent
 from repro_torch.train.step import loss_and_grads
@@ -27,11 +28,14 @@ pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # wkv6 in float32: the chunked recurrence re-associated (tests/test_kernels.py)
 WKV_TOL = {torch.float32: (1e-4, 5e-4), torch.bfloat16: (2e-2, 2e-2)}
-# every width a norm of the port's configurations sees: d_model, and the
-# Mamba2 block's inner width (ssm_norm) of the hybrid family
+# every width a norm of the port's configurations sees: d_model, the
+# Mamba2 block's inner width (ssm_norm) of the hybrid family, and MLA's two
+# latent ranks (q_norm, kv_norm)
 NORM_WIDTHS = sorted({c.d_model for c in ARCHS.values()} |
                      {c.ssm.expand * c.d_model for c in ARCHS.values()
-                      if c.family == "hybrid"})
+                      if c.family == "hybrid"} |
+                     {r for c in ARCHS.values() if c.mla is not None
+                      for r in (c.mla.q_lora_rank, c.mla.kv_lora_rank)})
 
 
 @pytest.fixture
@@ -82,7 +86,13 @@ def laid_out(t, layout):
     (1, 129, 255, 32, 32, 64, "contiguous"),
     (2, 255, 129, 8, 2, 112, "bhsd"), (1, 129, 127, 4, 1, 128, "bhsd"),
     (1, 127, 255, 8, 2, 128, "odd_batch_stride"),
-    (1, 1, 129, 4, 4, 112, "odd_batch_stride")])
+    (1, 1, 129, 4, 4, 112, "odd_batch_stride"),
+    # D = 192 (MLA), key tiles of 64: ragged on both sides of them
+    (1, 200, 130, 8, 8, 192, "contiguous"), (2, 63, 65, 4, 4, 192, "contiguous"),
+    (1, 255, 2049, 8, 8, 192, "contiguous"),
+    (1, 2049, 255, 4, 2, 192, "contiguous"),
+    (2, 1, 2049, 4, 4, 192, "contiguous"), (1, 129, 127, 4, 1, 192, "bhsd"),
+    (1, 127, 255, 8, 2, 192, "odd_batch_stride")])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel(card, B, Sq, Sk, H, Hkv, D, layout, causal,
@@ -105,6 +115,23 @@ def test_flash_attention_kernel_reads_strided_views(card):
     assert not q.is_contiguous()
     assert_close(flash_attention(q, k, v, causal=True),
                  flash_attention_plain(q, k, v, causal=True), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_at_mla_head_dim(card, dtype):
+    """The inputs MLA hands the kernel: q and k of 128 + 64 columns, k's
+    last 64 one rotated key broadcast over the heads, v zero-padded from
+    128 to 192; the padded third of the output is zero."""
+    B, S, H = 2, 300, 16
+    q = randn(card, 5, (B, S, H, 192), dtype)
+    kr = randn(card, 6, (B, S, 1, 64), dtype)
+    k = torch.cat([randn(card, 7, (B, S, H, 128), dtype),
+                   kr.expand(B, S, H, 64)], dim=-1)
+    v = torch.nn.functional.pad(randn(card, 8, (B, S, H, 128), dtype),
+                                (0, 64))
+    got = flash_attention(q, k, v, causal=True)
+    assert_close(got, flash_attention_plain(q, k, v, causal=True), dtype)
+    assert float(got[..., 128:].abs().max()) == 0.0
 
 
 def test_flash_attention_kernel_refuses_other_head_dims(card):
@@ -596,6 +623,68 @@ def test_recurrent_models_kernel_path_matches_plain_path(card, arch):
         steps.append(lg[:, 0])
     ref = gpu.forward({"tokens": toks[:, :8]})
     assert float((torch.stack(steps, 1) - ref).abs().max()) < 5e-4
+
+
+def small_moe(arch):
+    """A reduced MoE config whose attention reaches the kernel: for MLA the
+    full model's head dims (128 + 64, v 128), so that its core runs at the
+    kernel's D = 192 (the reduced config's 16 + 8 has no kernel instance)."""
+    cfg = get_arch(arch).reduced()
+    if cfg.attention_kind == "mla":
+        cfg = get_arch(arch).reduced(mla=MLAConfig(
+            q_lora_rank=32, kv_lora_rank=16, qk_nope_dim=128, qk_rope_dim=64,
+            v_head_dim=128))
+    return cfg
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b"])
+def test_moe_models_kernel_path_matches_plain_path(card, arch):
+    """Reduced olmoe-1b-7b / deepseek-v3-671b, float32: the card's kernels
+    (flash attention at D = 16, or at D = 192 for MLA) against the plain
+    attention on the card and the model on the CPU; prefill, then decode
+    against forward."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = small_moe(arch)
+    run = RunConfig(param_dtype="float32", compute_dtype="float32")
+    gpu = Model(cfg, run).init(seed=0)
+    cpu = Model(cfg, run, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    full = Model(cfg, run.with_(attn_impl="full"))
+    full.load_state_dict(gpu.state_dict())
+    toks = np.random.default_rng(10).integers(0, cfg.vocab_size, size=(2, 40))
+    before = flash_attention.launches
+    got = gpu.forward({"tokens": toks})
+    assert flash_attention.launches == before + cfg.n_layers
+    torch.testing.assert_close(got, full.forward({"tokens": toks}),
+                               atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got.cpu(), cpu.forward({"tokens": toks}),
+                               atol=1e-4, rtol=1e-4)
+    lg, caches = gpu.prefill({"tokens": toks[:, :32]}, 48)
+    torch.testing.assert_close(lg[:, 0], got[:, 31], atol=1e-5, rtol=1e-5)
+    steps = []
+    for t in range(32, 40):
+        step, caches = gpu.decode_step({"tokens": toks[:, t:t + 1]}, caches)
+        steps.append(step[:, 0])
+    assert float((torch.stack(steps, 1) - got[:, 32:]).abs().max()) < 5e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_combine_gives_the_same_bits_twice(card, dtype):
+    """The dispatch and the combine (a gather into (T, k, d) and a sum over
+    k) use no atomics: two runs agree to the bit. In float32 the result is
+    the dropless plain version's within 1e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("deepseek-v3-671b").reduced(n_experts=16)
+    p = M.init_moe(torch.Generator(device=card).manual_seed(0), cfg,
+                   dtype=dtype, device=card)
+    x = randn(card, 11, (4, 256, cfg.d_model), dtype)
+    a, aux_a = M.moe(p, x, cfg)
+    b, aux_b = M.moe(p, x, cfg)
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+    if dtype == torch.float32:
+        want, aux = M.moe_dense(p, x, cfg)
+        torch.testing.assert_close(a, want, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(aux_a, aux, atol=1e-5, rtol=1e-5)
 
 
 def test_model_kernel_path_matches_plain_path(card):

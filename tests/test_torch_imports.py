@@ -35,6 +35,7 @@ def test_sources_are_found():
             "src/repro_torch/kernels/ssd.py",
             "src/repro_torch/models/rwkv.py",
             "src/repro_torch/models/ssm.py",
+            "src/repro_torch/models/moe.py",
             "src/repro_torch/serve/engine.py",
             "src/repro_torch/launch/serve.py", "chip_smoke.py",
             "src/repro_torch/optim/adamw.py",

@@ -239,13 +239,16 @@ def test_rmsnorm_wrapper_still_checks_its_arguments_on_cpu_tensors():
 
 def _norm_widths():
     """Every width a norm of the port's configurations sees, full and
-    reduced: d_model, and the Mamba2 block's inner width (ssm_norm)."""
+    reduced: d_model, the Mamba2 block's inner width (ssm_norm), and MLA's
+    two latent ranks (q_norm, kv_norm)."""
     widths = set()
     for cfg in ARCHS.values():
         for c in (cfg, cfg.reduced()):
             widths.add(c.d_model)
             if c.family == "hybrid":
                 widths.add(c.ssm.expand * c.d_model)
+            if c.mla is not None:
+                widths |= {c.mla.q_lora_rank, c.mla.kv_lora_rank}
     return sorted(widths)
 
 

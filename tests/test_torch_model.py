@@ -37,16 +37,22 @@ def pair(request):
 
 
 def test_registry_holds_the_four_dense_archs():
-    """The four dense archs, rwkv6-7b and zamba2-7b, each the reference's
-    config; a family that is not ported yet is unknown."""
-    assert sorted(ARCHS) == sorted(DENSE_ARCHS + ("rwkv6-7b", "zamba2-7b"))
+    """The four dense archs, rwkv6-7b, zamba2-7b, olmoe-1b-7b and
+    deepseek-v3-671b, each the reference's config; a family that is not
+    ported yet (VLM, audio) is unknown."""
+    assert sorted(ARCHS) == sorted(DENSE_ARCHS + (
+        "rwkv6-7b", "zamba2-7b", "olmoe-1b-7b", "deepseek-v3-671b"))
     for name in ARCHS:
         assert get_arch(name) == get_arch(name)
         assert asdict(get_arch(name)) == asdict(jax_get_arch(name))
     assert get_arch("rwkv6-7b").family == "ssm"
     assert get_arch("zamba2-7b").family == "hybrid"
+    assert get_arch("olmoe-1b-7b").family == "moe"
+    assert get_arch("deepseek-v3-671b").attention_kind == "mla"
     with pytest.raises(KeyError):
-        get_arch("olmoe-1b-7b")
+        get_arch("llama-3.2-vision-90b")
+    with pytest.raises(KeyError):
+        get_arch("whisper-small")
 
 
 def test_forward_matches_jax_with_the_kernel_switch_on(pair):
@@ -196,7 +202,9 @@ def test_other_families_and_int8_kv_wait():
     from dataclasses import replace
     cfg = get_arch("deepseek-7b").reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(replace(cfg, family="moe"), device="cpu")
+        Model(replace(cfg, family="vlm"), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Model(replace(cfg, family="audio"), device="cpu")
     m = Model(cfg, RunConfig(kv_cache_dtype="int8"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         m.init_caches(1, 8)
