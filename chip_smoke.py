@@ -10,19 +10,22 @@ rwkv6-7b, zamba2-7b and olmoe-1b-7b at full width and depth, and of
 deepseek-v3-671b at full width cut to 4 layers (its 3 dense layers, 1 MoE
 layer and the MTP block's weights: 53 GB in bfloat16; random weights from a
 seed), through ``Model.forward``, ``Model.prefill``, ``Model.decode_step``
-and the ``repro_torch.launch.serve`` command line, and the training path of
+and the ``repro_torch.launch.serve`` command line, the training path of
 deepseek-7b at full width (depth cut to 4 layers, so that the float32 state
 fits) through the ``repro_torch.launch.train`` command line, with a resume
-from its checkpoint. Every line of standard output is
+from its checkpoint, and Crispy's planner over the port
+(``repro_torch.core.hbm_planner``): three jobs profiled over their depth
+ladders on the card, extrapolated, and held against one measured step at
+the depth extrapolated to. Every line of standard output is
 one JSON object, except the line before the last, which is the card's name
 and power limit as ``nvidia-smi`` prints them. The last line is
 ``{"ok": true, "device": {...}}``. Any failure (no card, a kernel that does
 not build, launch or agree, a phase out of its gate) ends the run with a
 traceback and a non-zero exit code; no failure is caught.
 
-Phases, in order: env, kernels, parity, prefill, serve, train. ``--phases``
-runs a subset while developing; such a run never prints the last line and
-exits 2.
+Phases, in order: env, kernels, parity, prefill, serve, train, planner.
+``--phases`` runs a subset while developing; such a run never prints the
+last line and exits 2.
 The kernels phase times each kernel on the device (CUDA events) beside its
 plain version and, where there is one, a PyTorch call; for rmsnorm at a
 decode step's rows it also prints the wrapper's cost on the host per call
@@ -53,7 +56,8 @@ import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("env", "kernels", "parity", "prefill", "serve", "train")
+PHASES = ("env", "kernels", "parity", "prefill", "serve", "train",
+          "planner")
 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -110,6 +114,17 @@ PER_STEP = {
 # forwards and as many backwards, and no other kernel
 TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2, 2048, 5
 PARITY_TRAIN = {"layers": 2, "batch": 1, "seq": 128, "block": 64}
+# the planner phase: three jobs, each profiled over the planner's depth
+# ladder on the card (core/hbm_planner.py), extrapolated to the job's
+# n_layers and held against one measured step at that depth. deepseek-7b's
+# float32 training is extrapolated to PLANNER_TRAIN_LAYERS (more than 1.4x
+# the ladder's top of 7, and a step that fits the card with room: at 12
+# layers the allocator reserved 77 of an H100 80GB HBM3's 79.2 GiB; 30
+# layers would need two cards), then selected for at its full 30.
+# PLANNER_GATE is the reference's own bound (tests/test_planner.py).
+PLANNER_B, PLANNER_S = 4, 2048
+PLANNER_TRAIN_B, PLANNER_TRAIN_LAYERS, PLANNER_TRAIN_ANCHOR = 2, 10, 7
+PLANNER_GATE = 0.10
 N_LAYERS = {"deepseek-7b": 30, "rwkv6-7b": 32, "zamba2-7b": 81,
             "olmoe-1b-7b": 16, "deepseek-v3-671b": 61}
 # depth cut at full width, where the model does not fit one card whole:
@@ -1350,13 +1365,122 @@ def phase_train(state):
     train_full_width(state)
 
 
+def planner_job(state, arch, mode, run, kernels, n_layers=None,
+                anchor=None):
+    """One job through HBMPlanner.plan on the card (the ladder profiled,
+    fitted and selected for), then one step at the depth extrapolated to
+    under CUDAMemoryProfiler: the prediction must be confident and within
+    PLANNER_GATE of that step's peak, and each kernel in `kernels` must
+    have launched. Returns (the plan, the measured profile, the planner)."""
+    from dataclasses import replace
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.core.hbm_planner import HBMPlanner
+    from repro_torch.core.profiler import CUDAMemoryProfiler
+    from repro_torch.launch.dryrun import build_step
+
+    cfg = get_arch(arch)
+    if n_layers is not None:
+        cfg = replace(cfg, n_layers=n_layers)
+    B = PLANNER_TRAIN_B if mode == "train" else PLANNER_B
+    shape = ShapeConfig(f"{mode}_{PLANNER_S}", PLANNER_S, B, mode)
+    planner = HBMPlanner()
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    rep = planner.plan(cfg, shape, run=run, anchor_layers=anchor)
+    truth = CUDAMemoryProfiler().profile(build_step(cfg, shape, run),
+                                         cfg.n_layers)
+    counts = read_counts()
+    GiB = 1024 ** 3
+    pred = rep.model.predict(cfg.n_layers)
+    rel = abs(pred - truth.job_mem_bytes) / truth.job_mem_bytes
+    sel = rep.selection
+    line = {"phase": "planner", "arch": arch, "mode": mode, "batch": B,
+            "seq": PLANNER_S, "dtype": run.compute_dtype,
+            "attn_impl": run.attn_impl, "remat": run.remat,
+            "n_layers": cfg.n_layers,
+            "ladder": planner.depth_ladder(cfg, anchor),
+            "effective_depths": rep.ladder,
+            "gib": [m / GiB for m in rep.per_dev_bytes],
+            "slope_gib": rep.model.slope / GiB,
+            "intercept_gib": rep.model.intercept / GiB, "r2": rep.model.r2,
+            "confident": rep.model.confident,
+            "predicted_gib": pred / GiB,
+            "measured_gib": truth.job_mem_bytes / GiB,
+            "measured_depth": cfg.n_layers, "rel_err": rel,
+            "gate": PLANNER_GATE,
+            "reserved_gib": truth.reserved_mem_bytes / GiB,
+            "overhead_gib": truth.overhead_bytes / GiB,
+            "requirement_gib": rep.requirement_gib, "leeway": planner.leeway,
+            "profile_wall_s": rep.profile_wall_s,
+            "measured_step_wall_s": truth.wall_s,
+            "selection": sel.config.name, "feasible": sel.feasible_count,
+            "fell_back": sel.fell_back, "launches": counts,
+            "gpu": state["smi"]}
+    if cfg.hybrid is not None:
+        blocks = (cfg.n_layers // cfg.hybrid.period) * cfg.hybrid.period
+        line["blocks_in_model"] = blocks
+        line["slopes_over"] = (cfg.n_layers - blocks)
+    emit(line)
+    require(rep.model.confident, f"planner {arch} {mode}: R2 {rep.model.r2}")
+    require(rel < PLANNER_GATE,
+            f"planner {arch} {mode}: predicted {pred / GiB:.3f} GiB against "
+            f"{truth.job_mem_bytes / GiB:.3f} measured ({rel:.2%})")
+    require(all(counts[k] > 0 for k in kernels),
+            f"planner {arch} {mode}: a kernel of the path was not launched: "
+            f"{counts}")
+    for name in counts:
+        state["launches"][name] += counts[name]
+    return rep, truth, planner
+
+
+def phase_planner(state):
+    """Crispy's planner over the port: deepseek-7b's and zamba2-7b's bf16
+    prefill at B=4, S=2048 (the kernels' path), and deepseek-7b's float32
+    train step at B=2, S=2048 as the train launcher runs it, with the
+    presets' remat; then the selection for deepseek-7b's training at its
+    full 30 layers, which must be feasible."""
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.core.catalog import gpu_catalog
+    from repro_torch.core.hbm_planner import GPU_OVERHEAD_GIB
+
+    GiB = 1024 ** 3
+    bf16 = RunConfig(attn_impl="kernel", remat="nothing",
+                     param_dtype="bfloat16", compute_dtype="bfloat16")
+    f32 = RunConfig(attn_impl="blocked", remat="boundaries",
+                    param_dtype="float32", compute_dtype="float32")
+    _, truth, _ = planner_job(state, "deepseek-7b", "prefill", bf16,
+                              ("rmsnorm", "flash_attention"))
+    overhead_gib = truth.overhead_bytes / GiB
+    planner_job(state, "zamba2-7b", "prefill", bf16,
+                ("rmsnorm", "flash_attention", "ssd"))
+    rep, _, planner = planner_job(
+        state, "deepseek-7b", "train", f32, ("rmsnorm", "rmsnorm_backward"),
+        n_layers=PLANNER_TRAIN_LAYERS, anchor=PLANNER_TRAIN_ANCHOR)
+    full = get_arch("deepseek-7b").n_layers
+    req = rep.model.requirement(full, planner.leeway) / GiB
+    sel = planner.select(req, req)
+    total = torch.cuda.mem_get_info()[1]
+    emit({"phase": "planner", "arch": "deepseek-7b", "mode": "train",
+          "selection_at_layers": full, "requirement_gib": req,
+          "selection": sel.config.name, "feasible": sel.feasible_count,
+          "fell_back": sel.fell_back,
+          "overhead_gib_at_deepseek_7b_prefill": overhead_gib,
+          "GPU_OVERHEAD_GIB": GPU_OVERHEAD_GIB,
+          "card_total_bytes": total,
+          "catalog_mem_gib": gpu_catalog()[0].node.mem_gib,
+          "gpu": state["smi"]})
+    require(not sel.fell_back,
+            f"planner: no feasible config for {req:.1f} GiB: {sel}")
+
+
 def kernels_line(state):
     """One entry for each kernel at the prefill shape of the model that
     carries it (the rmsnorm backward: at the train phase's, in its float32;
     flash attention at D = 128 and, as its own entry, at deepseek-v3's
-    D = 192); `launches` counts the prefill, serve and train phases (the
-    D = 192 instance: deepseek-v3-671b's prefill phase, which alone runs
-    it)."""
+    D = 192); `launches` counts the prefill, serve, train and planner
+    phases (the D = 192 instance: deepseek-v3-671b's prefill phase, which
+    alone runs it)."""
     meta = {
         "rmsnorm": {"source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
                     "replaces": "src/repro/kernels/rmsnorm.py:28",
@@ -1425,7 +1549,8 @@ def main(argv=None) -> int:
     state = {"seed": args.seed, "verbose": args.verbose, "smi": smi_line(),
              "launches": dict.fromkeys(KERNELS, 0), "prefill_launches": {}}
     run = {"env": phase_env, "kernels": phase_kernels, "parity": phase_parity,
-           "prefill": phase_prefill, "serve": phase_serve, "train": phase_train}
+           "prefill": phase_prefill, "serve": phase_serve, "train": phase_train,
+           "planner": phase_planner}
     t0 = time.monotonic()
     for name in PHASES:
         if name in phases:

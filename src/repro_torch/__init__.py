@@ -4,9 +4,11 @@ Ported so far: the dense decoder-only family, RWKV6 (rwkv6-7b) and the
 Zamba2 hybrid (zamba2-7b) through ``Model.forward``, ``Model.prefill``,
 ``Model.decode_step``, ``ServeEngine`` and the ``launch.serve`` command line,
 with hand-written CUDA kernels for RMSNorm, flash attention, the RWKV6
-recurrence (wkv6) and the Mamba2 scan (ssd). Entry points run on the GPU and
-raise when there is none; pass ``device="cpu"`` to run the plain PyTorch
-versions on the CPU.
+recurrence (wkv6) and the Mamba2 scan (ssd). ``core/`` holds Crispy's
+planner over the port: it profiles a step's peak memory on the card over a
+depth ladder, extrapolates, and selects a GPU count. Entry points run on
+the GPU and raise when there is none; pass ``device="cpu"`` to run the
+plain PyTorch versions on the CPU.
 """
 from __future__ import annotations
 

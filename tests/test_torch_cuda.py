@@ -752,3 +752,55 @@ def test_train_step_gradients_on_the_card_match_the_cpu(card, remat):
         torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4,
                                    msg=path)
 
+
+
+# -- Crispy's planner over the port: CUDAMemoryProfiler and HBMPlanner --------
+
+MiB = 1024 ** 2
+
+
+def test_memory_profiler_reads_a_256_mib_job(card):
+    """A job that allocates 256 MiB and frees it reads a peak of 256 MiB
+    (up to the allocator's rounding and 2 MiB besides), and the card's
+    allocation is back at its base after the job."""
+    from repro_torch.core.profiler import CUDAMemoryProfiler
+
+    def job():
+        torch.empty(256 * MiB, dtype=torch.uint8, device=card).fill_(1)
+
+    prof = CUDAMemoryProfiler().profile(job, 1.0, card)
+    assert 256 * MiB <= prof.job_mem_bytes <= 258 * MiB
+    assert torch.cuda.memory_allocated(card) == prof.base_mem_bytes
+    assert prof.reserved_mem_bytes >= prof.peak_mem_bytes
+    assert prof.overhead_bytes > 0
+
+
+def test_memory_profiler_raises_on_memory_left_behind(card):
+    from repro_torch.core.profiler import CUDAMemoryProfiler
+    kept = []
+    with pytest.raises(RuntimeError, match="still allocated"):
+        CUDAMemoryProfiler().profile(
+            lambda: kept.append(torch.empty(MiB, device=card)), 1.0, card)
+    del kept[:]
+
+
+def test_reduced_dense_plan_is_confident_and_extrapolates(card):
+    """The torch analogue of tests/test_planner.py's linearity test: a
+    reduced deepseek-7b's train step, profiled over the depth ladder on the
+    card, passes the R^2 gate, and the extrapolation lands within 10 % of
+    the measured step at full (reduced) depth."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core.hbm_planner import HBMPlanner
+
+    cfg = get_arch("deepseek-7b").reduced(d_model=128, n_layers=24,
+                                          vocab_size=512)
+    run = RunConfig(attn_impl="full", remat="nothing",
+                    param_dtype="float32", compute_dtype="float32")
+    shape = ShapeConfig("train_128", 128, 4, "train")
+    planner = HBMPlanner(leeway=0.0)
+    rep = planner.plan(cfg, shape, card, run=run, anchor_layers=10,
+                       select=False)
+    assert rep.model.confident, f"R2={rep.model.r2}"
+    truth = planner.profile_memory(cfg, shape, run, card)
+    rel = abs(rep.predicted_per_dev_gib * 1024 ** 3 - truth) / truth
+    assert rel < 0.10, f"extrapolation off by {rel:.2%}"

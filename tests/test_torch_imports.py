@@ -1,6 +1,6 @@
-"""The PyTorch package and chip_smoke.py stand on their own: no import of
-jax or of the JAX package, no library attention or norm call, and no failure
-swallowed in chip_smoke.py."""
+"""The PyTorch package, its examples and chip_smoke.py stand on their own:
+no import of jax or of the JAX package, no library attention or norm call,
+and no failure swallowed in chip_smoke.py."""
 import ast
 import subprocess
 import sys
@@ -11,7 +11,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
-SOURCES = sorted(PACKAGE.rglob("*.py")) + [SMOKE]
+EXAMPLES = [ROOT / "examples" / "gpu_advisor_torch.py"]
+SOURCES = sorted(PACKAGE.rglob("*.py")) + [SMOKE] + EXAMPLES
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "repro"}
 
 
@@ -44,7 +45,17 @@ def test_sources_are_found():
             "src/repro_torch/train/step.py", "src/repro_torch/train/loop.py",
             "src/repro_torch/data/pipeline.py",
             "src/repro_torch/checkpoint/ckpt.py",
-            "src/repro_torch/launch/train.py"} <= names
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/core/sampling.py",
+            "src/repro_torch/core/memory_model.py",
+            "src/repro_torch/core/catalog.py",
+            "src/repro_torch/core/history.py",
+            "src/repro_torch/core/selector.py",
+            "src/repro_torch/core/profiler.py",
+            "src/repro_torch/core/hbm_planner.py",
+            "src/repro_torch/launch/presets.py",
+            "src/repro_torch/launch/dryrun.py",
+            "examples/gpu_advisor_torch.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
