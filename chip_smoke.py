@@ -11,12 +11,16 @@ deepseek-v3-671b at full width cut to 4 layers (its 3 dense layers, 1 MoE
 layer and the MTP block's weights: 53 GB in bfloat16; random weights from a
 seed), through ``Model.forward``, ``Model.prefill``, ``Model.decode_step``
 and the ``repro_torch.launch.serve`` command line, the training path of
-deepseek-7b at full width (depth cut to 4 layers, so that the float32 state
-fits) through the ``repro_torch.launch.train`` command line, with a resume
-from its checkpoint, and Crispy's planner over the port
-(``repro_torch.core.hbm_planner``): three jobs profiled over their depth
-ladders on the card, extrapolated, and held against one measured step at
-the depth extrapolated to. Every line of standard output is
+deepseek-7b and olmoe-1b-7b at full width (depth cut to 4 layers, so that
+the float32 state fits) through the ``repro_torch.launch.train`` command
+line, each with a resume from its checkpoint, one train step of
+deepseek-7b, olmoe-1b-7b and deepseek-v3-671b (reduced, with its MTP block)
+on the card against the CPU, deepseek-v3-671b's loss and backward at full
+width (1 dense + 1 MoE layer of 16 experts, the MTP block), and Crispy's
+planner over the port (``repro_torch.core.hbm_planner``): four jobs
+profiled over their depth ladders on the card, extrapolated, and held
+against one measured step at the depth extrapolated to. Every line of
+standard output is
 one JSON object, except the line before the last, which is the card's name
 and power limit as ``nvidia-smi`` prints them. The last line is
 ``{"ok": true, "device": {...}}``. Any failure (no card, a kernel that does
@@ -114,16 +118,34 @@ PER_STEP = {
 # forwards and as many backwards, and no other kernel
 TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2, 2048, 5
 PARITY_TRAIN = {"layers": 2, "batch": 1, "seq": 128, "block": 64}
-# the planner phase: three jobs, each profiled over the planner's depth
+# the MoE family's training, float32 as the train launcher runs it:
+# olmoe-1b-7b at full width (64 experts top-8, vocabulary 50304) through the
+# launcher, depth 16 -> MOE_TRAIN_LAYERS (1.88 G parameters, 30.1 GB of
+# state at 16 bytes a parameter; 16 layers would be 110 GB), with the same
+# batch, steps and resume as deepseek-7b's; the card-vs-CPU parities of
+# olmoe-1b-7b at full width (2 layers) and of deepseek-v3-671b reduced (MLA,
+# a dense layer, a shared expert, the MTP block); and deepseek-v3-671b's
+# loss and backward at full width, 1 dense + 1 MoE layer with 16 of its 256
+# routed experts and the MTP block (4.41 G parameters: 17.6 GB of weights
+# and as many of gradients; an AdamW state would be 70.6 GB, so no
+# optimizer step is taken)
+MOE_TRAIN_LAYERS = 4
+PARITY_TRAIN_MOE = {"layers": 2, "batch": 2, "seq": 256, "block": 64}
+PARITY_TRAIN_DSV3 = {"batch": 2, "seq": 64, "block": 16}
+WIDTH_BACKWARD_DSV3 = {"layers": 2, "experts": 16, "batch": 1, "seq": 256}
+# the planner phase: four jobs, each profiled over the planner's depth
 # ladder on the card (core/hbm_planner.py), extrapolated to the job's
 # n_layers and held against one measured step at that depth. deepseek-7b's
 # float32 training is extrapolated to PLANNER_TRAIN_LAYERS (more than 1.4x
-# the ladder's top of 7, and a step that fits the card with room: at 12
-# layers the allocator reserved 77 of an H100 80GB HBM3's 79.2 GiB; 30
-# layers would need two cards), then selected for at its full 30.
+# the ladder's top of 7; 30 layers would need two cards), then selected for
+# at its full 30; olmoe-1b-7b's float32 training (6.7 GB of state a layer)
+# over the ladder of PLANNER_MOE_ANCHOR, extrapolated to
+# PLANNER_MOE_LAYERS (1.5x the ladder's top; there the allocator reserves
+# 75.0 of an H100 80GB HBM3's 79.2 GiB), then selected for at its full 16.
 # PLANNER_GATE is the reference's own bound (tests/test_planner.py).
 PLANNER_B, PLANNER_S = 4, 2048
-PLANNER_TRAIN_B, PLANNER_TRAIN_LAYERS, PLANNER_TRAIN_ANCHOR = 2, 10, 7
+PLANNER_TRAIN_B, PLANNER_TRAIN_LAYERS, PLANNER_TRAIN_ANCHOR = 2, 12, 7
+PLANNER_MOE_LAYERS, PLANNER_MOE_ANCHOR = 9, 6
 PLANNER_GATE = 0.10
 N_LAYERS = {"deepseek-7b": 30, "rwkv6-7b": 32, "zamba2-7b": 81,
             "olmoe-1b-7b": 16, "deepseek-v3-671b": 61}
@@ -551,7 +573,13 @@ def phase_kernels(state):
     # the rmsnorm backward: every norm width at a prefill's rows, a decode
     # step's and the train phase's (B x S = 4096 rows of 4096, float32),
     # with and without residual, against the plain backward and against
-    # autograd of the plain forward; dscale twice, the same bits
+    # autograd of the plain forward; dscale twice, the same bits. The MoE
+    # train jobs' float32 norms too, forward and backward, untimed:
+    # olmoe-1b-7b's (B x S rows of 2048 through the launcher and the
+    # parity), deepseek-v3's at width (256 rows of 7168, and of 1536 and
+    # 512 for q_norm and kv_norm; 255 of each in the MTP block)
+    train_norms = ((4096, 2048), (512, 2048), (256, 7168), (255, 7168),
+                   (256, 1536), (255, 1536), (256, 512), (255, 512))
     bwd_tol = {f32: (2e-5, 1e-4), bf16: (2e-2, 2e-2)}    # dx atol=rtol, dscale
 
     def rel_err(got, want):
@@ -559,12 +587,22 @@ def phase_kernels(state):
             max(float(want.float().abs().max()), 1e-30)
 
     for rows, d in ((8192, 4096), (8192, 3584), (8192, 7168), (8, 4096),
-                    (4096, 4096)):
-        for dtype in (f32, bf16):
+                    (4096, 4096)) + train_norms:
+        train_norm = (rows, d) in train_norms
+        for dtype in (f32,) if train_norm else (f32, bf16):
             for residual in (False, True):
                 x, g = randn((rows, d), dtype), randn((rows, d), dtype)
                 r = randn((rows, d), dtype) if residual else None
                 sc = (1.0 + 0.1 * randn((d,), torch.float32)).to(dtype)
+                if train_norm:
+                    got = rmsnorm(x, sc, residual=r)
+                    torch.cuda.synchronize()
+                    err, ok = close(got, rmsnorm_plain(x, sc, residual=r), dtype)
+                    checks.append({"kernel": "rmsnorm", "shape": [rows, d],
+                                   "dtype": str(dtype), "residual": residual,
+                                   "max_abs_err": err, "tol": TOL[dtype],
+                                   "ok": ok})
+                    del got
                 dx, ds = rmsnorm_backward(x, sc, g, residual=r)
                 dx2, ds2 = rmsnorm_backward(x, sc, g, residual=r)
                 want_dx, want_ds = rmsnorm_backward_plain(x, sc, g, residual=r)
@@ -593,7 +631,7 @@ def phase_kernels(state):
                     "ok": ok and auto_ok and res_ok and same_bits and
                           ds_rel <= tol_ds and ds_auto_rel <= tol_ds and
                           bool(torch.isfinite(ds).all())})
-                if not residual:
+                if not residual and not train_norm:
                     xr = x.clone().requires_grad_()
                     scr = sc.clone().requires_grad_()
                     y_lib = F.rms_norm(xr, (d,), weight=scr, eps=1e-5)
@@ -1171,30 +1209,49 @@ def phase_serve(state):
                max_new=16, max_len=64)
 
 
-def train_parity(state):
-    """One train step of deepseek-7b at full width, cut to 2 layers,
-    float32, on the card and on the CPU (the plain path) from one converted
-    state: the loss, the gradients' norm and every leaf's first moment,
-    which after one step is (1 - b1) x the clipped gradient. Parameters are
-    not compared: step 1 moves each weight by about lr * sign(g), so a
-    gradient near 0 whose sign differs between the two moves it 2 lr apart,
-    which says nothing of the kernels."""
-    from dataclasses import replace
-    from repro_torch.configs import RunConfig, get_arch
-    from repro_torch.convert import (flatten_tree, train_state_from_numpy,
-                                     unflatten_tree)
+def train_norms(cfg):
+    """rmsnorm launches of one train step's forward, and as many of its
+    backward (remat "nothing"): ln1 and ln2 a block (MLA adds q_norm and
+    kv_norm), the final norm, and for an MTP block its own norm, its
+    block's and the final norm again over its logits."""
+    per_block = 4 if cfg.attention_kind == "mla" else 2
+    n = per_block * cfg.n_layers + 1
+    if cfg.mtp_depth:
+        n += 1 + per_block + 1
+    return n
+
+
+def loss_terms(metrics):
+    return {k: float(metrics[k]) for k in ("ce", "aux", "mtp") if k in metrics}
+
+
+def train_parity(state, cfg, P, cut, weights):
+    """One train step of `cfg`, float32, on the card and on the CPU (the
+    plain path) from one converted state: the loss, the gradients' norm and
+    every leaf's first moment, which after one step is (1 - b1) x the
+    clipped gradient. Parameters are not compared: step 1 moves each weight
+    by about lr * sign(g), so a gradient near 0 whose sign differs between
+    the two moves it 2 lr apart, which says nothing of the kernels.
+    `weights`: "numpy" (``numpy_weights``) or "init" (the model's own init
+    on the card, from the seed)."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.convert import (flatten_tree, params_to_numpy,
+                                     train_state_from_numpy, unflatten_tree)
     from repro_torch.models.model import Model
     from repro_torch.optim import AdamWConfig
     from repro_torch.optim.adamw import leaves
     from repro_torch.train.step import make_train_step
 
-    P = PARITY_TRAIN
-    cfg = replace(get_arch("deepseek-7b"), n_layers=P["layers"])
     run = RunConfig(param_dtype="float32", compute_dtype="float32",
                     attn_impl="blocked", remat="nothing",
                     attn_block_q=P["block"], attn_block_kv=P["block"])
     cpu = Model(cfg, run, device="cpu")
-    params = numpy_weights(cpu, state["seed"])
+    if weights == "numpy":
+        params = numpy_weights(cpu, state["seed"])
+        gpu = Model(cfg, run)
+    else:
+        gpu = Model(cfg, run).init(seed=state["seed"])
+        params = params_to_numpy(gpu)
 
     def zeros():
         return unflatten_tree({k: np.zeros_like(v)
@@ -1204,7 +1261,6 @@ def train_parity(state):
             "opt": {"step": np.zeros((), np.int32), "m": zeros(), "v": zeros(),
                     "master": None}}
     cpu_state = train_state_from_numpy(tree, cpu)
-    gpu = Model(cfg, run)
     gpu_state = train_state_from_numpy(tree, gpu)
     del tree, params
     toks = np.random.default_rng(state["seed"] + 3).integers(
@@ -1218,7 +1274,7 @@ def train_parity(state):
     (gpu_state, gpu_met), gpu_ms = timed_call(
         lambda: make_train_step(gpu, acfg)(gpu_state, batch))
     counts = read_counts()
-    per_step = 2 * P["layers"] + 1
+    per_step = train_norms(cfg)
     want = {"rmsnorm": per_step, "rmsnorm_backward": per_step,
             "flash_attention": 0, "wkv6": 0, "ssd": 0}
     loss_cpu, loss_gpu = float(cpu_met["loss"]), float(gpu_met["loss"])
@@ -1232,10 +1288,12 @@ def train_parity(state):
             max(float(b.abs().max()), 1e-30)
     grad_gate, loss_gate = 1e-3, 1e-4
     emit({"phase": "train", "part": "parity", "arch": cfg.name,
-          "n_layers": cfg.n_layers, "cut": "depth 30 -> 2; width and vocabulary full",
+          "n_layers": cfg.n_layers, "cut": cut,
           "dtype": "float32", "allow_tf32": False, "batch": P["batch"],
           "seq": P["seq"], "attn_impl": "blocked", "attn_block": P["block"],
           "loss_cpu": loss_cpu, "loss_gpu": loss_gpu, "loss_rel_err": loss_rel,
+          "loss_terms_cpu": loss_terms(cpu_met),
+          "loss_terms_gpu": loss_terms(gpu_met),
           "loss_gate": loss_gate, "grad_norm_rel_err": gn_rel,
           "grad_rel_err_by_leaf": per_leaf, "grad_gate": grad_gate,
           "grad_gate_reason": "max |m_gpu - m_cpu| / max |m_cpu| a leaf; m after "
@@ -1244,37 +1302,128 @@ def train_parity(state):
                               "and the vocabulary taken in another order",
           "launches": counts, "gpu_step_ms": gpu_ms, "cpu_step_seconds": cpu_s,
           "gpu": state["smi"]})
-    require(counts == want, f"train parity: launches {counts}, expected {want}")
-    require(math.isfinite(loss_gpu), "train parity: loss not finite")
-    require(loss_rel < loss_gate, f"train parity: loss {loss_gpu} vs {loss_cpu}")
+    require(counts == want,
+            f"train parity {cfg.name}: launches {counts}, expected {want}")
+    require(math.isfinite(loss_gpu), f"train parity {cfg.name}: loss not finite")
+    require(loss_rel < loss_gate,
+            f"train parity {cfg.name}: loss {loss_gpu} vs {loss_cpu}")
     require(max(per_leaf.values()) < grad_gate,
-            f"train parity: gradients differ: {per_leaf}")
+            f"train parity {cfg.name}: gradients differ: {per_leaf}")
     del cpu, gpu, cpu_state, gpu_state
     gc.collect()
     torch.cuda.empty_cache()
 
 
-def train_full_width(state):
-    """deepseek-7b at full width, cut to TRAIN_LAYERS layers, float32,
-    through the command line a user would call: TRAIN_STEPS steps that
-    write a checkpoint at the end; the launches of each kernel counted and
+def train_parities(state):
+    """deepseek-7b at full width, 2 layers (numpy weights); olmoe-1b-7b at
+    full width, 2 layers; deepseek-v3-671b reduced with its MTP block."""
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+
+    train_parity(state, replace(get_arch("deepseek-7b"),
+                                n_layers=PARITY_TRAIN["layers"]),
+                 PARITY_TRAIN, "depth 30 -> 2; width and vocabulary full",
+                 "numpy")
+    train_parity(state, replace(get_arch("olmoe-1b-7b"),
+                                n_layers=PARITY_TRAIN_MOE["layers"]),
+                 PARITY_TRAIN_MOE, "depth 16 -> 2; width, 64 experts top-8 "
+                 "and vocabulary full", "init")
+    train_parity(state, get_arch("deepseek-v3-671b").reduced(),
+                 PARITY_TRAIN_DSV3, "the reduced config (d_model 64, 4 layers: "
+                 "1 dense + 3 MoE of 8 experts top-2 and a shared expert, MLA "
+                 "ranks 32/16, the MTP block), the CPU tests' own", "init")
+
+
+def width_backward_dsv3(state):
+    """deepseek-v3-671b's loss and backward at full width, float32: 1 dense
+    and 1 MoE layer, 16 of its 256 routed experts (top-8 and the shared
+    expert kept), the MTP block on; no optimizer step. The loss, its terms
+    and every leaf's gradient must be finite, each norm launched forward
+    and backward."""
+    from dataclasses import replace
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.convert import flatten_tree
+    from repro_torch.train.step import loss_and_grads
+
+    P = WIDTH_BACKWARD_DSV3
+    dsv3 = get_arch("deepseek-v3-671b")
+    cfg = replace(dsv3, n_layers=P["layers"],
+                  moe=replace(dsv3.moe, n_experts=P["experts"],
+                              first_dense_layers=P["layers"] - 1))
+    run = RunConfig(param_dtype="float32", compute_dtype="float32",
+                    attn_impl="full", remat="nothing")   # the launcher's at 256
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Model(cfg, run).init(seed=state["seed"]).trainable()
+    n_params = sum(p.numel() for p in model.tree.parameters())
+    toks = np.random.default_rng(state["seed"] + 5).integers(
+        0, cfg.vocab_size, size=(P["batch"], P["seq"] + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    (loss, metrics, grads), ms = timed_call(
+        lambda: loss_and_grads(model, model.params, batch))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    names = sorted(flatten_tree(grads))
+    not_finite = [n for n, g in zip(names, leaves(grads))
+                  if not bool(torch.isfinite(g).all())]
+    zero = [n for n, g in zip(names, leaves(grads)) if float(g.abs().max()) == 0]
+    per_step = train_norms(cfg)
+    want = {"rmsnorm": per_step, "rmsnorm_backward": per_step,
+            "flash_attention": 0, "wkv6": 0, "ssd": 0}
+    terms = loss_terms(metrics)
+    emit({"phase": "train", "part": "width_backward", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "n_experts": P["experts"],
+          "cut": "depth 61 -> 2 (1 dense, 1 MoE layer), routed experts 256 -> "
+                 "16 (top-8 and the shared expert kept), the MTP block on; "
+                 "width, MLA ranks, heads and vocabulary full; no optimizer "
+                 "step (an AdamW state of 4.41 G parameters is 70.6 GB)",
+          "params": n_params, "dtype": "float32", "allow_tf32": False,
+          "batch": P["batch"], "seq": P["seq"], "attn_impl": "full",
+          "loss": float(loss), "loss_terms": terms,
+          "grad_leaves": len(names), "grad_leaves_not_finite": not_finite,
+          "grad_leaves_all_zero": zero, "loss_and_backward_ms": ms,
+          "peak_memory_bytes": peak, "launches": counts, "gpu": state["smi"]})
+    require(counts == want, f"train width {cfg.name}: launches {counts}, "
+                            f"expected {want}")
+    require(math.isfinite(float(loss)) and
+            all(math.isfinite(v) for v in terms.values()) and
+            set(terms) == {"ce", "aux", "mtp"},
+            f"train width {cfg.name}: loss {float(loss)}, terms {terms}")
+    require(not not_finite, f"train width {cfg.name}: gradients not finite: "
+                            f"{not_finite}")
+    for name in counts:
+        state["launches"][name] += counts[name]
+    del model, grads, loss, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_full_width(state, arch, layers, cut):
+    """`arch` at full width, cut to `layers` layers, float32, through the
+    command line a user would call: TRAIN_STEPS steps that write a
+    checkpoint at the end; the launches of each kernel counted and
     asserted; then one more step from the state in memory and the same
-    step from the checkpoint, which must agree to the bit."""
+    step from the checkpoint, which must agree to the bit (for the MoE
+    family this holds the dispatch's backward to the same bits too)."""
     from dataclasses import replace
     from repro_torch.checkpoint import latest_step, restore_checkpoint
     from repro_torch.configs import RunConfig, get_arch
     from repro_torch.data.pipeline import make_batch_fn
     from repro_torch.launch import train as train_cli
-    from repro_torch.models.model import Model
+    from repro_torch.models.model import Model, analytic_param_count
     from repro_torch.optim import AdamWConfig
     from repro_torch.optim.adamw import leaves
     from repro_torch.train.step import init_train_state, make_train_step
 
-    L, B, S, N = TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS
+    L, B, S, N = layers, TRAIN_B, TRAIN_S, TRAIN_STEPS
     lr = 3e-4
     ck = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(ck, ignore_errors=True)
-    argv = ["--arch", "deepseek-7b", "--layers", str(L), "--steps", str(N),
+    argv = ["--arch", arch, "--layers", str(L), "--steps", str(N),
             "--batch", str(B), "--seq", str(S), "--lr", str(lr),
             "--ckpt-dir", str(ck), "--ckpt-every", "1000",
             "--seed", str(state["seed"])]
@@ -1287,7 +1436,8 @@ def train_full_width(state):
         (train_state, report), wall_ms = timed_call(lambda: train_cli.main(argv))
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    per_step = 2 * L + 1
+    cfg = replace(get_arch(arch), n_layers=L)
+    per_step = train_norms(cfg)
     want = {"rmsnorm": N * per_step, "rmsnorm_backward": N * per_step,
             "flash_attention": 0, "wkv6": 0, "ssd": 0}
     n_params = sum(t.numel() for t in leaves(train_state.params))
@@ -1296,7 +1446,6 @@ def train_full_width(state):
     step_s = steady[len(steady) // 2]
 
     # one more step from the state in memory, and from the checkpoint
-    cfg = replace(get_arch("deepseek-7b"), n_layers=L)
     run = RunConfig(attn_impl="blocked", remat="nothing",
                     compute_dtype="float32")          # the launcher's
     acfg = AdamWConfig(lr=lr)
@@ -1322,12 +1471,12 @@ def train_full_width(state):
     ckpt_bytes = sum(f.stat().st_size for f in ck.rglob("*") if f.is_file())
     emit({"phase": "train", "part": "full_width", "arch": cfg.name,
           "argv": argv, "n_layers": L,
-          "cut": "depth 30 -> 4: the float32 state (16 bytes a parameter: "
-                 "weights, gradients, m, v) of 30 layers is 110 GB; width, "
-                 "heads and vocabulary full",
-          "params": n_params, "dtype": "float32", "batch": B, "seq": S,
+          "cut": cut, "params": n_params,
+          "active_params": analytic_param_count(cfg, active_only=True),
+          "dtype": "float32", "batch": B, "seq": S,
           "attn_impl": "blocked", "remat": "nothing", "lr": lr,
-          "losses": losses, "step_seconds": report.step_times,
+          "losses": losses, "router_aux": report.aux,
+          "step_seconds": report.step_times,
           "step_ms": step_s * 1e3, "tokens_per_s": B * S / step_s,
           "timing": "host clock around each step (it waits for the loss); "
                     "step_ms the median of steps 2..N",
@@ -1340,16 +1489,20 @@ def train_full_width(state):
           "resume_bit_exact": bit_exact,
           "stdout": text.getvalue().strip().splitlines(), "gpu": state["smi"]})
     shutil.rmtree(ck, ignore_errors=True)
-    require(counts == want, f"train: launches {counts}, expected {want}")
+    require(counts == want, f"train {arch}: launches {counts}, expected {want}")
     require(one_step == {"rmsnorm": per_step, "rmsnorm_backward": per_step,
                          "flash_attention": 0, "wkv6": 0, "ssd": 0},
-            f"train: one step launched {one_step}")
+            f"train {arch}: one step launched {one_step}")
     require(len(losses) == N and all(math.isfinite(x) for x in losses),
-            f"train: losses {losses}")
-    require(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
+            f"train {arch}: losses {losses}")
+    require(len(report.aux) == N and all(math.isfinite(x) for x in report.aux),
+            f"train {arch}: router aux {report.aux}")
+    require(losses[-1] < losses[0],
+            f"train {arch}: the loss did not fall: {losses}")
     require(restored_step == N and extra.get("step") == N,
-            f"train: restored step {restored_step}, extra {extra}")
-    require(bit_exact, f"train: resume not bit-exact (loss {loss_a} vs {loss_b})")
+            f"train {arch}: restored step {restored_step}, extra {extra}")
+    require(bit_exact, f"train {arch}: resume not bit-exact (loss {loss_a} vs "
+                       f"{loss_b})")
     for name in counts:
         state["launches"][name] += counts[name]
     del model, state_b, want_params
@@ -1361,8 +1514,16 @@ def phase_train(state):
     # full float32 products on the card, said and set
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    train_parity(state)
-    train_full_width(state)
+    train_parities(state)
+    train_full_width(state, "deepseek-7b", TRAIN_LAYERS,
+                     "depth 30 -> 4: the float32 state (16 bytes a parameter: "
+                     "weights, gradients, m, v) of 30 layers is 110 GB; width, "
+                     "heads and vocabulary full")
+    train_full_width(state, "olmoe-1b-7b", MOE_TRAIN_LAYERS,
+                     "depth 16 -> 4: the float32 state (16 bytes a parameter) "
+                     "of 16 layers is 110 GB; width, 64 experts top-8, heads "
+                     "and vocabulary full")
+    width_backward_dsv3(state)
 
 
 def planner_job(state, arch, mode, run, kernels, n_layers=None,
@@ -1434,13 +1595,30 @@ def planner_job(state, arch, mode, run, kernels, n_layers=None,
     return rep, truth, planner
 
 
+def select_at_full_depth(state, arch, rep, planner, **extra):
+    """The planner's selection for `arch`'s train job at its full depth,
+    from the fit of `rep`: it must be feasible."""
+    from repro_torch.configs import get_arch
+
+    GiB = 1024 ** 3
+    full = get_arch(arch).n_layers
+    req = rep.model.requirement(full, planner.leeway) / GiB
+    sel = planner.select(req, req)
+    emit({"phase": "planner", "arch": arch, "mode": "train",
+          "selection_at_layers": full, "requirement_gib": req,
+          "selection": sel.config.name, "feasible": sel.feasible_count,
+          "fell_back": sel.fell_back, **extra, "gpu": state["smi"]})
+    require(not sel.fell_back,
+            f"planner {arch}: no feasible config for {req:.1f} GiB: {sel}")
+
+
 def phase_planner(state):
     """Crispy's planner over the port: deepseek-7b's and zamba2-7b's bf16
-    prefill at B=4, S=2048 (the kernels' path), and deepseek-7b's float32
-    train step at B=2, S=2048 as the train launcher runs it, with the
-    presets' remat; then the selection for deepseek-7b's training at its
-    full 30 layers, which must be feasible."""
-    from repro_torch.configs import RunConfig, get_arch
+    prefill at B=4, S=2048 (the kernels' path), and deepseek-7b's and
+    olmoe-1b-7b's float32 train steps at B=2, S=2048 as the train launcher
+    runs them, with the presets' remat; then the selection for each train
+    job at its full depth (30 and 16 layers), which must be feasible."""
+    from repro_torch.configs import RunConfig
     from repro_torch.core.catalog import gpu_catalog
     from repro_torch.core.hbm_planner import GPU_OVERHEAD_GIB
 
@@ -1457,21 +1635,16 @@ def phase_planner(state):
     rep, _, planner = planner_job(
         state, "deepseek-7b", "train", f32, ("rmsnorm", "rmsnorm_backward"),
         n_layers=PLANNER_TRAIN_LAYERS, anchor=PLANNER_TRAIN_ANCHOR)
-    full = get_arch("deepseek-7b").n_layers
-    req = rep.model.requirement(full, planner.leeway) / GiB
-    sel = planner.select(req, req)
-    total = torch.cuda.mem_get_info()[1]
-    emit({"phase": "planner", "arch": "deepseek-7b", "mode": "train",
-          "selection_at_layers": full, "requirement_gib": req,
-          "selection": sel.config.name, "feasible": sel.feasible_count,
-          "fell_back": sel.fell_back,
-          "overhead_gib_at_deepseek_7b_prefill": overhead_gib,
-          "GPU_OVERHEAD_GIB": GPU_OVERHEAD_GIB,
-          "card_total_bytes": total,
-          "catalog_mem_gib": gpu_catalog()[0].node.mem_gib,
-          "gpu": state["smi"]})
-    require(not sel.fell_back,
-            f"planner: no feasible config for {req:.1f} GiB: {sel}")
+    select_at_full_depth(
+        state, "deepseek-7b", rep, planner,
+        overhead_gib_at_deepseek_7b_prefill=overhead_gib,
+        GPU_OVERHEAD_GIB=GPU_OVERHEAD_GIB,
+        card_total_bytes=torch.cuda.mem_get_info()[1],
+        catalog_mem_gib=gpu_catalog()[0].node.mem_gib)
+    rep, _, planner = planner_job(
+        state, "olmoe-1b-7b", "train", f32, ("rmsnorm", "rmsnorm_backward"),
+        n_layers=PLANNER_MOE_LAYERS, anchor=PLANNER_MOE_ANCHOR)
+    select_at_full_depth(state, "olmoe-1b-7b", rep, planner)
 
 
 def kernels_line(state):

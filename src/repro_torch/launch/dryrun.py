@@ -9,8 +9,9 @@ once, so that a profiler reads what the step really allocates:
 
 * ``train``:   ``Model`` + ``init_train_state`` (weights and zeroed AdamW
   moments) + one ``make_train_step`` step on a (B, S) batch of tokens and
-  labels; the moments stay alive at the peak, as in the reference's
-  donated step;
+  labels, for every ported family (the MoE family's loss with the
+  router's aux term and the MTP loss); the moments stay alive at the
+  peak, as in the reference's donated step;
 * ``prefill``: ``Model.prefill`` of a (B, S) prompt into caches of S;
 * ``decode``:  ``Model.init_caches(B, S)`` + one ``decode_step`` of a
   (B, 1) batch.

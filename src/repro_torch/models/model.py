@@ -20,9 +20,11 @@ hybrid ``layers.mamba.in_proj`` (groups, then layers in a group) and
 ``mtp.block.moe.router`` ... The serving entry points run under
 ``torch.no_grad()``; ``loss_fn`` runs the same forward with grad mode on, and
 ``trainable()`` makes the parameters require gradients (they are created
-frozen). On the card only the dense family trains: the wkv6 and ssd kernels
-have no backward yet and refuse an input that needs one. The MoE family
-serves; its loss (the router's aux term and the MTP loss) is not ported yet.
+frozen). The dense and MoE families train on the card (the MoE loss with
+the router's aux term and DeepSeek-V3's MTP loss); there the only kernels a
+training step runs are rmsnorm and its backward. The wkv6 and ssd kernels
+have no backward yet and refuse an input that needs one, so the ssm and
+hybrid families train on the CPU only.
 """
 from __future__ import annotations
 
@@ -193,27 +195,52 @@ class Model(nn.Module):
 
     def loss_fn(self, batch, params: Optional[Dict] = None):
         """Token-mean cross entropy of the next-token logits against
-        batch["labels"] (labels < 0 masked) -> (loss, {"ce", "aux"}), on the
+        batch["labels"] (labels < 0 masked) -> (loss, metrics), on the
         forward with grad mode as the caller has it. `params` defaults to
-        the model's own. The reference's loss for the dense, ssm and hybrid
-        families: aux is 0 for each. The MoE family's loss adds the router's
-        aux term and the MTP loss, which are not ported yet: it raises."""
-        if self.cfg.family == "moe":
-            raise NotImplementedError(
-                "the MoE family's loss (router aux term, MTP loss) is not "
-                "ported yet (ROADMAP.md, Queue 1)")
-        lg, aux = self._forward_with_aux(
-            self.params if params is None else params, batch)
+        the model's own. The reference's loss: for the MoE family
+        ``cfg.moe.router_aux_weight`` times the MoE stack's summed
+        load-balance term is added (the leading dense layers' and the MTP
+        block's aux are dropped, as there), then 0.3 times the MTP loss
+        when the config has an MTP block (``_mtp_loss``). metrics: "ce" (the
+        cross entropy before the two terms) and "aux", as the reference's;
+        for an MTP block also "mtp", which the reference computes and does
+        not report. aux is 0 for the dense, ssm and hybrid families."""
+        cfg = self.cfg
+        params = self.params if params is None else params
+        h, aux = self._hidden(params, batch)
         labels = torch.as_tensor(batch["labels"]).to(self.device).long()
-        loss = L.cross_entropy(lg, labels)
-        return loss, {"ce": loss.detach(), "aux": aux}
+        ce = L.cross_entropy(self._logits(params, h), labels)
+        metrics = {"ce": ce.detach(), "aux": aux.detach()}
+        loss = ce
+        if cfg.moe is not None:
+            loss = loss + cfg.moe.router_aux_weight * aux
+        if cfg.mtp_depth and "mtp" in params:
+            mtp = self._mtp_loss(params, h, batch, labels)
+            metrics["mtp"] = mtp.detach()
+            loss = loss + 0.3 * mtp
+        return loss, metrics
+
+    def _mtp_loss(self, params, h, batch, labels):
+        """DeepSeek-V3's multi-token prediction, as the reference's: one
+        more moe block predicts token t + 2 from (norm(h_t), embed(token
+        t + 1)); h is the stack's output before the final norm."""
+        cfg, run = self.cfg, self.run
+        mp = params["mtp"]
+        tokens = self._tokens(batch)
+        hn = L.rms_norm(h[:, :-1], mp["norm"], cfg.norm_eps)
+        nxt = self._embed(params, tokens[:, 1:])
+        x = torch.cat([hn, nxt], dim=-1) @ mp["proj"].to(hn.dtype)
+        x, _ = T.block(mp["block"], x, cfg, run, kind="moe",
+                       positions=torch.arange(x.shape[1], device=self.device))
+        lg = self._logits(params, x)
+        return L.cross_entropy(lg[:, :-1], labels[:, 2:])
 
     def _forward(self, params, batch) -> torch.Tensor:
-        return self._forward_with_aux(params, batch)[0]
+        return self._logits(params, self._hidden(params, batch)[0])
 
-    def _forward_with_aux(self, params, batch):
-        """(logits, aux): aux is the MoE stack's summed load-balance loss,
-        0 for the other families."""
+    def _hidden(self, params, batch):
+        """(h, aux): the stack's output before the final norm, and the MoE
+        stack's summed load-balance loss (0 for the other families)."""
         tokens = self._tokens(batch)
         x = self._embed(params, tokens)
         positions = torch.arange(tokens.shape[1], device=self.device)
@@ -233,7 +260,7 @@ class Model(nn.Module):
         else:
             x = T.hybrid_stack(params["layers"], x, cfg, run,
                                positions=positions)
-        return self._logits(params, x), aux
+        return x, aux
 
     # --------------------------------------------------------------- serving
     def init_caches(self, batch: int, max_len: int, *, device=None) -> Dict:

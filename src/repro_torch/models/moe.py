@@ -14,7 +14,12 @@ into (n, C, d) buffers, as batched matrix products. Knowing the counts
 costs one wait for the device a layer. The combine puts each choice's
 expert output in its own row and sums a token's k rows in a fixed order,
 with no atomics, so that two runs give the same bits. Rows move by
-gathers; the scatters are of indices, to distinct places.
+gathers; the scatters are of indices, to distinct places. Under autograd
+the gathers' backward is an accumulating ``index_put`` over a token's own
+k rows; on an H100 it gave the same bits on every backward pass
+(``test_moe_loss_gradients_give_the_same_bits_twice``, and chip_smoke.py's
+bit-exact resume of olmoe-1b-7b at full width), so the dispatch needs no
+other form for training.
 
 The expert-parallel paths of the reference (``moe_ep``, ``moe_ep_a2a``)
 run over a mesh of devices and are not ported yet (ROADMAP.md, Queue 1).
@@ -92,7 +97,9 @@ def fill_moe(p, generator, cfg: ModelConfig):
 def route(router_w, x, m: MoEConfig):
     """x: (T, d) -> gates (T, k) renormalised, in x's dtype; idx (T, k);
     aux, the switch-style load-balance loss E * sum(frac_e * mean_prob_e)
-    over the first choice, float32. The softmax is taken in float32."""
+    over the first choice, float32. The softmax is taken in float32. As in
+    the reference, aux's gradient flows through the mean probabilities
+    only: frac is a count of first choices, off the graph."""
     logits = x @ router_w.to(x.dtype)
     probs = torch.softmax(logits.float(), dim=-1)
     gates, idx = torch.topk(probs, m.top_k, dim=-1)
@@ -212,6 +219,30 @@ def _expert_groups(counts, row_bytes: int):
     return groups
 
 
+class _GatherSlots(torch.autograd.Function):
+    """The n_slots rows of a group's buffer: xt[tok] at the slots `local`,
+    token 0 at the padded ones. The backward sums the gradients of the
+    `local` slots into their tokens and drops the padded slots' (0, as
+    their outputs are never read): autograd of the gather would sum those
+    into token 0 as well, and tens of thousands of them on one token took a
+    quarter of olmoe-1b-7b's train step."""
+
+    @staticmethod
+    def forward(ctx, xt, local, tok, n_slots):
+        src = torch.zeros((n_slots,), dtype=torch.long, device=xt.device)
+        src[local] = tok
+        ctx.save_for_backward(local, tok)
+        ctx.rows = xt.shape[0]
+        return xt[src]
+
+    @staticmethod
+    def backward(ctx, g):
+        local, tok = ctx.saved_tensors
+        gx = g.new_zeros((ctx.rows, g.shape[-1]))
+        gx.index_put_((tok,), g[local], accumulate=True)
+        return gx, None, None, None
+
+
 def moe(params, x, cfg: ModelConfig):
     """x: (B, S, d) -> (out, aux): ``moe_dense``'s function, dropless.
 
@@ -220,11 +251,14 @@ def moe(params, x, cfg: ModelConfig):
     is padded to its own largest count, so nothing drops and the buffers
     stay within GROUP_BYTES. At a decode step every expert fits one group,
     padded to the largest count. One sort of the choices serves every
-    group; knowing the counts costs one wait for the device. Rows move by
-    gathers only: a padded slot reads token 0 (its output is never read),
-    a group's outputs land in sorted order as one contiguous slice, and one
-    gather by the inverse of the sort puts them back in choice order. The k
-    rows of a token are weighted by their gates and summed over k."""
+    group; knowing the counts costs one wait for the device. Under a
+    ``torch.utils.checkpoint`` remat the recompute routes the same inputs
+    again, so it sees the same counts and the same buffer shapes. Rows move by
+    gathers only: a padded slot reads token 0 (its output is never read;
+    ``_GatherSlots``), a group's outputs land in sorted order as one
+    contiguous slice, and one gather by the inverse of the sort puts them
+    back in choice order. The k rows of a token are weighted by their
+    gates and summed over k."""
     m = cfg.moe
     B, S, d = x.shape
     T, k, E = B * S, m.top_k, m.n_experts
@@ -236,11 +270,10 @@ def moe(params, x, cfg: ModelConfig):
     for e0, n, C, s0, s1 in _expert_groups(counts.tolist(),
                                            d * x.element_size()):
         local = (e_s[s0:s1] - e0) * C + rank[s0:s1]
-        src = torch.zeros((n * C,), dtype=torch.long, device=x.device)
-        src[local] = tok[s0:s1]
+        xb = _GatherSlots.apply(xt, local, tok[s0:s1], n * C)
         ws = slice(e0, e0 + n)
         yb = _local_expert_ffn(params["w_gate"][ws], params["w_up"][ws],
-                               params["w_down"][ws], xt[src].view(n, C, d))
+                               params["w_down"][ws], xb.view(n, C, d))
         y[s0:s1] = yb.view(n * C, d)[local]
     inverse = torch.empty_like(order)
     inverse[order] = torch.arange(T * k, device=x.device)

@@ -54,14 +54,16 @@ def leaves(tree) -> List[torch.Tensor]:
 
 def like_tree(tree, flat: List):
     """`flat` (in ``leaves`` order) laid out as the nested dict `tree`."""
-    it = iter(flat)
+    return _laid_out(tree, iter(flat))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        return next(it)
 
-    return build(tree)
+def _laid_out(node, it):
+    # a module-level recursion: a nested function that calls itself is a
+    # reference cycle, which kept `flat` (a step's gradients) alive until
+    # the garbage collector ran, a gradient-sized copy more a step
+    if isinstance(node, dict):
+        return {k: _laid_out(node[k], it) for k in sorted(node)}
+    return next(it)
 
 
 def init_adamw(params: Dict, cfg: AdamWConfig) -> OptState:
@@ -88,9 +90,21 @@ def global_norm(tree) -> torch.Tensor:
                           for x in leaves(tree)))
 
 
+# Elements of one chunk of a leaf's update (256 MiB of float32): the
+# update's float32 temporaries (a handful the size of what they cover) are
+# bounded by a chunk, not by the largest leaf. Layers are stacked on a
+# leading axis, so a whole-leaf update held about seven copies of a leaf
+# that grows with depth (deepseek-7b float32 at 12 layers: 7 x 12 x 0.168
+# GiB of stacked MLP leaves, or 7 x 1.56 GiB of the embedding below 10).
+# Each chunk costs some seventeen kernels, so a smaller bound adds device
+# time to every step (benchmarks/torch_train_step_memory.py --chunk); at
+# this one the temporaries stay near the backward's own transient.
+CHUNK = 1 << 26
+
+
 @torch.no_grad()
 def adamw_update(params: Dict, grads: Dict, state: OptState,
-                 cfg: AdamWConfig, lr_scale=1.0
+                 cfg: AdamWConfig, lr_scale=1.0, *, chunk: int = CHUNK
                  ) -> Tuple[Dict, OptState, Dict]:
     """One AdamW step, IN PLACE: returns (params, new state, metrics) with
     params, m, v and master the dicts given, their tensors updated.
@@ -100,7 +114,12 @@ def adamw_update(params: Dict, grads: Dict, state: OptState,
     the update computed in float32 from the master (when kept) and every
     new parameter cast to the dtype of the first leaf (the reference casts
     so; the port's parameters share one dtype, so this is each leaf's
-    own)."""
+    own).
+
+    Each leaf is updated over consecutive chunks of at most `chunk`
+    elements of its flattened view, each chunk by the same elementwise
+    arithmetic in the same order, so the bits do not depend on `chunk`;
+    the reference's XLA step fuses the update and holds no temporary."""
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0) \
         if cfg.clip_norm else 1.0
@@ -115,16 +134,21 @@ def adamw_update(params: Dict, grads: Dict, state: OptState,
     pdt = flat_p[0].dtype
     for i, (p, g, m, v) in enumerate(zip(flat_p, leaves(grads),
                                          leaves(state.m), leaves(state.v))):
-        g = g.float() * scale
-        m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g
-        v32 = cfg.b2 * v.float() + (1 - cfg.b2) * g * g
-        p32 = source[i].float()
-        new = p32 - lr * (m32 / bc1 / ((v32 / bc2).sqrt() + cfg.eps)
-                          + cfg.weight_decay * p32)
-        if state.master is not None:
-            source[i].copy_(new)
-        p.copy_(new.to(pdt))
-        m.copy_(m32.to(mdt))
-        v.copy_(v32.to(mdt))
+        # views: the writes below land in the state's own tensors
+        p, m, v, src = p.view(-1), m.view(-1), v.view(-1), source[i].view(-1)
+        g = g.reshape(-1)
+        for a in range(0, p.numel(), chunk):
+            b = a + chunk
+            g32 = g[a:b].float() * scale
+            m32 = cfg.b1 * m[a:b].float() + (1 - cfg.b1) * g32
+            v32 = cfg.b2 * v[a:b].float() + (1 - cfg.b2) * g32 * g32
+            p32 = src[a:b].float()
+            new = p32 - lr * (m32 / bc1 / ((v32 / bc2).sqrt() + cfg.eps)
+                              + cfg.weight_decay * p32)
+            if state.master is not None:
+                src[a:b].copy_(new)
+            p[a:b].copy_(new.to(pdt))
+            m[a:b].copy_(m32.to(mdt))
+            v[a:b].copy_(v32.to(mdt))
     return params, OptState(step, state.m, state.v, state.master), \
         {"grad_norm": gnorm, "lr": lr}

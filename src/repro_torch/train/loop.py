@@ -39,6 +39,7 @@ class LoopConfig:
 @dataclass
 class LoopReport:
     losses: List[float] = field(default_factory=list)
+    aux: List[float] = field(default_factory=list)   # the router's, if any
     step_times: List[float] = field(default_factory=list)
     stragglers: List[int] = field(default_factory=list)
     preempted: bool = False
@@ -86,6 +87,8 @@ def train_loop(state, train_step: Callable, loader, cfg: LoopConfig,
             dt = time.monotonic() - t0
             report.losses.append(loss)
             report.step_times.append(dt)
+            if "aux" in metrics:
+                report.aux.append(float(metrics["aux"]))
             if not math.isfinite(loss):
                 raise FloatingPointError(f"non-finite loss at step {step}")
             if ewma is None:

@@ -9,6 +9,10 @@ metrics)`` with:
     residual carried in the train state;
   * AdamW (``optim/adamw.py``) under the cosine-warmup schedule.
 
+The step's metrics are the loss, the loss function's own ("ce", "aux" and,
+with an MTP block, "mtp"; the means over the microbatches), "grad_norm" and
+"lr". The reference's step reports the loss, "grad_norm" and "lr" only.
+
 The state's tensors are updated in place (``adamw_update``): the state
 handed back holds the same parameter and moment tensors. Gradients are
 ``torch.autograd.grad`` of ``Model.loss_fn`` with respect to
@@ -76,20 +80,22 @@ def make_train_step(model: Model, acfg: AdamWConfig, *, warmup: int = 100,
         params = state.params
         if n_micro > 1:
             grads = None
-            loss_sum = 0.0
+            sums = {}
             for mb in _microbatches(batch, n_micro):
-                loss, _, g = loss_and_grads(model, params, mb)
+                loss, metrics, g = loss_and_grads(model, params, mb)
                 flat = [t.to(acc_dt) for t in leaves(g)]
                 if grads is None:
                     grads = flat
                 else:
                     for a, t in zip(grads, flat):
                         a.add_(t)
-                loss_sum = loss_sum + loss
+                for name, value in {"loss": loss, **metrics}.items():
+                    sums[name] = sums.get(name, 0.0) + value
             grads = like_tree(params, [a / n_micro for a in grads])
-            loss = loss_sum / n_micro
+            metrics = {name: value / n_micro for name, value in sums.items()}
+            loss = metrics.pop("loss")
         else:
-            loss, _, grads = loss_and_grads(model, params, batch)
+            loss, metrics, grads = loss_and_grads(model, params, batch)
 
         residual = state.residual
         if run.grad_compression:
@@ -100,7 +106,7 @@ def make_train_step(model: Model, acfg: AdamWConfig, *, warmup: int = 100,
         new_params, new_opt, opt_metrics = adamw_update(
             params, grads, state.opt, acfg, lr_scale=lr_scale)
         return TrainState(new_params, new_opt, residual), \
-            {"loss": loss, **opt_metrics}
+            {"loss": loss, **metrics, **opt_metrics}
 
     return train_step
 

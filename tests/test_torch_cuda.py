@@ -804,3 +804,58 @@ def test_reduced_dense_plan_is_confident_and_extrapolates(card):
     truth = planner.profile_memory(cfg, shape, run, card)
     rel = abs(rep.predicted_per_dev_gib * 1024 ** 3 - truth) / truth
     assert rel < 0.10, f"extrapolation off by {rel:.2%}"
+
+
+# -- the MoE family's training and the chunked AdamW update -------------------
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b"])
+def test_moe_loss_gradients_give_the_same_bits_twice(card, arch):
+    """A reduced MoE model (deepseek-v3-671b's with its MTP block), float32,
+    blocked attention, 2 x 128 tokens: two backward passes of the loss (the
+    dispatch's fixed-order backward, the rmsnorm backward kernel) give the
+    same loss, terms and gradients to the bit, every one finite."""
+    from repro_torch.optim.adamw import leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(arch).reduced()
+    run = RunConfig(param_dtype="float32", compute_dtype="float32",
+                    attn_impl="blocked", remat="nothing", attn_block_q=32,
+                    attn_block_kv=32)
+    gpu = Model(cfg, run).init(seed=0).trainable()
+    toks = np.random.default_rng(12).integers(0, cfg.vocab_size, size=(2, 129))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    a = loss_and_grads(gpu, gpu.params, batch)
+    b = loss_and_grads(gpu, gpu.params, batch)
+    assert torch.equal(a[0], b[0]) and bool(torch.isfinite(a[0]))
+    assert a[1].keys() == b[1].keys() and \
+        all(torch.equal(a[1][k], b[1][k]) for k in a[1])
+    for x, y in zip(leaves(a[2]), leaves(b[2])):
+        assert bool(torch.isfinite(x).all()) and torch.equal(x, y)
+
+
+def test_f32_train_step_grows_by_16_bytes_a_parameter_a_layer(card):
+    """deepseek-7b at full width, float32, B=2, S=2048, blocked attention,
+    remat "boundaries" (the planner's train job): the step's peak grows by
+    the state's 16 bytes a parameter (weights, gradients, m, v) a layer,
+    within 5 %, between 4 and 12 layers, on either side of where the
+    stacked MLP leaves outgrow the embedding. The AdamW update's
+    temporaries are bounded by a chunk, not by the largest leaf."""
+    from dataclasses import replace
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core.profiler import CUDAMemoryProfiler
+    from repro_torch.launch.dryrun import build_step
+    from repro_torch.models.model import analytic_param_count
+    run = RunConfig(attn_impl="blocked", remat="boundaries",
+                    param_dtype="float32", compute_dtype="float32")
+    shape = ShapeConfig("train_2048", 2048, 2, "train")
+    peak, params = {}, {}
+    for n in (4, 12):
+        cfg = replace(get_arch("deepseek-7b"), n_layers=n)
+        peak[n] = CUDAMemoryProfiler().profile(
+            build_step(cfg, shape, run, card), n, card).job_mem_bytes
+        params[n] = analytic_param_count(cfg)
+    want = 16 * (params[12] - params[4])
+    got = peak[12] - peak[4]
+    print(f"peak at 4 layers {peak[4] / 2 ** 30:.4f} GiB, at 12 "
+          f"{peak[12] / 2 ** 30:.4f} GiB; growth {got / want:.4f} x 16 B a "
+          f"parameter")
+    assert abs(got - want) / want < 0.05

@@ -11,7 +11,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
-EXAMPLES = [ROOT / "examples" / "gpu_advisor_torch.py"]
+EXAMPLES = [ROOT / "examples" / "gpu_advisor_torch.py",
+            ROOT / "benchmarks" / "torch_train_step_memory.py"]
 SOURCES = sorted(PACKAGE.rglob("*.py")) + [SMOKE] + EXAMPLES
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "repro"}
 
@@ -55,7 +56,8 @@ def test_sources_are_found():
             "src/repro_torch/core/hbm_planner.py",
             "src/repro_torch/launch/presets.py",
             "src/repro_torch/launch/dryrun.py",
-            "examples/gpu_advisor_torch.py"} <= names
+            "examples/gpu_advisor_torch.py",
+            "benchmarks/torch_train_step_memory.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,

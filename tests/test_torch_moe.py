@@ -242,7 +242,8 @@ def test_forward_matches_jax_with_the_kernel_switch_on(pair):
     assert tm.run.attn_impl == "kernel"
     toks = tokens_for(tm.cfg)
     want, (aux_w, _) = jm.forward(jp, {"tokens": jnp.asarray(toks)})
-    got, aux_g = tm._forward_with_aux(tm.params, {"tokens": toks})
+    h, aux_g = tm._hidden(tm.params, {"tokens": toks})
+    got = tm._logits(tm.params, h)
     assert tuple(got.shape) == (B, S, tm.padded_vocab)
     np.testing.assert_allclose(as_f32(got), as_f32(want), **MODEL)
     np.testing.assert_allclose(float(aux_g), float(aux_w), atol=1e-5)
@@ -408,13 +409,6 @@ def test_same_greedy_tokens_as_the_jax_engine(pair):
     want = {r.rid: r.out_tokens for r in jeng.run()}
     got = {r.rid: r.out_tokens for r in teng.run()}
     assert got == want and all(len(t) == 4 for t in got.values())
-
-
-def test_loss_fn_raises_until_the_aux_and_mtp_terms_are_ported(pair):
-    _, _, tm = pair
-    toks = tokens_for(tm.cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.loss_fn({"tokens": toks, "labels": toks})
 
 
 def test_init_is_seeded_with_the_mtp_block_and_in_param_dtype():
