@@ -6,11 +6,15 @@
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc/`` (rmsnorm and
 its backward, flash_attention, wkv6, ssd), holds each against its plain
 PyTorch version on the card, drives the serving paths of deepseek-7b,
-rwkv6-7b, zamba2-7b and olmoe-1b-7b at full width and depth, and of
-deepseek-v3-671b at full width cut to 4 layers (its 3 dense layers, 1 MoE
-layer and the MTP block's weights: 53 GB in bfloat16; random weights from a
-seed), through ``Model.forward``, ``Model.prefill``, ``Model.decode_step``
-and the ``repro_torch.launch.serve`` command line, the training path of
+rwkv6-7b, zamba2-7b, olmoe-1b-7b and whisper-small at full width and depth,
+of deepseek-v3-671b at full width cut to 4 layers (its 3 dense layers, 1 MoE
+layer and the MTP block's weights: 53 GB in bfloat16) and of
+llama-3.2-vision-90b at full width cut to 10 layers (two groups of four
+self-attention layers and one gated cross-attention layer over 1601 media
+tokens: 21.3 GB in bfloat16), random weights from a seed and random media
+and frames, through ``Model.forward``, ``Model.prefill``,
+``Model.decode_step`` and the ``repro_torch.launch.serve`` command line,
+the training path of
 deepseek-7b and olmoe-1b-7b at full width (depth cut to 4 layers, so that
 the float32 state fits) through the ``repro_torch.launch.train`` command
 line, each with a resume from its checkpoint, one train step of
@@ -19,7 +23,9 @@ on the card against the CPU, deepseek-v3-671b's loss and backward at full
 width (1 dense + 1 MoE layer of 16 experts, the MTP block), and Crispy's
 planner over the port (``repro_torch.core.hbm_planner``): four jobs
 profiled over their depth ladders on the card, extrapolated, and held
-against one measured step at the depth extrapolated to. Every line of
+against one measured step at the depth extrapolated to (deepseek-7b's
+float32 train step at 20 layers, near the card's memory, among them).
+Every line of
 standard output is
 one JSON object, except the line before the last, which is the card's name
 and power limit as ``nvidia-smi`` prints them. The last line is
@@ -87,6 +93,20 @@ KERNELS = ("rmsnorm", "rmsnorm_backward", "flash_attention", "wkv6", "ssd")
 #   deepseek-v3-671b at 4 layers: ln1, ln2, MLA's q_norm and kv_norm each
 #                layer + 1 = 17; attention (MLA, D = 192) each layer (the
 #                MTP block serves no token)
+#   llama-3.2-vision-90b at 10 layers: two groups of 4 self-attention
+#                blocks and 1 gated cross-attention block, 2 norms a block
+#                + 1 = 21 a forward, prefill or tick; attention each block
+#                (8 causal self, 2 non-causal cross over the 1601 media
+#                tokens) a forward or prefill; at a tick the self blocks
+#                attend over the cache in plain code and the 2 cross blocks
+#                take the kernel with one query row
+#   whisper-small: 12 encoder blocks with 2 norms each, enc_ln, 12 decoder
+#                layers with 3 (ln1, ln2, ln_cross) and the final norm = 62
+#                a forward or prefill (the prefill's final norm over the
+#                last position only); a tick runs the decoder alone: 36 + 1
+#                = 37; attention 12 encoder (non-causal, 1500 frames) + 12
+#                decoder self (causal) + 12 cross (non-causal over 1500) a
+#                forward or prefill, the 12 cross at a tick
 # (inference: no rmsnorm backward anywhere)
 PER_CALL = {
     "deepseek-7b": {"rmsnorm": 61, "rmsnorm_backward": 0,
@@ -99,6 +119,10 @@ PER_CALL = {
                     "flash_attention": 16, "wkv6": 0, "ssd": 0},
     "deepseek-v3-671b": {"rmsnorm": 17, "rmsnorm_backward": 0,
                          "flash_attention": 4, "wkv6": 0, "ssd": 0},
+    "llama-3.2-vision-90b": {"rmsnorm": 21, "rmsnorm_backward": 0,
+                             "flash_attention": 10, "wkv6": 0, "ssd": 0},
+    "whisper-small": {"rmsnorm": 62, "rmsnorm_backward": 0,
+                      "flash_attention": 36, "wkv6": 0, "ssd": 0},
 }
 PER_STEP = {
     "deepseek-7b": {"rmsnorm": 61, "rmsnorm_backward": 0,
@@ -111,7 +135,30 @@ PER_STEP = {
                     "flash_attention": 0, "wkv6": 0, "ssd": 0},
     "deepseek-v3-671b": {"rmsnorm": 17, "rmsnorm_backward": 0,
                          "flash_attention": 0, "wkv6": 0, "ssd": 0},
+    "llama-3.2-vision-90b": {"rmsnorm": 21, "rmsnorm_backward": 0,
+                             "flash_attention": 2, "wkv6": 0, "ssd": 0},
+    "whisper-small": {"rmsnorm": 37, "rmsnorm_backward": 0,
+                      "flash_attention": 12, "wkv6": 0, "ssd": 0},
 }
+# flash attention's instances on the VLM and enc-dec paths, at the prefill
+# and serve phases' batch of 4: (use, arch, Sq, Skv, H, Hkv, D, causal).
+# Skv 1601 and 1500 end in a partial tile of keys; a tick's cross-attention
+# has one query row. The wrapper counts its launches by shape: those two
+# phases assert that every launch of these archs has one of these shapes,
+# and the kernels line reads each shape's count.
+NEW_FLASH = (
+    ("vlm_self", "llama-3.2-vision-90b", 2048, 2048, 64, 8, 128, True),
+    ("vlm_cross", "llama-3.2-vision-90b", 2048, 1601, 64, 8, 128, False),
+    ("vlm_cross_tick", "llama-3.2-vision-90b", 1, 1601, 64, 8, 128, False),
+    ("whisper_encoder", "whisper-small", 1500, 1500, 12, 12, 64, False),
+    ("whisper_self", "whisper-small", 448, 448, 12, 12, 64, True),
+    ("whisper_cross", "whisper-small", 448, 1500, 12, 12, 64, False),
+    ("whisper_cross_tick", "whisper-small", 1, 1500, 12, 12, 64, False),
+)
+NEW_FLASH_B = 4
+# the prompt length of the prefill phase: 2048, and whisper's published text
+# context of 448 (arXiv:2212.04356)
+PREFILL_S = {"whisper-small": 448}
 # the training path: deepseek-7b at full width cut to TRAIN_LAYERS layers,
 # float32, B x S tokens a step, blocked attention (the reference launcher's
 # choice above 512 tokens), no remat; a step launches 2L + 1 rmsnorm
@@ -136,23 +183,28 @@ WIDTH_BACKWARD_DSV3 = {"layers": 2, "experts": 16, "batch": 1, "seq": 256}
 # the planner phase: four jobs, each profiled over the planner's depth
 # ladder on the card (core/hbm_planner.py), extrapolated to the job's
 # n_layers and held against one measured step at that depth. deepseek-7b's
-# float32 training is extrapolated to PLANNER_TRAIN_LAYERS (more than 1.4x
-# the ladder's top of 7; 30 layers would need two cards), then selected for
+# float32 training is extrapolated to PLANNER_TRAIN_LAYERS (2.9x the
+# ladder's top of 7; a step of 20 layers peaks at ~76 GiB, near the card's
+# 79.2, so that the allocator's reserve beside the peak is read where the
+# card is nearly full; 30 layers would need two cards), then selected for
 # at its full 30; olmoe-1b-7b's float32 training (6.7 GB of state a layer)
 # over the ladder of PLANNER_MOE_ANCHOR, extrapolated to
 # PLANNER_MOE_LAYERS (1.5x the ladder's top; there the allocator reserves
 # 75.0 of an H100 80GB HBM3's 79.2 GiB), then selected for at its full 16.
 # PLANNER_GATE is the reference's own bound (tests/test_planner.py).
 PLANNER_B, PLANNER_S = 4, 2048
-PLANNER_TRAIN_B, PLANNER_TRAIN_LAYERS, PLANNER_TRAIN_ANCHOR = 2, 12, 7
+PLANNER_TRAIN_B, PLANNER_TRAIN_LAYERS, PLANNER_TRAIN_ANCHOR = 2, 20, 7
 PLANNER_MOE_LAYERS, PLANNER_MOE_ANCHOR = 9, 6
 PLANNER_GATE = 0.10
 N_LAYERS = {"deepseek-7b": 30, "rwkv6-7b": 32, "zamba2-7b": 81,
-            "olmoe-1b-7b": 16, "deepseek-v3-671b": 61}
+            "olmoe-1b-7b": 16, "deepseek-v3-671b": 61,
+            "llama-3.2-vision-90b": 100, "whisper-small": 12}
 # depth cut at full width, where the model does not fit one card whole:
 # deepseek-v3-671b's 61 layers are 682.6 G parameters; 4 (3 dense, 1 MoE,
-# with the MTP block) are 26.7 G, 53.4 GB in bfloat16
-CUT_LAYERS = {"deepseek-v3-671b": 4}
+# with the MTP block) are 26.7 G, 53.4 GB in bfloat16.
+# llama-3.2-vision-90b's 100 layers are 87.7 G parameters (175 GB in
+# bfloat16); 10, two groups of period 5, are 10.66 G, 21.3 GB
+CUT_LAYERS = {"deepseek-v3-671b": 4, "llama-3.2-vision-90b": 10}
 # Models whose bfloat16 decode is no check of their bfloat16 forward at full
 # depth, so that decode is gated with float32 arithmetic on the same
 # (bfloat16) weights; the bfloat16 numbers are recorded, not gated.
@@ -166,7 +218,7 @@ CUT_LAYERS = {"deepseek-v3-671b": 4}
 # bfloat16 gate.
 DECODE_IN_F32 = ("rwkv6-7b", "zamba2-7b", "olmoe-1b-7b", "deepseek-v3-671b")
 SERVE_ARCHS = ("deepseek-7b", "rwkv6-7b", "zamba2-7b", "olmoe-1b-7b",
-               "deepseek-v3-671b")
+               "deepseek-v3-671b", "llama-3.2-vision-90b", "whisper-small")
 
 
 class SmokeFailure(RuntimeError):
@@ -206,6 +258,25 @@ def time_in_turns(fns: dict, iters: int, rounds: int = 2) -> dict:
             t = time_ms(fn, iters)
             best[name] = t if best[name] is None else min(best[name], t)
     return best
+
+
+def graph_ms(fn, calls: int = 10) -> float:
+    """Device time of one call with the host's cost taken out: `calls`
+    calls captured in a CUDA graph, the graph replayed and timed by CUDA
+    events. Where a kernel is shorter than its launch on the host, `time_ms`
+    reads the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = time_ms(graph.replay, 5) / calls
+    del graph
+    return ms
 
 
 def host_us_in_turns(fns: dict, calls: int = 1000, rounds: int = 2) -> dict:
@@ -541,10 +612,13 @@ def phase_kernels(state):
     bf16, f32 = torch.bfloat16, torch.float32
     timed = []
     # deepseek-7b and rwkv6-7b (4096), zamba2-7b (3584, and 7168 for ssm_norm),
-    # at a prefill's rows and a decode step's
+    # llama-3.2-vision-90b (8192) at a prefill's rows and a decode step's;
+    # whisper-small (768) at the encoder's 4 x 1500 rows, the decoder's
+    # 4 x 448 and a tick's 4
     host = []
     for rows, d in ((8192, 4096), (8, 4096), (8192, 3584), (8, 3584),
-                    (8192, 7168), (8, 7168)):
+                    (8192, 7168), (8, 7168), (8192, 8192), (4, 8192),
+                    (6000, 768), (1792, 768), (4, 768)):
         x = randn((rows, d), bf16)
         sc = (1.0 + 0.1 * randn((d,), torch.float32)).to(bf16)
         got = rmsnorm(x, sc)
@@ -705,6 +779,66 @@ def phase_kernels(state):
                       "tflops": flops / t["ms"] / 1e9})
         del q, k, v, qt, kt, vt, got
         torch.cuda.empty_cache()
+    # the VLM and enc-dec paths' instances (NEW_FLASH), bf16 at B = 4: key
+    # lengths that end in a partial tile, a single query row, non-causal
+    # with Sq != Skv, and D = 64. k and v are views of buffers whose rows
+    # past Skv hold NaN: a kernel that read or weighed a key past the end
+    # of the tensor would put NaN in the output
+    for use, _, Sq, Skv, H, Hkv, D, causal in NEW_FLASH:
+        B = NEW_FLASH_B
+        q = randn((B, Sq, H, D), bf16)
+        k, v = (randn((B, Skv + 128, Hkv, D), bf16).index_fill_(
+            1, torch.arange(Skv, Skv + 128, device=dev), float("nan"))[:, :Skv]
+            for _ in range(2))
+        got = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err, ok = close(got, flash_attention_plain(q, k, v, causal=causal), bf16)
+        checks.append({"kernel": "flash_attention", "use": use,
+                       "shape": [B, Sq, Skv, H, Hkv, D], "causal": causal,
+                       "dtype": str(bf16), "nan_past_skv": True,
+                       "max_abs_err": err, "tol": TOL[bf16], "ok": ok})
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        t = time_in_turns({
+            "ms": lambda: flash_attention(q, k, v, causal=causal),
+            "plain_ms": lambda: flash_attention_plain(q, k, v, causal=causal),
+            "library_ms": lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=Hkv != H),
+        }, iters=20)
+        # the device's time alone, in a CUDA graph: the short calls are
+        # shorter than their launch on the host
+        t["graph_ms"] = graph_ms(lambda: flash_attention(q, k, v, causal=causal))
+        t["library_graph_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=Hkv != H))
+        bnd, by, flops = attn_bound(B, Sq, Skv, H, Hkv, D, causal, bf16)
+        timed.append({"name": "flash_attention", "use": use,
+                      "shape": [B, Sq, Skv, H, Hkv, D], "causal": causal,
+                      "dtype": str(bf16), "max_abs_err": err, **t,
+                      "bound_ms": bnd, "bound_by": by,
+                      "share_of_bound": bnd / t["ms"],
+                      "tflops": flops / t["ms"] / 1e9})
+        del q, k, v, qt, kt, vt, got
+        torch.cuda.empty_cache()
+    # and in float32 at the parity phase's shapes (B = 1, S = 64; whisper's
+    # encoder over its 1500 frames), the same NaN past Skv
+    for Sq, Skv, H, Hkv, D, causal in ((64, 1601, 64, 8, 128, False),
+                                       (1, 1601, 64, 8, 128, False),
+                                       (64, 64, 64, 8, 128, True),
+                                       (1500, 1500, 12, 12, 64, False),
+                                       (64, 1500, 12, 12, 64, False),
+                                       (1, 1500, 12, 12, 64, False),
+                                       (64, 64, 12, 12, 64, True)):
+        q = randn((1, Sq, H, D), f32)
+        k, v = (randn((1, Skv + 128, Hkv, D), f32).index_fill_(
+            1, torch.arange(Skv, Skv + 128, device=dev), float("nan"))[:, :Skv]
+            for _ in range(2))
+        got = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err, ok = close(got, flash_attention_plain(q, k, v, causal=causal), f32)
+        checks.append({"kernel": "flash_attention",
+                       "shape": [1, Sq, Skv, H, Hkv, D], "causal": causal,
+                       "dtype": str(f32), "nan_past_skv": True,
+                       "max_abs_err": err, "tol": TOL[f32], "ok": ok})
+        del q, k, v, got
     # wkv6 at rwkv6-7b's prefill (B=4, S=2048, H=64, K=64) and decode step
     # (B=8 slots, S=1, the state read and written in place)
     for (B, S, dtype, with_state) in ((4, 2048, bf16, False), (4, 2048, f32, False),
@@ -808,14 +942,49 @@ def numpy_weights(model, seed):
     return unflatten_tree(flat)
 
 
+def media_batch(cfg, B, seed, device):
+    """The vlm family's media or the audio family's frames for a batch of
+    B, random from `seed` on `device` (constant ones would make every key of
+    the cross-attention equal, and its softmax uniform); {} for the other
+    families."""
+    if cfg.family == "vlm":
+        name, rows = "media", cfg.cross_attn.n_media_tokens
+    elif cfg.family == "audio":
+        name, rows = "frames", cfg.encdec.enc_len
+    else:
+        return {}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return {name: torch.randn((B, rows, cfg.d_model), generator=gen,
+                              device=device)}
+
+
+@torch.no_grad()
+def decode_batch(model, batch):
+    """What decode_step takes beside the tokens: the vlm's media as they
+    are, the audio family's encoder output over the frames (as the
+    reference's decode test feeds it)."""
+    from repro_torch.models.transformer import encdec_encode
+    if model.cfg.family == "vlm":
+        return {"media": batch["media"]}
+    if model.cfg.family == "audio":
+        frames = batch["frames"].to(model.device, model.compute_dtype)
+        return {"enc_out": encdec_encode(model.params["layers"], frames,
+                                         model.cfg, model.run)}
+    return {}
+
+
 def phase_parity(state):
     """The card's kernel path against the same model on the CPU (plain
     versions), float32, each model at full width and cut in depth:
     deepseek-7b at 2 layers (weights from numpy), rwkv6-7b at 2 layers,
     zamba2-7b at 6 (one group of Mamba2 blocks and one shared attention
-    block), olmoe-1b-7b at 2 layers, and deepseek-v3-671b at 1 dense and 1
-    MoE layer with 16 of its 256 experts and no MTP block (weights drawn on
-    the card by the model's own init)."""
+    block), olmoe-1b-7b at 2 layers, deepseek-v3-671b at 1 dense and 1
+    MoE layer with 16 of its 256 experts and no MTP block, whisper-small
+    whole and llama-3.2-vision-90b at 5 layers (one group) with its gate
+    set to 0.5 (weights drawn on the card by the model's own init; the vlm's
+    gate starts at 0, which would hide the cross path); random media and
+    frames."""
     from dataclasses import replace
     from repro_torch.configs import RunConfig, get_arch
     from repro_torch.convert import params_from_numpy
@@ -846,7 +1015,14 @@ def phase_parity(state):
                        "256 -> 16 (top-8 and the shared expert kept), no MTP "
                        "block: the float32 model of 1 dense + 1 MoE layer + "
                        "MTP at full width is over 100 GB; width, MLA ranks, "
-                       "heads and vocabulary full")):
+                       "heads and vocabulary full"),
+            ("whisper-small", get_arch("whisper-small"), (1, 64),
+             "none: 12 encoder layers over 1500 frames, 12 decoder layers"),
+            ("llama-3.2-vision-90b",
+             replace(get_arch("llama-3.2-vision-90b"), n_layers=5), (1, 64),
+             "depth 100 -> 5: one group of 4 self-attention layers and the "
+             "gated cross-attention layer (25.5 GB in float32), over all "
+             "1601 media tokens; width and vocabulary full")):
         cpu = Model(cfg, run, device="cpu")
         if arch == "deepseek-7b":
             tree = numpy_weights(cpu, state["seed"])
@@ -855,14 +1031,18 @@ def phase_parity(state):
             del tree
         else:
             gpu = Model(cfg, run).init(seed=state["seed"])
+            if cfg.family == "vlm":
+                gpu.params["layers"]["cross"]["attn"]["gate"].fill_(0.5)
             cpu.load_state_dict(gpu.state_dict())
         tokens = np.random.default_rng(state["seed"] + 1).integers(
             0, cfg.vocab_size, size=(B, S))
+        batch = {"tokens": tokens,
+                 **media_batch(cfg, B, state["seed"] + 4, "cpu")}
         t0 = time.monotonic()
-        want = cpu.forward({"tokens": tokens})
+        want = cpu.forward(batch)
         cpu_s = time.monotonic() - t0
         reset_counts()
-        got_gpu = gpu.forward({"tokens": tokens})
+        got_gpu = gpu.forward(batch)
         got = got_gpu.cpu()
         counts = read_counts()
         err = float((got - want).abs().max())
@@ -870,18 +1050,24 @@ def phase_parity(state):
         if cfg.family != "dense":
             # the decode path (wkv6 at S=1 with the state in place; Mamba2's
             # carried window and state; MLA's absorbed latent cache and the
-            # MoE dispatch at 2 tokens) against the card's own forward, at
-            # the reference's gate (tests/test_models.py)
+            # MoE dispatch at 2 tokens; cross-attention with one query row
+            # over the media or the encoder's output) against the card's
+            # own forward, at the reference's gate (tests/test_models.py)
             caches = gpu.init_caches(B, S)
+            extra = decode_batch(gpu, batch)
             for t in range(8):
-                lg, caches = gpu.decode_step({"tokens": tokens[:, t:t + 1]}, caches)
+                lg, caches = gpu.decode_step(
+                    {"tokens": tokens[:, t:t + 1], **extra}, caches)
                 decode_errs.append(float((lg[:, 0] - got_gpu[:, t]).abs().max()))
-            del caches
+            del caches, extra
         decode_gate = 5e-4
         emit({"phase": "parity", "arch": cfg.name, "n_layers": cfg.n_layers,
               "cut": cut, "dtype": "float32", "allow_tf32": False, "batch": B,
-              "seq": S, "logits_max_abs_err": err,
-              "logits_max_abs": float(want.abs().max()), "gate": gate,
+              "seq": S, "random_inputs": sorted(k for k in batch if k != "tokens"),
+              "tanh_gate": 0.5 if cfg.family == "vlm" else None,
+              "logits_max_abs_err": err,
+              "logits_max_abs": float(want[..., :cfg.vocab_size].abs().max()),
+              "gate": gate,
               "gate_reason": "same float32 arithmetic, sums over the width and "
                              "the recurrences taken in another order on the card",
               "decode_vs_forward_max_abs_err": decode_errs,
@@ -894,7 +1080,7 @@ def phase_parity(state):
         require(all(counts[name] > 0 for name in KERNELS
                     if PER_CALL[arch][name] > 0),
                 f"parity {arch}: a kernel of the path was not launched: {counts}")
-        del cpu, gpu, got, got_gpu, want
+        del cpu, gpu, got, got_gpu, want, batch
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -906,6 +1092,8 @@ def reset_counts():
     from repro_torch.kernels.wkv6 import wkv6
     for fn in (rmsnorm, rmsnorm_backward, flash_attention, wkv6, ssd):
         fn.launches = 0
+    flash_attention.launches_by_shape = {}
+    rmsnorm.launches_by_width = {}
 
 
 def read_counts():
@@ -917,6 +1105,46 @@ def read_counts():
             "rmsnorm_backward": rmsnorm_backward.launches,
             "flash_attention": flash_attention.launches,
             "wkv6": wkv6.launches, "ssd": ssd.launches}
+
+
+def read_shapes():
+    """The wrappers' counts by shape: flash attention's by (B, Sq, Skv, H,
+    Hkv, D, causal), rmsnorm's by row width."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    return {"flash_attention": dict(flash_attention.launches_by_shape),
+            "rmsnorm": dict(rmsnorm.launches_by_width)}
+
+
+def add_shapes(total, shapes):
+    for name, by in shapes.items():
+        for key, n in by.items():
+            total[name][key] = total[name].get(key, 0) + n
+
+
+def add_launches(state, counts, shapes):
+    """Add one main-path run's counts to the totals of the kernels line."""
+    for name in counts:
+        state["launches"][name] += counts[name]
+    add_shapes(state["shape_launches"], shapes)
+
+
+def shapes_text(shapes):
+    """`read_shapes()`'s counts with their keys as text, for the JSON lines."""
+    return {name: {",".join(map(str, key)) if isinstance(key, tuple)
+                   else str(key): n for key, n in by.items()}
+            for name, by in shapes.items()}
+
+
+def check_flash_shapes(arch, shapes):
+    """On the VLM and enc-dec paths every flash attention launch has one of
+    NEW_FLASH's shapes, those that the kernels phase checks and times."""
+    keys = {(NEW_FLASH_B, Sq, Skv, H, Hkv, D, causal)
+            for _, a, Sq, Skv, H, Hkv, D, causal in NEW_FLASH if a == arch}
+    if keys:
+        other = set(shapes["flash_attention"]) - keys
+        require(not other, f"{arch}: flash attention launched at shapes "
+                           f"{sorted(other)}, not among NEW_FLASH's")
 
 
 def timed_call(fn):
@@ -975,10 +1203,11 @@ def rescaled_expert_drift(model, cfg, tokens, max_len, n=4):
 
 
 def prefill_path(state, arch):
-    """One model at full width and depth (deepseek-v3-671b: depth cut to
-    CUT_LAYERS), bfloat16: forward, prefill and decode_step through the
-    kernels, held against each other, with the kernels' launches counted
-    and asserted."""
+    """One model at full width and depth (deepseek-v3-671b and
+    llama-3.2-vision-90b: depth cut to CUT_LAYERS), bfloat16: forward,
+    prefill and decode_step through the kernels, held against each other,
+    with the kernels' launches counted and asserted. The vlm's gates are
+    set to 0.5 and its media, or whisper's frames, drawn at random."""
     from dataclasses import replace
     from repro_torch.configs import RunConfig, get_arch
     from repro_torch.models.model import build_model
@@ -988,39 +1217,59 @@ def prefill_path(state, arch):
     cut = "none"
     if arch in CUT_LAYERS:
         cfg = replace(cfg, n_layers=CUT_LAYERS[arch])
-        cut = (f"depth {N_LAYERS[arch]} -> {cfg.n_layers} (the MTP block's "
-               f"weights kept); width, heads, experts and vocabulary full")
+        cut = (f"depth {N_LAYERS[arch]} -> {cfg.n_layers} "
+               + ("(two groups of 4 self-attention layers and 1 gated "
+                  "cross-attention layer); width, heads, media tokens"
+                  if cfg.family == "vlm" else
+                  "(the MTP block's weights kept); width, heads, experts")
+               + " and vocabulary full")
     run = RunConfig(param_dtype="bfloat16", compute_dtype="bfloat16",
                     attn_impl="kernel")
-    B, S, max_len, n_decode = 4, 2048, 2304, 8
+    B, S, n_decode = 4, PREFILL_S.get(arch, 2048), 8
+    max_len = S + 256
     per_call, per_step = PER_CALL[arch], PER_STEP[arch]
     torch.cuda.reset_peak_memory_stats()
     model, init_ms = timed_call(lambda: build_model(cfg, run, seed=state["seed"]))
+    if cfg.family == "vlm":
+        model.params["layers"]["cross"]["attn"]["gate"].fill_(0.5)
     tokens = torch.from_numpy(np.random.default_rng(state["seed"] + 2).integers(
         0, cfg.vocab_size, size=(B, S)))
-    model.forward({"tokens": tokens[:, :64]})        # warm-up of the libraries
+    extras = media_batch(cfg, B, state["seed"] + 5, "cuda")
+    batch = {"tokens": tokens, **extras}
+    model.forward({"tokens": tokens[:, :64], **extras})   # warm-up of the libraries
 
     launches = dict.fromkeys(KERNELS, 0)
+    shapes = {"flash_attention": {}, "rmsnorm": {}}
 
     def counted(fn, want):
         reset_counts()
         out, ms = timed_call(fn)
-        got = read_counts()
+        got, by = read_counts(), read_shapes()
         require(got == want, f"{arch}: launch counts {got}, expected {want}")
+        check_flash_shapes(arch, by)
         for name in launches:
             launches[name] += got[name]
+        add_shapes(shapes, by)
         return out, ms
 
-    lg_f, forward_ms = counted(lambda: model.forward({"tokens": tokens}), per_call)
+    lg_f, forward_ms = counted(lambda: model.forward(batch), per_call)
     require(lg_f.shape == (B, S, model.padded_vocab), f"forward shape {lg_f.shape}")
     require(bool(torch.isfinite(lg_f).all()), f"{arch} forward: logits not finite")
     last_f = lg_f[:, -1].float()
     head_f = lg_f[:, :n_decode].float()
-    logits_max_abs = float(lg_f.abs().max())
+    # largest |logit| without a (B, S, V) temporary, which the peak would count
+    logits_max_abs = max(abs(float(m)) for m in
+                         torch.aminmax(lg_f[..., :cfg.vocab_size]))
     del lg_f
+    # the prefill's own peak, apart from the forward's (B, S, V) logits
+    forward_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     (lg_p, caches), prefill_ms = counted(
-        lambda: model.prefill({"tokens": tokens}, max_len), per_call)
+        lambda: model.prefill(batch, max_len), per_call)
+    prefill_peak = torch.cuda.max_memory_allocated()
     require(lg_p.shape == (B, 1, model.padded_vocab), f"prefill shape {lg_p.shape}")
+    require(lg_p.untyped_storage().nbytes() == lg_p.numel() * lg_p.element_size(),
+            f"{arch}: prefill's logits hold more than the last position")
     prefill_err = float((lg_p[:, 0].float() - last_f).abs().max())
 
     # bfloat16 keeps 8 bits: a logit of size 4 moves by 0.016 a rounding, and
@@ -1052,16 +1301,18 @@ def prefill_path(state, arch):
         # engine's teacher forcing), each step against forward's row
         require(all(float(leaf.abs().max()) == 0.0 for leaf in leaves(caches)),
                 f"{arch}: prefill caches are not zero")
+        extra = decode_batch(model, batch)
         for t in range(n_decode):
             (lg_d, caches), ms = counted(
-                lambda: model.decode_step({"tokens": tokens[:, t:t + 1]}, caches),
+                lambda: model.decode_step({"tokens": tokens[:, t:t + 1], **extra},
+                                          caches),
                 per_step)
             decode_ms.append(ms)
             got, ref = lg_d[:, 0].float(), head_f[:, t]
             require(bool(torch.isfinite(got).all()), f"{arch} decode: logits not finite")
             decode_errs.append(float((got - ref).abs().max()))
             agree.append(float((got.argmax(-1) == ref.argmax(-1)).float().mean()))
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(forward_peak, torch.cuda.max_memory_allocated())
     profiled = {}
     if cfg.family == "moe":
         # where a MoE model's forward and decode step spend the device's
@@ -1122,8 +1373,9 @@ def prefill_path(state, arch):
           "f32_decode_vs_forward_max_abs_err": f32_errs, "f32_gate": f32_gate,
           **rescaled, **profiled,
           "launches_per_call": per_call, "launches_per_decode_step": per_step,
-          "launches": dict(launches),
-          "peak_memory_bytes": peak, "gpu": state["smi"]})
+          "launches": dict(launches), "launches_by_shape": shapes_text(shapes),
+          "peak_memory_bytes": peak, "prefill_peak_memory_bytes": prefill_peak,
+          "gpu": state["smi"]})
     require(prefill_err < gate, f"{arch} prefill vs forward {prefill_err} (gate {gate})")
     if arch not in DECODE_IN_F32:
         require(max(decode_errs) < gate,
@@ -1131,10 +1383,9 @@ def prefill_path(state, arch):
     else:
         require(max(f32_errs) < f32_gate,
                 f"{arch} float32 decode vs forward {f32_errs} (gate {f32_gate})")
-    for name in launches:
-        state["launches"][name] += launches[name]
+    add_launches(state, launches, shapes)
     state["prefill_launches"][arch] = dict(launches)
-    del model, caches, last_f, head_f
+    del model, caches, last_f, head_f, batch, extras
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1161,7 +1412,7 @@ def serve_path(state, arch, slots, n_req, prompt_len, max_new, max_len):
     torch.cuda.reset_peak_memory_stats()
     with contextlib.redirect_stdout(text):
         done, wall_ms = timed_call(lambda: serve.main(argv))
-    counts = read_counts()
+    counts, shapes = read_counts(), read_shapes()
     require(len(done) == n_req, f"serve {arch}: {len(done)} of {n_req} finished")
     require(all(len(r.out_tokens) == max_new for r in done),
             f"serve {arch}: a request ended short")
@@ -1178,6 +1429,7 @@ def serve_path(state, arch, slots, n_req, prompt_len, max_new, max_len):
             f"serve {arch}: {ticks} ticks")
     want = {name: n * ticks for name, n in per_step.items()}
     require(counts == want, f"serve {arch}: launches {counts}, expected {want}")
+    check_flash_shapes(arch, shapes)
     run_s = max(r.finished_at for r in done) - min(r.submitted_at for r in done)
     n_tokens = sum(len(r.out_tokens) for r in done)
     emit({"phase": "serve", "arch": arch, "argv": argv, "requests": len(done),
@@ -1186,11 +1438,10 @@ def serve_path(state, arch, slots, n_req, prompt_len, max_new, max_len):
           "tick_ms": run_s * 1e3 / ticks,
           "with_model_init_ms": wall_ms,
           "launches_per_tick": per_step,
-          "launches": counts,
+          "launches": counts, "launches_by_shape": shapes_text(shapes),
           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
           "stdout": text.getvalue().strip().splitlines(), "gpu": state["smi"]})
-    for name in counts:
-        state["launches"][name] += counts[name]
+    add_launches(state, counts, shapes)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1206,6 +1457,12 @@ def phase_serve(state):
     serve_path(state, "olmoe-1b-7b", slots=8, n_req=16, prompt_len=16,
                max_new=16, max_len=64)
     serve_path(state, "deepseek-v3-671b", slots=8, n_req=8, prompt_len=16,
+               max_new=16, max_len=64)
+    # 4 slots, the batch of NEW_FLASH's tick shapes; the engine feeds the
+    # reference's all-zero media and encoder output
+    serve_path(state, "llama-3.2-vision-90b", slots=4, n_req=4, prompt_len=16,
+               max_new=16, max_len=64)
+    serve_path(state, "whisper-small", slots=4, n_req=8, prompt_len=16,
                max_new=16, max_len=64)
 
 
@@ -1365,7 +1622,7 @@ def width_backward_dsv3(state):
     reset_counts()
     (loss, metrics, grads), ms = timed_call(
         lambda: loss_and_grads(model, model.params, batch))
-    counts = read_counts()
+    counts, shapes = read_counts(), read_shapes()
     peak = torch.cuda.max_memory_allocated()
     names = sorted(flatten_tree(grads))
     not_finite = [n for n, g in zip(names, leaves(grads))
@@ -1395,8 +1652,7 @@ def width_backward_dsv3(state):
             f"train width {cfg.name}: loss {float(loss)}, terms {terms}")
     require(not not_finite, f"train width {cfg.name}: gradients not finite: "
                             f"{not_finite}")
-    for name in counts:
-        state["launches"][name] += counts[name]
+    add_launches(state, counts, shapes)
     del model, grads, loss, metrics
     gc.collect()
     torch.cuda.empty_cache()
@@ -1434,7 +1690,7 @@ def train_full_width(state, arch, layers, cut):
     text = io.StringIO()
     with contextlib.redirect_stdout(text):
         (train_state, report), wall_ms = timed_call(lambda: train_cli.main(argv))
-    counts = read_counts()
+    counts, shapes = read_counts(), read_shapes()
     peak = torch.cuda.max_memory_allocated()
     cfg = replace(get_arch(arch), n_layers=L)
     per_step = train_norms(cfg)
@@ -1503,8 +1759,7 @@ def train_full_width(state, arch, layers, cut):
             f"train {arch}: restored step {restored_step}, extra {extra}")
     require(bit_exact, f"train {arch}: resume not bit-exact (loss {loss_a} vs "
                        f"{loss_b})")
-    for name in counts:
-        state["launches"][name] += counts[name]
+    add_launches(state, counts, shapes)
     del model, state_b, want_params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1551,7 +1806,7 @@ def planner_job(state, arch, mode, run, kernels, n_layers=None,
     rep = planner.plan(cfg, shape, run=run, anchor_layers=anchor)
     truth = CUDAMemoryProfiler().profile(build_step(cfg, shape, run),
                                          cfg.n_layers)
-    counts = read_counts()
+    counts, shapes = read_counts(), read_shapes()
     GiB = 1024 ** 3
     pred = rep.model.predict(cfg.n_layers)
     rel = abs(pred - truth.job_mem_bytes) / truth.job_mem_bytes
@@ -1590,8 +1845,7 @@ def planner_job(state, arch, mode, run, kernels, n_layers=None,
     require(all(counts[k] > 0 for k in kernels),
             f"planner {arch} {mode}: a kernel of the path was not launched: "
             f"{counts}")
-    for name in counts:
-        state["launches"][name] += counts[name]
+    add_launches(state, counts, shapes)
     return rep, truth, planner
 
 
@@ -1651,9 +1905,11 @@ def kernels_line(state):
     """One entry for each kernel at the prefill shape of the model that
     carries it (the rmsnorm backward: at the train phase's, in its float32;
     flash attention at D = 128 and, as its own entry, at deepseek-v3's
-    D = 192); `launches` counts the prefill, serve, train and planner
-    phases (the D = 192 instance: deepseek-v3-671b's prefill phase, which
-    alone runs it)."""
+    D = 192, and at each shape of NEW_FLASH; rmsnorm at d = 8192 and 768
+    too); `launches` counts the prefill, serve, train and planner phases
+    (the D = 192 instance: deepseek-v3-671b's prefill phase, which alone
+    runs it; the NEW_FLASH shapes and the two rmsnorm widths: the wrappers'
+    counts at that shape or width)."""
     meta = {
         "rmsnorm": {"source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
                     "replaces": "src/repro/kernels/rmsnorm.py:28",
@@ -1683,20 +1939,43 @@ def kernels_line(state):
         "shape": [4, 2048, 2048, 128, 128, 192],
         "timed_as": "flash_attention",
         "launches": state["prefill_launches"]["deepseek-v3-671b"]["flash_attention"]}
+    # the VLM and enc-dec paths' instances (NEW_FLASH), each at its own
+    # shape, with the launches the wrapper counted at that shape on the main
+    # path
+    by_shape = state["shape_launches"]["flash_attention"]
+    for use, _, Sq, Skv, H, Hkv, D, causal in NEW_FLASH:
+        meta[f"flash_attention_{use}"] = {
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:86",
+            "shape": [NEW_FLASH_B, Sq, Skv, H, Hkv, D],
+            "timed_as": "flash_attention", "use": use,
+            "launches": by_shape.get((NEW_FLASH_B, Sq, Skv, H, Hkv, D, causal), 0)}
+    # rmsnorm at the two new widths, with the launches the wrapper counted
+    # at that width on the main path
+    for name, shape in (("rmsnorm_d8192", [8192, 8192]),
+                        ("rmsnorm_d768", [6000, 768])):
+        meta[name] = {"source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                      "replaces": "src/repro/kernels/rmsnorm.py:28",
+                      "shape": shape, "timed_as": "rmsnorm",
+                      "launches": state["shape_launches"]["rmsnorm"].get(
+                          shape[1], 0)}
     out = []
     bf16 = str(torch.bfloat16)
     for name, m in meta.items():
         t = next(x for x in state["timed"] if x["name"] == m.get("timed_as", name)
-                 and x["shape"] == m["shape"]
+                 and x["shape"] == m["shape"] and x.get("use") == m.get("use")
                  and x["dtype"] == m.get("dtype", bf16))
         launches = m.get("launches", state["launches"].get(name))
         require(launches > 0, f"{name}: the main path never launched it")
         out.append({"name": name, "route": "cuda", "source": m["source"],
                     "replaces": m["replaces"], "launches": launches,
-                    "max_abs_err": state["worst_err"][name], "ms": t["ms"],
+                    "max_abs_err": state["worst_err"].get(name, t["max_abs_err"]),
+                    "ms": t["ms"],
                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                     "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                    "shape": m["shape"], "dtype": t["dtype"]})
+                    "shape": m["shape"], "dtype": t["dtype"],
+                    **{k: t[k] for k in ("graph_ms", "library_graph_ms")
+                       if k in t}})
     emit({"kernels": out})
 
 
@@ -1720,7 +1999,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
 
     state = {"seed": args.seed, "verbose": args.verbose, "smi": smi_line(),
-             "launches": dict.fromkeys(KERNELS, 0), "prefill_launches": {}}
+             "launches": dict.fromkeys(KERNELS, 0), "prefill_launches": {},
+             "shape_launches": {"flash_attention": {}, "rmsnorm": {}}}
     run = {"env": phase_env, "kernels": phase_kernels, "parity": phase_parity,
            "prefill": phase_prefill, "serve": phase_serve, "train": phase_train,
            "planner": phase_planner}

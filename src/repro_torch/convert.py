@@ -26,9 +26,13 @@ def _moe_leaves(mla: bool, dense_layers: bool):
 
 
 # the cache leaves of each ported family (the moe family: GQA or MLA, with
-# or without leading dense layers), as paths joined by dots
+# or without leading dense layers), as paths joined by dots; the vlm's are
+# its self-attention blocks' (G, period - 1, ...), the audio family's its
+# decoder layers'
 CACHE_LEAVES = {
     "dense": ("k", "v", "pos"),
+    "vlm": ("k", "v", "pos"),
+    "audio": ("k", "v", "pos"),
     "ssm": ("wkv", "tm_last", "cm_last"),
     "hybrid": ("mamba.h", "mamba.conv", "attn.k", "attn.v", "attn.pos"),
     "moe": _moe_leaves(False, False),
@@ -36,13 +40,14 @@ CACHE_LEAVES = {
     "moe-mla": _moe_leaves(True, False),
     "moe-mla+dense": _moe_leaves(True, True),
 }
-# (leaf, its batch axis, leaf whose axis 2 is the cache length or None)
-_CACHE_SIZES = {"dense": ("k", 1, "k"), "ssm": ("wkv", 1, None),
-                "hybrid": ("mamba.h", 2, "attn.k"),
-                "moe": ("moe.pos", 1, "moe.k"),
-                "moe+dense": ("moe.pos", 1, "moe.k"),
-                "moe-mla": ("moe.pos", 1, "moe.ckv"),
-                "moe-mla+dense": ("moe.pos", 1, "moe.ckv")}
+# (leaf, its batch axis, leaf with the cache length or None, its axis)
+_CACHE_SIZES = {"dense": ("k", 1, "k", 2), "ssm": ("wkv", 1, None, None),
+                "hybrid": ("mamba.h", 2, "attn.k", 2),
+                "moe": ("moe.pos", 1, "moe.k", 2),
+                "moe+dense": ("moe.pos", 1, "moe.k", 2),
+                "moe-mla": ("moe.pos", 1, "moe.ckv", 2),
+                "moe-mla+dense": ("moe.pos", 1, "moe.ckv", 2),
+                "vlm": ("k", 2, "k", 3), "audio": ("k", 1, "k", 2)}
 
 
 def _cache_kind(model: Model) -> str:
@@ -139,17 +144,17 @@ def _wanted_caches(flat: Mapping, model: Model) -> Dict[str, torch.Tensor]:
     and cache length that `flat` carries."""
     kind = _cache_kind(model)
     _check_leaves("caches", flat, CACHE_LEAVES[kind])
-    leaf, b_axis, len_leaf = _CACHE_SIZES[kind]
+    leaf, b_axis, len_leaf, len_axis = _CACHE_SIZES[kind]
     shape = np.shape(flat[leaf])
     if len(shape) <= b_axis:
         raise ValueError(f"caches: {leaf} has shape {shape}, no batch axis")
     max_len = 1
     if len_leaf is not None:
         len_shape = np.shape(flat[len_leaf])
-        if len(len_shape) < 3:
+        if len(len_shape) <= len_axis:
             raise ValueError(f"caches: {len_leaf} has shape {len_shape}, no "
                              f"length axis")
-        max_len = len_shape[2]
+        max_len = len_shape[len_axis]
     return flatten_tree(model.init_caches(shape[b_axis], max_len,
                                           device="meta"))
 
@@ -163,7 +168,9 @@ def caches_from_numpy(tree: Mapping, model: Model) -> Dict:
                "attn": {"k", "v": (G,B,Smax,K,D), "pos": (G,B)}};
       moe:    {"moe": the dense tree, or for MLA {"ckv": (L,B,Smax,r),
                "kr": (L,B,Smax,rope), "pos": (L,B)}, and "dense" of the same
-               kind when the config has leading dense layers}."""
+               kind when the config has leading dense layers};
+      vlm:    {"k", "v": (G,P-1,B,Smax,K,D), "pos": (G,P-1,B)};
+      audio:  the dense tree over the decoder's layers."""
     flat = flatten_tree(tree)
     want = _wanted_caches(flat, model)
     for path, w in want.items():

@@ -117,8 +117,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  *kernel_strides(q), *kernel_strides(k), *kernel_strides(v),
                  int(bool(causal)), 1.0 / math.sqrt(D), code)
     flash_attention.launches += 1
+    key = (B, Sq, Skv, H, Hkv, D, bool(causal))
+    flash_attention.launches_by_shape[key] = \
+        flash_attention.launches_by_shape.get(key, 0) + 1
     return out
 
 
-# number of kernel launches made through the wrapper
+# number of kernel launches made through the wrapper, in all and by
+# (B, Sq, Skv, H, Hkv, D, causal)
 flash_attention.launches = 0
+flash_attention.launches_by_shape = {}

@@ -152,11 +152,13 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5,
     build.launch_packed("rmsnorm", device, _ARGS, x_ptr, res_ptr, scale_ptr,
                         out_ptr, rows, d, eps, codes, mode)
     rmsnorm.launches += 1
+    rmsnorm.launches_by_width[d] = rmsnorm.launches_by_width.get(d, 0) + 1
     return out
 
 
-# number of kernel launches made through the wrapper
+# number of kernel launches made through the wrapper, in all and by row width
 rmsnorm.launches = 0
+rmsnorm.launches_by_width = {}
 
 
 def rmsnorm_backward_plain(x: torch.Tensor, scale: torch.Tensor,

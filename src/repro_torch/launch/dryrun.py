@@ -11,10 +11,16 @@ once, so that a profiler reads what the step really allocates:
   moments) + one ``make_train_step`` step on a (B, S) batch of tokens and
   labels, for every ported family (the MoE family's loss with the
   router's aux term and the MTP loss); the moments stay alive at the
-  peak, as in the reference's donated step;
+  peak, as in the reference's donated step. The vlm and audio families
+  are refused: their training is not ported yet;
 * ``prefill``: ``Model.prefill`` of a (B, S) prompt into caches of S;
 * ``decode``:  ``Model.init_caches(B, S)`` + one ``decode_step`` of a
   (B, 1) batch.
+
+As the reference's ``input_specs``, the vlm family's batches carry
+``media`` (B, n_media_tokens, d), and the audio family's ``frames`` (B,
+enc_len, d) to prefill and ``enc_out`` of the same shape to decode, in the
+compute dtype.
 
 Inputs are drawn from a generator on the device seeded with ``seed``. On a
 CUDA device the callable resets the allocator's peak statistics between
@@ -33,11 +39,11 @@ from typing import Callable, Optional, Union
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, resolve_dtype
 from repro_torch.configs.base import (MeshConfig, ModelConfig, RunConfig,
                                       ShapeConfig)
 from repro_torch.launch.presets import preset_run
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, refuse_training
 from repro_torch.optim import AdamWConfig
 from repro_torch.train.step import init_train_state, make_train_step
 
@@ -52,6 +58,8 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig,
     (None: the GPU), building its weights, state and inputs there."""
     if shape.mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {shape.mode!r}")
+    if shape.mode == "train":
+        refuse_training(cfg)
     device = resolve_device(device)
     run = run or preset_run(cfg, shape, ONE_DEVICE)
     B, S = shape.global_batch, shape.seq_len
@@ -59,6 +67,21 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig,
     def tokens(generator, n):
         return torch.randint(0, cfg.vocab_size, (B, n), generator=generator,
                              device=device, dtype=torch.int32)
+
+    def inputs(generator, n):
+        """The batch of a serving step: tokens, and the family's media,
+        frames or encoder output."""
+        batch = {"tokens": tokens(generator, n)}
+        if cfg.family in ("vlm", "audio"):
+            if cfg.family == "vlm":
+                name, rows = "media", cfg.cross_attn.n_media_tokens
+            else:
+                name = "enc_out" if shape.mode == "decode" else "frames"
+                rows = cfg.encdec.enc_len
+            batch[name] = torch.randn(
+                (B, rows, cfg.d_model), generator=generator, device=device,
+                dtype=torch.float32).to(resolve_dtype(run.compute_dtype))
+        return batch
 
     def build():
         """Weights, state and inputs on the device -> the step to run."""
@@ -74,10 +97,10 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig,
             return lambda: make_train_step(model, acfg)(state, batch)[1]
         model.init(seed=seed)
         if shape.mode == "prefill":
-            batch = {"tokens": tokens(generator, S)}
+            batch = inputs(generator, S)
             return lambda: model.prefill(batch, S)
         caches = model.init_caches(B, S)
-        batch = {"tokens": tokens(generator, 1)}
+        batch = inputs(generator, 1)
         return lambda: model.decode_step(batch, caches)
 
     def step():

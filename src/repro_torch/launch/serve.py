@@ -12,18 +12,25 @@ so that one card holds a model that does not fit it whole:
       --arch deepseek-v3-671b --layers 4
 
 (3 dense layers and 1 MoE layer of deepseek-v3-671b, 53 GB in bfloat16 with
-its MTP block). The reference's launcher has no such flag.
+its MTP block), or
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch llama-3.2-vision-90b --layers 10
+
+(two groups of 4 self-attention layers and 1 gated cross-attention layer,
+10.66 G parameters, 21.3 GB in bfloat16). The reference's launcher has no
+such flag. The vlm and audio families are fed the reference engine's
+all-zero media and encoder output.
 """
 from __future__ import annotations
 
 import argparse
 import time
-from dataclasses import replace
 
 import numpy as np
 
 from repro_torch import resolve_device
-from repro_torch.configs import get_arch
+from repro_torch.configs import cut_depth, get_arch
 from repro_torch.configs.base import RunConfig
 from repro_torch.models.model import build_model
 from repro_torch.serve.engine import Request, ServeEngine
@@ -63,11 +70,7 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     if args.layers is not None:
-        first = cfg.moe.first_dense_layers if cfg.moe else 0
-        if args.layers <= first:
-            raise ValueError(f"--layers {args.layers}: {cfg.name} has "
-                             f"{first} dense layers before its MoE layers")
-        cfg = replace(cfg, n_layers=args.layers)
+        cfg = cut_depth(cfg, args.layers)
     run = RunConfig(attn_impl="kernel", remat="nothing",
                     param_dtype=args.dtype, compute_dtype=args.dtype)
     model = build_model(cfg, run, device=device, seed=args.seed)

@@ -20,17 +20,18 @@ routed experts counted top_k / n_experts, as the reference counts them);
 for the MoE family the last line gives the router's aux term too. The weights
 are drawn from ``--seed`` by the port's own init, so they are not the
 reference's for the same seed. Returns (final train state, loop report).
+The vlm and audio families are refused: their training is not ported yet.
 """
 from __future__ import annotations
 
 import argparse
-from dataclasses import replace
 
 from repro_torch import resolve_device
-from repro_torch.configs import get_arch
+from repro_torch.configs import cut_depth, get_arch
 from repro_torch.configs.base import RunConfig
 from repro_torch.data.pipeline import ShardedLoader, SyntheticLMDataset
-from repro_torch.models.model import Model, analytic_param_count
+from repro_torch.models.model import (Model, analytic_param_count,
+                                      refuse_training)
 from repro_torch.optim import AdamWConfig
 from repro_torch.train.loop import LoopConfig, train_loop
 from repro_torch.train.step import init_train_state, make_train_step
@@ -62,12 +63,9 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    refuse_training(cfg)
     if args.layers is not None:
-        first = cfg.moe.first_dense_layers if cfg.moe else 0
-        if args.layers <= first:
-            raise ValueError(f"--layers {args.layers}: {cfg.name} has "
-                             f"{first} dense layers before its MoE layers")
-        cfg = replace(cfg, n_layers=args.layers)
+        cfg = cut_depth(cfg, args.layers)
     run = RunConfig(attn_impl="full" if args.seq <= 512 else "blocked",
                     remat="nothing", compute_dtype="float32",
                     microbatches=args.microbatches,

@@ -1,5 +1,6 @@
-"""Grouped-query attention and DeepSeek-V3's multi-head latent attention
-(MLA): full sequence, prefill and one-token decode.
+"""Grouped-query attention, DeepSeek-V3's multi-head latent attention
+(MLA) and the cross-attention of the VLM and enc-dec families: full
+sequence, prefill and one-token decode.
 
 ``RunConfig.attn_impl`` selects the softmax core for a full sequence:
 ``"kernel"`` is the hand-written flash-attention kernel
@@ -14,6 +15,12 @@ MLA runs its softmax core through the same switch, at the combined q/k dim
 (128 + 64 = 192 at deepseek-v3) with v zero-padded to it and the output
 sliced after, as the reference does; its decode attends over the
 compressed cache {ckv, kr} with wuk and wuv absorbed (plain tensor code).
+
+Cross-attention (llama-3.2-vision's tanh-gated media layers, whisper's
+decoder over the encoder's output) takes its keys and values from a media
+or encoder tensor and is never causal. Its core is the same switch, at a
+full sequence and at a one-row decode query alike: on the card the flash
+kernel, where the reference takes ``full_attention`` up to 4096 query rows.
 """
 from __future__ import annotations
 
@@ -339,6 +346,45 @@ def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, *,
     return {"k": torch.zeros((batch, max_len, K, Dh), dtype=dtype, device=device),
             "v": torch.zeros((batch, max_len, K, Dh), dtype=dtype, device=device),
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (vision / enc-dec): keys and values from media or encoder
+# embeddings, recomputed at every call, as in the reference
+# ---------------------------------------------------------------------------
+
+
+def init_cross_attn(generator, cfg: ModelConfig, *, dtype=torch.float32,
+                    device=None):
+    """GQA's four weights and llama-vision's tanh gate, a 0-d leaf that
+    starts at 0 (so that the layer adds nothing until trained)."""
+    p = init_gqa(generator, cfg, dtype=dtype, device=device)
+    p["gate"] = torch.zeros((), dtype=dtype, device=device)
+    return p
+
+
+def cross_attn_kv(params, media):
+    """media (B, M, d) -> k, v (B, M, K, Dh), each contiguous."""
+    B, M, d = media.shape
+    _, K, Dh = params["wk"].shape
+    k = media @ params["wk"].to(media.dtype).reshape(d, K * Dh)
+    v = media @ params["wv"].to(media.dtype).reshape(d, K * Dh)
+    return k.view(B, M, K, Dh), v.view(B, M, K, Dh)
+
+
+def cross_attn(params, x, kv, run: RunConfig, gated: bool = True):
+    """x (B, S, d) attends to every key of kv (non-causal), S >= 1; the
+    output is scaled by tanh(gate) when `gated`. The softmax core is
+    `run.attn_impl`'s, one call for a sequence and for a decode step."""
+    k, v = kv
+    B, S, d = x.shape
+    _, H, Dh = params["wq"].shape
+    q = (x @ params["wq"].to(x.dtype).reshape(d, H * Dh)).view(B, S, H, Dh)
+    out = _project_out(params, _sequence_attention(q, k, v, run,
+                                                   causal=False), x)
+    if gated:
+        out = torch.tanh(params["gate"]).to(x.dtype) * out
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,22 @@
-"""Model API of the port: the dense decoder-only family, the mixture of
-experts (``family == "moe"``: olmoe with GQA, deepseek-v3 with MLA, leading
-dense layers and an MTP block), RWKV6 (``family == "ssm"``) and the Zamba2
-hybrid (``family == "hybrid"``).
+"""Model API of the port, over the JAX package's six families and its ten
+architectures: the dense decoder-only family (mistral-large-123b,
+deepseek-7b, nemotron-4-15b, chatglm3-6b), the mixture of experts
+(``family == "moe"``: olmoe-1b-7b with GQA, deepseek-v3-671b with MLA,
+leading dense layers and an MTP block), RWKV6 (``"ssm"``: rwkv6-7b), the
+Zamba2 hybrid (``"hybrid"``: zamba2-7b), the VLM (``"vlm"``:
+llama-3.2-vision-90b, gated cross-attention to media embeddings) and the
+encoder-decoder (``"audio"``: whisper-small, over frame embeddings).
 
   model = build_model(cfg, run, device="cpu", seed=0)   # device=None: the GPU
   logits = model.forward({"tokens": tokens})
   logits, caches = model.prefill({"tokens": tokens}, max_len)
   logits, caches = model.decode_step({"tokens": tokens}, caches)
   loss, metrics = model.trainable().loss_fn({"tokens": t, "labels": l})
+
+The vlm family's batches carry ``media`` (B, n_media_tokens, d_model); the
+audio family's ``frames`` (B, enc_len, d_model) for forward and prefill and
+``enc_out``, the encoder's output, for decode_step. Each is cast to the
+compute dtype.
 
 ``Model`` is an ``nn.Module`` that owns its parameters. Their names
 (``state_dict()`` keys) are the paths of the JAX package's parameter tree
@@ -17,14 +26,18 @@ axis: ``embed``, ``head``, ``norm``, ``layers.ln1``, ``layers.attn.wq``,
 hybrid ``layers.mamba.in_proj`` (groups, then layers in a group) and
 ``layers.shared.attn.wq`` (weight sets); for the MoE family
 ``dense_layers.attn.wdq``, ``layers.moe.w_gate`` (experts leading),
-``mtp.block.moe.router`` ... The serving entry points run under
+``mtp.block.moe.router`` ...; for the VLM ``layers.self.attn.wq`` (groups,
+then layers in a group) and ``layers.cross.attn.gate`` (groups); for the
+encoder-decoder ``layers.enc.attn.wq``, ``layers.dec.cross.wq``,
+``layers.dec.ln_cross`` and ``layers.enc_ln``. The serving entry points run under
 ``torch.no_grad()``; ``loss_fn`` runs the same forward with grad mode on, and
 ``trainable()`` makes the parameters require gradients (they are created
 frozen). The dense and MoE families train on the card (the MoE loss with
 the router's aux term and DeepSeek-V3's MTP loss); there the only kernels a
 training step runs are rmsnorm and its backward. The wkv6 and ssd kernels
 have no backward yet and refuse an input that needs one, so the ssm and
-hybrid families train on the CPU only.
+hybrid families train on the CPU only. The vlm and audio families serve
+only: their training is not ported yet (``refuse_training``).
 """
 from __future__ import annotations
 
@@ -41,7 +54,16 @@ from repro_torch.models import rwkv as R
 from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+SERVING_ONLY = ("vlm", "audio")
+
+
+def refuse_training(cfg: ModelConfig) -> None:
+    """Raise for a family whose training is not ported yet."""
+    if cfg.family in SERVING_ONLY:
+        raise NotImplementedError(
+            f"training the {cfg.family} family ({cfg.name}) is not ported "
+            f"yet (ROADMAP.md, Queue 1): it serves only")
 
 
 class ParamTree(nn.Module):
@@ -72,9 +94,8 @@ class Model(nn.Module):
         `load_state_dict`). device=None is the GPU, and raises without one."""
         super().__init__()
         if cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP.md, "
-                f"Queue 1); the port holds the families {PORTED_FAMILIES}")
+            raise ValueError(f"unknown family {cfg.family!r}; the port holds "
+                             f"{PORTED_FAMILIES}")
         self.cfg = cfg
         self.run = run or RunConfig()
         self.device = torch.device(device) if str(device) == "meta" \
@@ -113,8 +134,12 @@ class Model(nn.Module):
                     "norm": torch.empty((cfg.d_model,), **kw)}
         elif cfg.family == "ssm":
             p["layers"] = T.init_rwkv_stack(cfg, **kw)
-        else:
+        elif cfg.family == "hybrid":
             p["layers"] = T.init_hybrid(cfg, **kw)
+        elif cfg.family == "vlm":
+            p["layers"] = T.init_vlm(cfg, **kw)
+        else:
+            p["layers"] = T.init_encdec(cfg, **kw)
         return p
 
     @torch.no_grad()
@@ -151,8 +176,12 @@ class Model(nn.Module):
                 mtp["norm"].fill_(1.0)
         elif cfg.family == "ssm":
             T.fill_rwkv_stack(params["layers"], generator, cfg)
-        else:
+        elif cfg.family == "hybrid":
             T.fill_hybrid(params["layers"], generator, cfg)
+        elif cfg.family == "vlm":
+            T.fill_vlm(params["layers"], generator, cfg)
+        else:
+            T.fill_encdec(params["layers"], generator, cfg)
         return self
 
     @property
@@ -176,6 +205,12 @@ class Model(nn.Module):
     # --------------------------------------------------------------- forward
     def _tokens(self, batch) -> torch.Tensor:
         return torch.as_tensor(batch["tokens"]).to(self.device).long()
+
+    def _extra(self, batch, name: str) -> torch.Tensor:
+        """batch[name] (media, frames or enc_out) on the model's device in
+        the compute dtype."""
+        return torch.as_tensor(batch[name]).to(self.device,
+                                               self.compute_dtype)
 
     def _embed(self, params, tokens):
         return L.embed(params["embed"], tokens, self.compute_dtype)
@@ -257,9 +292,15 @@ class Model(nn.Module):
                              positions=positions)
         elif cfg.family == "ssm":
             x = T.rwkv_stack(params["layers"], x, cfg, run)
-        else:
+        elif cfg.family == "hybrid":
             x = T.hybrid_stack(params["layers"], x, cfg, run,
                                positions=positions)
+        elif cfg.family == "vlm":
+            x = T.vlm_stack(params["layers"], x, self._extra(batch, "media"),
+                            cfg, run, positions=positions)
+        else:
+            x = T.encdec_apply(params["layers"], self._extra(batch, "frames"),
+                               x, cfg, run, positions=positions)
         return x, aux
 
     # --------------------------------------------------------------- serving
@@ -274,7 +315,10 @@ class Model(nn.Module):
           ssm:    wkv (L, B, H, K, K) float32, tm_last, cm_last (L, B, d);
           hybrid: {"mamba": {h (G, period, B, H, N, P) float32,
                    conv (G, period, B, W-1, conv_dim)}, "attn": the dense
-                   tree with G in place of L}."""
+                   tree with G in place of L};
+          vlm:    the dense tree of the self-attention blocks, (G,
+                  period - 1) in place of L (cross blocks keep no cache);
+          audio:  the dense tree of the decoder's layers."""
         cfg, dt = self.cfg, self.compute_dtype
         device = self.device if device is None else device
 
@@ -287,8 +331,12 @@ class Model(nn.Module):
             return A.init_gqa_cache(cfg, batch, max_len, dt, device=device,
                                     quant=self.run.kv_cache_dtype == "int8")
 
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "audio"):
             return stacked(cfg.n_layers, kv())
+        if cfg.family == "vlm":
+            G, n_self = T.vlm_groups(cfg), cfg.cross_attn.period - 1
+            return T.tree_map(lambda a: a.new_zeros((G, n_self, *a.shape)),
+                              kv())
         if cfg.family == "moe":
             n_dense = cfg.moe.first_dense_layers
             out = {"moe": stacked(cfg.n_layers - n_dense, kv())}
@@ -308,16 +356,23 @@ class Model(nn.Module):
     def prefill(self, batch, max_len: int):
         """Process a prompt, return (last-position logits (B, 1, V), caches).
         The dense and moe families fill their caches (moe: the KV or MLA
-        latent caches of its dense and moe layers). For ssm and hybrid the
-        reference runs `forward` and returns ZEROED caches (its serving
-        engine teacher-forces prompts through `decode_step`), and so does
-        the port."""
+        latent caches of its dense and moe layers). For the other families
+        the reference returns ZEROED caches (its serving engine
+        teacher-forces prompts through `decode_step`), and so does the port,
+        after running the stack over the prompt. For every family only the
+        last position's hidden state goes through the final norm and the
+        head, so the logits own B x 1 x V elements and no (B, S, V) logits
+        are made (for these families the reference slices the whole
+        forward's)."""
         tokens = self._tokens(batch)
         B, S = tokens.shape
         cfg, run = self.cfg, self.run
-        if cfg.family not in ("dense", "moe"):
-            return self.forward(batch)[:, -1:], self.init_caches(B, max_len)
         params = self.params
+        if cfg.family not in ("dense", "moe"):
+            h, _ = self._hidden(params, batch)
+            last = self._logits(params, h[:, -1:])
+            del h                       # freed before the caches are made
+            return last, self.init_caches(B, max_len)
         x = self._embed(params, tokens)
         positions = torch.arange(S, device=self.device)
         names = ("ckv", "kr") if cfg.attention_kind == "mla" else ("k", "v")
@@ -359,9 +414,17 @@ class Model(nn.Module):
         elif cfg.family == "ssm":
             x, caches = T.rwkv_stack_decode(params["layers"], x, caches, cfg,
                                             run)
-        else:
+        elif cfg.family == "hybrid":
             x, caches = T.hybrid_stack_decode(params["layers"], x, caches,
                                               cfg, run)
+        elif cfg.family == "vlm":
+            x, caches = T.vlm_stack_decode(params["layers"], x,
+                                           self._extra(batch, "media"),
+                                           caches, cfg, run)
+        else:
+            x, caches = T.encdec_decode(params["layers"], x,
+                                        self._extra(batch, "enc_out"),
+                                        caches, cfg, run)
         return self._logits(params, x), caches
 
 
@@ -379,7 +442,9 @@ def analytic_param_count(cfg: ModelConfig, active_only: bool = False) -> int:
     """Exact parameter count from the shapes of the model's parameters on
     the meta device: nothing is allocated. `active_only` counts top_k /
     n_experts of the routed experts' leaves, as the reference does (the MTP
-    block's included); for the other families it is every parameter."""
+    block's included); for the other families it is every parameter
+    (whisper's decoder layers count their unused cross-attention gates, as
+    the reference's do)."""
     model = Model(cfg, RunConfig(), device="meta")
     total = expert = 0
     for name, p in model.tree.named_parameters():

@@ -1,6 +1,8 @@
 """Layer stacks over parameters stacked on a leading layer axis: the
 decoder (dense MLP or mixture of experts; GQA or MLA attention), the RWKV6
-stack and the Zamba2 hybrid (Mamba2 groups with shared attention blocks).
+stack, the Zamba2 hybrid (Mamba2 groups with shared attention blocks), the
+VLM stack (groups of self-attention blocks and one gated cross-attention
+block) and whisper's encoder-decoder.
 
 Every leaf of a stack's parameters has the layer count as its first
 dimension (the hybrid's Mamba2 leaves: groups, then layers in a group); the
@@ -28,12 +30,6 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rwkv as R
 from repro_torch.models import ssm as SSM
-
-
-def _require_ported(kind: str) -> None:
-    if kind not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP.md, Queue 1)")
 
 
 def tree_map(fn, tree):
@@ -73,12 +69,13 @@ def _init_attn(generator, cfg: ModelConfig, **kw):
 def init_block(generator, cfg: ModelConfig, kind: str = "dense",
                d_ff: Optional[int] = None, *, dtype=torch.float32,
                device=None):
-    """kind: dense | moe."""
-    _require_ported(kind)
+    """kind: dense | moe | cross (the VLM's gated cross-attention block,
+    with a dense MLP)."""
     kw = dict(dtype=dtype, device=device)
+    attn = A.init_cross_attn if kind == "cross" else _init_attn
     p = {"ln1": torch.ones((cfg.d_model,), **kw),
          "ln2": torch.ones((cfg.d_model,), **kw),
-         "attn": _init_attn(generator, cfg, **kw)}
+         "attn": attn(generator, cfg, **kw)}
     if kind == "moe":
         p["moe"] = M.init_moe(generator, cfg, **kw)
     else:
@@ -96,12 +93,16 @@ def _ffn(params, h, cfg: ModelConfig, kind: str):
 
 
 def block(params, x, cfg: ModelConfig, run: RunConfig, *, kind="dense",
-          positions=None, causal=True):
-    """One transformer block. Returns (x, aux_loss)."""
-    _require_ported(kind)
+          positions=None, causal=True, media_kv=None):
+    """One transformer block. Returns (x, aux_loss). A cross block attends
+    to `media_kv`, the (k, v) of ``attention.cross_attn_kv``."""
     h = L.rms_norm(x, params["ln1"], cfg.norm_eps)
-    attn = A.mla if _mla(cfg) else A.gqa
-    h = attn(params["attn"], h, cfg, run, positions=positions, causal=causal)
+    if kind == "cross":
+        h = A.cross_attn(params["attn"], h, media_kv, run)
+    else:
+        attn = A.mla if _mla(cfg) else A.gqa
+        h = attn(params["attn"], h, cfg, run, positions=positions,
+                 causal=causal)
     x = x + h
     h, aux = _ffn(params, L.rms_norm(x, params["ln2"], cfg.norm_eps), cfg,
                   kind)
@@ -109,14 +110,17 @@ def block(params, x, cfg: ModelConfig, run: RunConfig, *, kind="dense",
 
 
 def block_decode(params, x, cache, cfg: ModelConfig, run: RunConfig, *,
-                 kind="dense"):
+                 kind="dense", media_kv=None):
     """One-token decode through a block; returns (x, new_cache). The
     cache's tensors are updated in place (see attention.gqa_decode and
-    attention.mla_decode)."""
-    _require_ported(kind)
+    attention.mla_decode). A cross block has no cache: it hands back the
+    one it was given."""
     h = L.rms_norm(x, params["ln1"], cfg.norm_eps)
-    decode = A.mla_decode if _mla(cfg) else A.gqa_decode
-    h, new_cache = decode(params["attn"], h, cache, cfg, run)
+    if kind == "cross":
+        h, new_cache = A.cross_attn(params["attn"], h, media_kv, run), cache
+    else:
+        decode = A.mla_decode if _mla(cfg) else A.gqa_decode
+        h, new_cache = decode(params["attn"], h, cache, cfg, run)
     x = x + h
     h, _ = _ffn(params, L.rms_norm(x, params["ln2"], cfg.norm_eps), cfg, kind)
     return x + h, new_cache
@@ -126,7 +130,6 @@ def block_prefill(params, x, cfg: ModelConfig, run: RunConfig, *,
                   kind="dense", positions=None, pad_to=0):
     """Block forward that also returns the cache contents: (k, v) for GQA,
     (ckv, kr) for MLA."""
-    _require_ported(kind)
     h = L.rms_norm(x, params["ln1"], cfg.norm_eps)
     prefill = A.mla_prefill if _mla(cfg) else A.gqa_prefill
     h, kv = prefill(params["attn"], h, cfg, run, positions=positions,
@@ -407,4 +410,158 @@ def hybrid_stack_decode(params, x, caches, cfg, run):
                               tree_map(lambda a: a[g], caches["attn"]), cfg,
                               run, kind="dense")
         caches["attn"]["pos"][g].copy_(new["pos"])
+    return x, caches
+
+
+# ---------------------------------------------------------------------------
+# VLM stack (llama-3.2-vision): groups of period - 1 self-attention blocks
+# and one gated cross-attention block. The media's keys and values are
+# computed for each cross layer at every call, as in the reference.
+# ---------------------------------------------------------------------------
+
+
+def vlm_groups(cfg: ModelConfig) -> int:
+    return cfg.n_layers // cfg.cross_attn.period
+
+
+def init_vlm(cfg: ModelConfig, *, dtype=torch.float32, device=None):
+    """Uninitialised parameters of the VLM stack: {"self": leaves
+    (G, period - 1, ...), "cross": cross blocks' leaves (G, ...), the gate
+    (G,)}."""
+    G, n_self = vlm_groups(cfg), cfg.cross_attn.period - 1
+    selfp = init_stack(cfg, G * n_self, "dense", dtype=dtype, device=device)
+    return {"self": tree_map(lambda a: a.reshape(G, n_self, *a.shape[1:]),
+                             selfp),
+            "cross": init_stack(cfg, G, "cross", dtype=dtype, device=device)}
+
+
+def fill_vlm(params, generator, cfg: ModelConfig):
+    """Draw a VLM stack's parameters IN PLACE."""
+    fill_stack(tree_map(lambda a: a.view(-1, *a.shape[2:]), params["self"]),
+               generator, cfg, "dense")
+    fill_stack(params["cross"], generator, cfg, "cross")
+    return params
+
+
+def vlm_stack(params, x, media, cfg, run, *, positions=None):
+    """x (B, S, d) through the groups; media (B, M, d) in x's dtype."""
+    selfp, crossp = params["self"], params["cross"]
+    n_self = first_leaf(selfp).shape[1]
+    for g in range(n_stacked(crossp)):
+        for i in range(n_self):
+            x, _ = block(tree_map(lambda a: a[g, i], selfp), x, cfg, run,
+                         kind="dense", positions=positions)
+        cp = tree_map(lambda a: a[g], crossp)
+        x, _ = block(cp, x, cfg, run, kind="cross",
+                     media_kv=A.cross_attn_kv(cp["attn"], media))
+    return x
+
+
+def vlm_stack_decode(params, x, media, caches, cfg, run):
+    """caches: the self-attention blocks' KV caches, leaves
+    (G, period - 1, B, ...), updated in place and handed back."""
+    selfp, crossp = params["self"], params["cross"]
+    n_self = first_leaf(selfp).shape[1]
+    for g in range(n_stacked(crossp)):
+        for i in range(n_self):
+            x, new = block_decode(tree_map(lambda a: a[g, i], selfp), x,
+                                  tree_map(lambda a: a[g, i], caches), cfg,
+                                  run, kind="dense")
+            caches["pos"][g, i].copy_(new["pos"])
+        cp = tree_map(lambda a: a[g], crossp)
+        x, _ = block_decode(cp, x, None, cfg, run, kind="cross",
+                            media_kv=A.cross_attn_kv(cp["attn"], media))
+    return x, caches
+
+
+# ---------------------------------------------------------------------------
+# Whisper encoder-decoder: a non-causal encoder over the frames, and decoder
+# layers of self-attention, MLP, then ungated cross-attention to the
+# encoder's output. No positions beyond the encoder's sinusoid: the config
+# has rope_kind "none" and the reference learns none.
+# ---------------------------------------------------------------------------
+
+
+def init_dec_layer(generator, cfg: ModelConfig, *, dtype=torch.float32,
+                   device=None):
+    p = init_block(generator, cfg, "dense", dtype=dtype, device=device)
+    p["cross"] = A.init_cross_attn(generator, cfg, dtype=dtype, device=device)
+    p["ln_cross"] = torch.ones((cfg.d_model,), dtype=dtype, device=device)
+    return p
+
+
+def init_encdec(cfg: ModelConfig, *, dtype=torch.float32, device=None):
+    """Uninitialised parameters of the encoder-decoder: {"enc": blocks
+    (n_encoder_layers, ...), "dec": decoder layers (n_layers, ...), each a
+    dense block with "cross" and "ln_cross", "enc_ln"}."""
+    return {"enc": init_stack(cfg, cfg.encdec.n_encoder_layers, "dense",
+                              dtype=dtype, device=device),
+            "dec": init_stacked(
+                cfg.n_layers, lambda **kw: init_dec_layer(None, cfg, **kw),
+                dtype=dtype, device=device),
+            "enc_ln": torch.empty((cfg.d_model,), dtype=dtype, device=device)}
+
+
+def fill_encdec(params, generator, cfg: ModelConfig):
+    """Draw an encoder-decoder's parameters IN PLACE."""
+    fill_stack(params["enc"], generator, cfg, "dense")
+    fill_stacked(params["dec"],
+                 lambda **kw: init_dec_layer(generator, cfg, **kw))
+    params["enc_ln"].fill_(1.0)
+    return params
+
+
+def _sinusoid(S: int, d: int, dtype, device) -> torch.Tensor:
+    """(1, S, d) sin | cos position table, computed in float32 and cast."""
+    pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
+    i = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10000.0, 2 * i / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)[None]
+
+
+def encdec_encode(params, frames, cfg, run):
+    """The encoder half of ``encdec_apply``: frames (B, enc_len, d) plus the
+    sinusoid, the non-causal stack and enc_ln -> enc_out (B, enc_len, d),
+    what ``encdec_decode`` attends to."""
+    S = frames.shape[1]
+    enc = frames + _sinusoid(S, cfg.d_model, frames.dtype, frames.device)
+    enc, _ = stack(params["enc"], enc, cfg, run, kind="dense",
+                   positions=torch.arange(S, device=frames.device),
+                   causal=False)
+    return L.rms_norm(enc, params["enc_ln"], cfg.norm_eps)
+
+
+def _dec_cross(lp, h, enc_out, cfg, run):
+    kv = A.cross_attn_kv(lp["cross"], enc_out)
+    c = L.rms_norm(h, lp["ln_cross"], cfg.norm_eps)
+    return A.cross_attn(lp["cross"], c, kv, run, gated=False)
+
+
+def _dec_block(lp, x, enc_out, cfg, run, positions):
+    """One decoder layer: the dense block, then the ungated cross-attention
+    to enc_out added to its output."""
+    h, _ = block(lp, x, cfg, run, kind="dense", positions=positions)
+    return h + _dec_cross(lp, h, enc_out, cfg, run)
+
+
+def encdec_apply(params, frames, tokens_x, cfg, run, *, positions=None):
+    """frames (B, enc_len, d) stub embeddings; tokens_x (B, S, d) embedded
+    tokens -> the decoder's output (B, S, d)."""
+    enc_out = encdec_encode(params, frames, cfg, run)
+    x = tokens_x
+    for i in range(n_stacked(params["dec"])):
+        x = _dec_block(tree_map(lambda a: a[i], params["dec"]), x, enc_out,
+                       cfg, run, positions)
+    return x
+
+
+def encdec_decode(params, x, enc_out, caches, cfg, run):
+    """One token through the decoder; caches: the self-attention KV caches,
+    leaves (n_layers, B, ...), updated in place and handed back."""
+    for i in range(n_stacked(params["dec"])):
+        lp = tree_map(lambda a: a[i], params["dec"])
+        h, new = block_decode(lp, x, tree_map(lambda a: a[i], caches), cfg,
+                              run, kind="dense")
+        caches["pos"][i].copy_(new["pos"])
+        x = h + _dec_cross(lp, h, enc_out, cfg, run)
     return x, caches

@@ -13,6 +13,12 @@ Greedy or temperature sampling, on the host: every tick copies the
 The engine runs where its model lives: a model built with ``device=None`` is
 on the GPU. The caches are updated in place by ``Model.decode_step`` and by
 ``_reset_slot``.
+
+As the reference's engine, it feeds the vlm family all-zero float32
+``media`` and the audio family an all-zero float32 ``enc_out`` of `slots`
+rows at every tick (``_extras``); here they are made once, on the model's
+device and in its compute dtype, since they hold the same values every tick
+(``Model._extra`` then casts nothing).
 """
 from __future__ import annotations
 
@@ -55,6 +61,7 @@ class ServeEngine:
         self.ticks = 0
         self._feed: List[List[int]] = [[] for _ in range(slots)]
         self._last_token = np.zeros((slots,), np.int64)
+        self._extras = _extras(model, slots)
 
     # -- public ------------------------------------------------------------
     def submit(self, req: Request):
@@ -72,7 +79,8 @@ class ServeEngine:
         self._admit()
         if not any(self.active):
             return
-        batch = {"tokens": torch.from_numpy(self._last_token)[:, None]}
+        batch = {"tokens": torch.from_numpy(self._last_token)[:, None],
+                 **self._extras}
         logits, self.caches = self.model.decode_step(batch, self.caches)
         logits = logits[:, 0].float().cpu()           # (slots, V), a sync
         self.ticks += 1
@@ -107,6 +115,21 @@ class ServeEngine:
             return int(torch.argmax(logits))
         probs = torch.softmax(logits / temperature, dim=-1)
         return int(torch.multinomial(probs, 1, generator=self.generator))
+
+
+def _extras(model: Model, slots: int) -> Dict[str, torch.Tensor]:
+    """The reference's stand-ins for a request's media or audio: zeros."""
+    cfg = model.cfg
+    if cfg.family == "vlm":
+        rows = cfg.cross_attn.n_media_tokens
+        name = "media"
+    elif cfg.family == "audio":
+        rows = cfg.encdec.enc_len
+        name = "enc_out"
+    else:
+        return {}
+    return {name: torch.zeros((slots, rows, cfg.d_model),
+                              dtype=model.compute_dtype, device=model.device)}
 
 
 # base rank of each cache leaf kind; batch axis = ndim - base_rank

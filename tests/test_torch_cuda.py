@@ -100,9 +100,12 @@ def test_flash_attention_kernel(card, B, Sq, Sk, H, Hkv, D, layout, causal,
     q = laid_out(randn(card, 0, (B, Sq, H, D), dtype), layout)
     k = laid_out(randn(card, 1, (B, Sk, Hkv, D), dtype), layout)
     v = laid_out(randn(card, 2, (B, Sk, Hkv, D), dtype), layout)
+    key = (B, Sq, Sk, H, Hkv, D, causal)
     before = flash_attention.launches
+    before_shape = flash_attention.launches_by_shape.get(key, 0)
     got = flash_attention(q, k, v, causal=causal)
     assert flash_attention.launches == before + 1
+    assert flash_attention.launches_by_shape[key] == before_shape + 1
     assert got.is_contiguous() and got.shape == (B, Sq, H, D)
     assert_close(got, flash_attention_plain(q, k, v, causal=causal), dtype)
 
@@ -134,6 +137,26 @@ def test_flash_attention_kernel_at_mla_head_dim(card, dtype):
     assert float(got[..., 128:].abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D", [
+    (2, 1, 1601, 8, 1, 128), (1, 64, 1601, 8, 1, 128),
+    (2, 130, 1500, 3, 3, 64), (2, 1, 1500, 3, 3, 64),
+    (1, 300, 300, 3, 3, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_at_cross_attention_shapes(card, B, Sq, Sk, H,
+                                                          Hkv, D, dtype):
+    """The VLM's and whisper's cross-attention, non-causal: key lengths of
+    1601 and 1500 that end in a partial key tile, one decode query row. k
+    and v are views of buffers whose rows past Sk hold NaN, which the
+    output must not see."""
+    q = randn(card, 12, (B, Sq, H, D), dtype)
+    k, v = (randn(card, seed, (B, Sk + 64, Hkv, D), dtype).index_fill_(
+        1, torch.arange(Sk, Sk + 64, device=card), float("nan"))[:, :Sk]
+        for seed in (13, 14))
+    got = flash_attention(q, k, v, causal=False)
+    assert bool(torch.isfinite(got).all())
+    assert_close(got, flash_attention_plain(q, k, v, causal=False), dtype)
+
+
 def test_flash_attention_kernel_refuses_other_head_dims(card):
     q = randn(card, 4, (1, 8, 2, 48), torch.float32)
     with pytest.raises(ValueError, match="D in"):
@@ -153,8 +176,10 @@ def test_rmsnorm_kernel(card, shape, dtype, residual, scale_dtype):
     r = randn(card, 6, shape, dtype) if residual else None
     sc = (1.0 + 0.1 * randn(card, 7, shape[-1:], torch.float32)).to(scale_dtype)
     before = rmsnorm.launches
+    before_width = rmsnorm.launches_by_width.get(shape[-1], 0)
     got = rmsnorm(x, sc, residual=r)
     assert rmsnorm.launches == before + 1
+    assert rmsnorm.launches_by_width[shape[-1]] == before_width + 1
     assert got.dtype == dtype and got.shape == x.shape
     assert_close(got, rmsnorm_plain(x, sc, residual=r), dtype)
 
@@ -623,6 +648,57 @@ def test_recurrent_models_kernel_path_matches_plain_path(card, arch):
         steps.append(lg[:, 0])
     ref = gpu.forward({"tokens": toks[:, :8]})
     assert float((torch.stack(steps, 1) - ref).abs().max()) < 5e-4
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-small"])
+def test_vlm_and_encdec_kernel_path_matches_plain_path(card, arch):
+    """Reduced llama-3.2-vision-90b (gates set to 0.5) / whisper-small,
+    float32, random media or frames: the card's kernels (cross-attention
+    included) against the plain attention on the card and the model on the
+    CPU; decode, fed the media or the encoder's output, against forward."""
+    from repro_torch.models.transformer import encdec_encode
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(arch).reduced()
+    run = RunConfig(param_dtype="float32", compute_dtype="float32")
+    gpu = Model(cfg, run).init(seed=0)
+    if cfg.family == "vlm":
+        gpu.params["layers"]["cross"]["attn"]["gate"].fill_(0.5)
+        extra = {"media": randn(card, 15, (2, cfg.cross_attn.n_media_tokens,
+                                           cfg.d_model), torch.float32)}
+    else:
+        extra = {"frames": randn(card, 15, (2, cfg.encdec.enc_len,
+                                            cfg.d_model), torch.float32)}
+    cpu = Model(cfg, run, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    full = Model(cfg, run.with_(attn_impl="full"))
+    full.load_state_dict(gpu.state_dict())
+    toks = np.random.default_rng(11).integers(0, cfg.vocab_size, size=(2, 40))
+    batch = {"tokens": toks, **extra}
+    got = gpu.forward(batch)
+    torch.testing.assert_close(got, full.forward(batch), atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(
+        got.cpu(), cpu.forward({"tokens": toks,
+                                **{k: v.cpu() for k, v in extra.items()}}),
+        atol=1e-4, rtol=1e-4)
+    if cfg.family == "audio":
+        with torch.no_grad():
+            extra = {"enc_out": encdec_encode(gpu.params["layers"],
+                                              extra["frames"], cfg, run)}
+    caches = gpu.init_caches(2, 48)
+    before = flash_attention.launches
+    kv = next(iter(extra.values())).shape[1]
+    key = (2, 1, kv, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, False)
+    before_shape = flash_attention.launches_by_shape.get(key, 0)
+    steps = []
+    for t in range(8):
+        lg, caches = gpu.decode_step({"tokens": toks[:, t:t + 1], **extra},
+                                     caches)
+        steps.append(lg[:, 0])
+    cross = cfg.n_layers // (cfg.cross_attn.period if cfg.cross_attn else 1)
+    assert flash_attention.launches == before + 8 * cross
+    # every launch of a step is the cross-attention's one query row
+    assert flash_attention.launches_by_shape[key] == before_shape + 8 * cross
+    assert float((torch.stack(steps, 1) - got[:, :8]).abs().max()) < 5e-4
 
 
 def small_moe(arch):

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS as JAX_ARCHS
 from repro.configs import get_arch as jax_get_arch
 from repro.models import analytic_param_count as jax_param_count
 
@@ -18,6 +19,7 @@ from repro_torch.convert import (caches_from_numpy, caches_to_numpy,
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.models import Model, analytic_param_count, build_model
+from repro_torch.models.model import PORTED_FAMILIES
 from test_torch_parity import (DENSE_ARCHS, as_f32, model_pair, numpy_tree,
                                torch_run)
 
@@ -37,11 +39,13 @@ def pair(request):
 
 
 def test_registry_holds_the_four_dense_archs():
-    """The four dense archs, rwkv6-7b, zamba2-7b, olmoe-1b-7b and
-    deepseek-v3-671b, each the reference's config; a family that is not
-    ported yet (VLM, audio) is unknown."""
+    """The four dense archs and the other six, rwkv6-7b, zamba2-7b,
+    olmoe-1b-7b, deepseek-v3-671b, llama-3.2-vision-90b and whisper-small:
+    the reference's ten, each its config; an unknown name raises."""
     assert sorted(ARCHS) == sorted(DENSE_ARCHS + (
-        "rwkv6-7b", "zamba2-7b", "olmoe-1b-7b", "deepseek-v3-671b"))
+        "rwkv6-7b", "zamba2-7b", "olmoe-1b-7b", "deepseek-v3-671b",
+        "llama-3.2-vision-90b", "whisper-small"))
+    assert sorted(ARCHS) == sorted(JAX_ARCHS)
     for name in ARCHS:
         assert get_arch(name) == get_arch(name)
         assert asdict(get_arch(name)) == asdict(jax_get_arch(name))
@@ -49,10 +53,10 @@ def test_registry_holds_the_four_dense_archs():
     assert get_arch("zamba2-7b").family == "hybrid"
     assert get_arch("olmoe-1b-7b").family == "moe"
     assert get_arch("deepseek-v3-671b").attention_kind == "mla"
+    assert get_arch("llama-3.2-vision-90b").family == "vlm"
+    assert get_arch("whisper-small").family == "audio"
     with pytest.raises(KeyError):
-        get_arch("llama-3.2-vision-90b")
-    with pytest.raises(KeyError):
-        get_arch("whisper-small")
+        get_arch("llama-3.2-vision-11b")
 
 
 def test_forward_matches_jax_with_the_kernel_switch_on(pair):
@@ -199,15 +203,44 @@ def test_default_device_raises_without_a_card():
 
 
 def test_other_families_and_int8_kv_wait():
+    """Every family of the ten archs builds, reduced and at full size (on
+    the meta device); an unknown family raises; the int8 KV cache waits."""
     from dataclasses import replace
+    assert sorted(PORTED_FAMILIES) == sorted(
+        {cfg.family for cfg in ARCHS.values()})
+    for name, full in ARCHS.items():
+        Model(full.reduced(), device="cpu")
+        Model(full, device="meta")
     cfg = get_arch("deepseek-7b").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(replace(cfg, family="vlm"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(replace(cfg, family="audio"), device="cpu")
+    with pytest.raises(ValueError, match="unknown family"):
+        Model(replace(cfg, family="diffusion"), device="cpu")
     m = Model(cfg, RunConfig(kv_cache_dtype="int8"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         m.init_caches(1, 8)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b",
+                                  "llama-3.2-vision-90b", "whisper-small"])
+def test_prefill_logits_own_their_storage(arch):
+    """The families whose prefill hands back zeroed caches put only the last
+    position through the head: their logits own B x 1 x V elements, not a
+    view that keeps (B, S, V) logits alive, and match forward's last row."""
+    cfg = get_arch(arch).reduced()
+    model = Model(cfg, RunConfig(compute_dtype="float32"),
+                  device="cpu").init(seed=0)
+    batch = {"tokens": tokens_for(cfg)}
+    if cfg.family == "vlm":
+        batch["media"] = np.zeros((B, cfg.cross_attn.n_media_tokens,
+                                   cfg.d_model), np.float32)
+    if cfg.family == "audio":
+        batch["frames"] = np.zeros((B, cfg.encdec.enc_len, cfg.d_model),
+                                   np.float32)
+    last, _ = model.prefill(batch, 16)
+    assert tuple(last.shape) == (B, 1, model.padded_vocab)
+    assert last.untyped_storage().nbytes() == \
+        B * model.padded_vocab * last.element_size()
+    np.testing.assert_allclose(as_f32(last), as_f32(model.forward(batch)[:, -1:]),
+                               atol=1e-4, rtol=1e-4)
 
 
 # ---------------------------------------------------------------------------

@@ -56,12 +56,16 @@ def torch_run(attn_impl: str = "kernel") -> RunConfig:
                      compute_dtype="float32")
 
 
-def model_pair(jcfg, cfg, *, jax_attn="pallas", torch_attn="kernel", seed=0):
+def model_pair(jcfg, cfg, *, jax_attn="pallas", torch_attn="kernel", seed=0,
+               edit=None):
     """(jax model, jax params, torch model on the CPU with the same
     weights). The weights are the JAX package's init, carried across as
-    numpy arrays."""
+    numpy arrays; `edit(params)`, where given, changes the JAX tree in
+    place before it is carried across."""
     jm = jax_build_model(jcfg, jax_run(jax_attn))
     jp = jm.init(jax.random.PRNGKey(seed))
+    if edit is not None:
+        edit(jp)
     tm = params_from_numpy(numpy_tree(jp),
                            Model(cfg, torch_run(torch_attn), device="cpu"))
     return jm, jp, tm
