@@ -14,14 +14,18 @@ self-attention layers and one gated cross-attention layer over 1601 media
 tokens: 21.3 GB in bfloat16), random weights from a seed and random media
 and frames, through ``Model.forward``, ``Model.prefill``,
 ``Model.decode_step`` and the ``repro_torch.launch.serve`` command line,
-the training path of
-deepseek-7b and olmoe-1b-7b at full width (depth cut to 4 layers, so that
-the float32 state fits) through the ``repro_torch.launch.train`` command
-line, each with a resume from its checkpoint, one train step of
-deepseek-7b, olmoe-1b-7b and deepseek-v3-671b (reduced, with its MTP block)
-on the card against the CPU, deepseek-v3-671b's loss and backward at full
-width (1 dense + 1 MoE layer of 16 experts, the MTP block), and Crispy's
-planner over the port (``repro_torch.core.hbm_planner``): four jobs
+the training path of every family through the ``repro_torch.launch.train``
+command line, each with a resume from its checkpoint: deepseek-7b,
+olmoe-1b-7b and rwkv6-7b at full width cut to 4 layers, zamba2-7b to one
+group of 6 Mamba2 blocks and a shared block (so that the float32 state
+fits), whisper-small whole at its text context of 448; one train step of
+deepseek-7b, olmoe-1b-7b, rwkv6-7b and zamba2-7b at full width (cut in
+depth), whisper-small whole, deepseek-v3-671b and llama-3.2-vision-90b
+reduced, on the card against the CPU; the loss and backward at full width
+of deepseek-v3-671b (1 dense + 1 MoE layer of 16 experts, the MTP block)
+and of llama-3.2-vision-90b (one group of 5 layers, 25.5 GB of float32
+weights), whose optimizer state does not fit one card; and Crispy's
+planner over the port (``repro_torch.core.hbm_planner``): six jobs
 profiled over their depth ladders on the card, extrapolated, and held
 against one measured step at the depth extrapolated to (deepseek-7b's
 float32 train step at 20 layers, near the card's memory, among them).
@@ -180,6 +184,34 @@ MOE_TRAIN_LAYERS = 4
 PARITY_TRAIN_MOE = {"layers": 2, "batch": 2, "seq": 256, "block": 64}
 PARITY_TRAIN_DSV3 = {"batch": 2, "seq": 64, "block": 16}
 WIDTH_BACKWARD_DSV3 = {"layers": 2, "experts": 16, "batch": 1, "seq": 256}
+# the ssm, hybrid, vlm and audio families' training, float32 as the train
+# launcher runs it (attention "full" up to 512 tokens, "blocked" above; the
+# plain chunked recurrences; only rmsnorm and its backward on the card):
+# rwkv6-7b at full width cut to 4 layers (1.41 G parameters, 22.6 GB of
+# state) and zamba2-7b to 6 Mamba2 blocks and a shared block (one group;
+# 1.11 G, 17.7 GB) at TRAIN_B x TRAIN_S, whisper-small whole (0.278 G) at
+# its text context of 448 over 1500 frames, each through the launcher with
+# a checkpoint and a bit-exact resume; the card-vs-CPU parities of rwkv6-7b
+# (2 layers) and zamba2-7b (one group) at full width, whisper-small whole
+# and the vlm's reduced config (gates set nonzero, random media); and the
+# vlm's loss and backward at full width, one group of 4 self-attention
+# layers and the cross-attention layer (6.38 G parameters: 25.5 GB of
+# weights and as many of gradients; an AdamW state would be 102 GB, so no
+# optimizer step is taken), B=1, S=2048, blocked attention, over 1601
+# random media tokens with the gate at 0.7
+FAMILY_TRAIN = (("rwkv6-7b", 4, TRAIN_S), ("zamba2-7b", 6, TRAIN_S),
+                ("whisper-small", 12, PREFILL_S["whisper-small"]))
+# (whisper's blocks of 512: blocks of 64 walk the encoder's 1500 x 1500
+# scores in 576 steps a layer, ~11 s of launches on the host a card step)
+PARITY_TRAIN_WHISPER = {"batch": 1, "seq": 64, "block": 512}
+PARITY_TRAIN_VLM = {"batch": 2, "seq": 64, "block": 16}
+WIDTH_BACKWARD_VLM = {"layers": 5, "batch": 1, "seq": 2048, "gate": 0.7}
+# rmsnorm's float32 rows of those train steps, checked forward and backward
+# and timed: whisper's encoder (B x 1500) and decoder (B x 448) at d 768,
+# zamba2-7b's d_model and Mamba2 inner width (ssm_norm), the vlm's 8192
+# (rwkv6-7b's (4096, 4096) is the train shape of the kernels' line)
+FAMILY_TRAIN_NORMS = ((3000, 768), (896, 768), (4096, 3584), (4096, 7168),
+                      (2048, 8192))
 # the planner phase: four jobs, each profiled over the planner's depth
 # ladder on the card (core/hbm_planner.py), extrapolated to the job's
 # n_layers and held against one measured step at that depth. deepseek-7b's
@@ -195,6 +227,14 @@ WIDTH_BACKWARD_DSV3 = {"layers": 2, "experts": 16, "batch": 1, "seq": 256}
 PLANNER_B, PLANNER_S = 4, 2048
 PLANNER_TRAIN_B, PLANNER_TRAIN_LAYERS, PLANNER_TRAIN_ANCHOR = 2, 20, 7
 PLANNER_MOE_LAYERS, PLANNER_MOE_ANCHOR = 9, 6
+# whisper-small's float32 train step at its text context over its 1500
+# frames, over the ladder of PLANNER_WHISPER_ANCHOR (2..6 decoder layers;
+# the default anchor of 12 // 4 gives two points), held at its full 12
+# (the encoder is in the intercept); zamba2-7b's over whole groups of 6
+# Mamba2 blocks and a shared block, held at PLANNER_ZAMBA_BLOCKS (5 groups:
+# 2.98 G parameters, 47.7 GB of state), then selected for at its full 81
+PLANNER_WHISPER_S, PLANNER_WHISPER_ANCHOR = 448, 6
+PLANNER_ZAMBA_BLOCKS = 30
 PLANNER_GATE = 0.10
 N_LAYERS = {"deepseek-7b": 30, "rwkv6-7b": 32, "zamba2-7b": 81,
             "olmoe-1b-7b": 16, "deepseek-v3-671b": 61,
@@ -651,7 +691,9 @@ def phase_kernels(state):
     # train jobs' float32 norms too, forward and backward, untimed:
     # olmoe-1b-7b's (B x S rows of 2048 through the launcher and the
     # parity), deepseek-v3's at width (256 rows of 7168, and of 1536 and
-    # 512 for q_norm and kv_norm; 255 of each in the MTP block)
+    # 512 for q_norm and kv_norm; 255 of each in the MTP block). The other
+    # families' float32 train widths (FAMILY_TRAIN_NORMS) are checked
+    # forward and backward and timed both ways
     train_norms = ((4096, 2048), (512, 2048), (256, 7168), (255, 7168),
                    (256, 1536), (255, 1536), (256, 512), (255, 512))
     bwd_tol = {f32: (2e-5, 1e-4), bf16: (2e-2, 2e-2)}    # dx atol=rtol, dscale
@@ -661,8 +703,9 @@ def phase_kernels(state):
             max(float(want.float().abs().max()), 1e-30)
 
     for rows, d in ((8192, 4096), (8192, 3584), (8192, 7168), (8, 4096),
-                    (4096, 4096)) + train_norms:
-        train_norm = (rows, d) in train_norms
+                    (4096, 4096)) + train_norms + FAMILY_TRAIN_NORMS:
+        family = (rows, d) in FAMILY_TRAIN_NORMS
+        train_norm = family or (rows, d) in train_norms
         for dtype in (f32,) if train_norm else (f32, bf16):
             for residual in (False, True):
                 x, g = randn((rows, d), dtype), randn((rows, d), dtype)
@@ -677,6 +720,20 @@ def phase_kernels(state):
                                    "max_abs_err": err, "tol": TOL[dtype],
                                    "ok": ok})
                     del got
+                    if family and not residual:
+                        t = time_in_turns({
+                            "ms": lambda: rmsnorm(x, sc),
+                            "plain_ms": lambda: rmsnorm_plain(x, sc),
+                            "library_ms": lambda: F.rms_norm(
+                                x, (d,), weight=sc, eps=1e-5),
+                        }, iters=50)
+                        bnd, by, nbytes = norm_bound(rows, d, dtype, dtype)
+                        timed.append({
+                            "name": "rmsnorm", "shape": [rows, d],
+                            "dtype": str(dtype), "max_abs_err": err, **t,
+                            "bound_ms": bnd, "bound_by": by,
+                            "share_of_bound": bnd / t["ms"],
+                            "gbytes_per_s": nbytes / t["ms"] / 1e6})
                 dx, ds = rmsnorm_backward(x, sc, g, residual=r)
                 dx2, ds2 = rmsnorm_backward(x, sc, g, residual=r)
                 want_dx, want_ds = rmsnorm_backward_plain(x, sc, g, residual=r)
@@ -705,7 +762,7 @@ def phase_kernels(state):
                     "ok": ok and auto_ok and res_ok and same_bits and
                           ds_rel <= tol_ds and ds_auto_rel <= tol_ds and
                           bool(torch.isfinite(ds).all())})
-                if not residual and not train_norm:
+                if not residual and (family or not train_norm):
                     xr = x.clone().requires_grad_()
                     scr = sc.clone().requires_grad_()
                     y_lib = F.rms_norm(xr, (d,), weight=scr, eps=1e-5)
@@ -1094,6 +1151,7 @@ def reset_counts():
         fn.launches = 0
     flash_attention.launches_by_shape = {}
     rmsnorm.launches_by_width = {}
+    rmsnorm_backward.launches_by_width = {}
 
 
 def read_counts():
@@ -1109,17 +1167,19 @@ def read_counts():
 
 def read_shapes():
     """The wrappers' counts by shape: flash attention's by (B, Sq, Skv, H,
-    Hkv, D, causal), rmsnorm's by row width."""
+    Hkv, D, causal), rmsnorm's and its backward's by row width."""
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_backward
     return {"flash_attention": dict(flash_attention.launches_by_shape),
-            "rmsnorm": dict(rmsnorm.launches_by_width)}
+            "rmsnorm": dict(rmsnorm.launches_by_width),
+            "rmsnorm_backward": dict(rmsnorm_backward.launches_by_width)}
 
 
 def add_shapes(total, shapes):
     for name, by in shapes.items():
+        into = total.setdefault(name, {})
         for key, n in by.items():
-            total[name][key] = total[name].get(key, 0) + n
+            into[key] = into.get(key, 0) + n
 
 
 def add_launches(state, counts, shapes):
@@ -1468,9 +1528,18 @@ def phase_serve(state):
 
 def train_norms(cfg):
     """rmsnorm launches of one train step's forward, and as many of its
-    backward (remat "nothing"): ln1 and ln2 a block (MLA adds q_norm and
-    kv_norm), the final norm, and for an MTP block its own norm, its
-    block's and the final norm again over its logits."""
+    backward (remat "nothing"), and of a forward: ln1 and ln2 a block (MLA
+    adds q_norm and kv_norm; rwkv's layer has the same two), the final
+    norm, and for an MTP block its own norm, its block's and the final norm
+    again over its logits; the hybrid's Mamba2 blocks have ln and ssm_norm
+    and its shared blocks ln1 and ln2, one a group; the vlm's cross blocks
+    ln1 and ln2 as its self blocks; whisper's encoder blocks two each, then
+    enc_ln, and its decoder layers three (ln1, ln2, ln_cross)."""
+    if cfg.family == "hybrid":
+        groups = max(1, cfg.n_layers // cfg.hybrid.period)
+        return 2 * groups * cfg.hybrid.period + 2 * groups + 1
+    if cfg.family == "audio":
+        return 2 * cfg.encdec.n_encoder_layers + 1 + 3 * cfg.n_layers + 1
     per_block = 4 if cfg.attention_kind == "mla" else 2
     n = per_block * cfg.n_layers + 1
     if cfg.mtp_depth:
@@ -1482,7 +1551,7 @@ def loss_terms(metrics):
     return {k: float(metrics[k]) for k in ("ce", "aux", "mtp") if k in metrics}
 
 
-def train_parity(state, cfg, P, cut, weights):
+def train_parity(state, cfg, P, cut, weights, gate=None):
     """One train step of `cfg`, float32, on the card and on the CPU (the
     plain path) from one converted state: the loss, the gradients' norm and
     every leaf's first moment, which after one step is (1 - b1) x the
@@ -1490,7 +1559,9 @@ def train_parity(state, cfg, P, cut, weights):
     by about lr * sign(g), so a gradient near 0 whose sign differs between
     the two moves it 2 lr apart, which says nothing of the kernels.
     `weights`: "numpy" (``numpy_weights``) or "init" (the model's own init
-    on the card, from the seed)."""
+    on the card, from the seed); `gate`, the vlm's tanh gates (they start
+    at 0, which hides the cross path). The vlm's media and whisper's frames
+    are random."""
     from repro_torch.configs import RunConfig
     from repro_torch.convert import (flatten_tree, params_to_numpy,
                                      train_state_from_numpy, unflatten_tree)
@@ -1508,6 +1579,8 @@ def train_parity(state, cfg, P, cut, weights):
         gpu = Model(cfg, run)
     else:
         gpu = Model(cfg, run).init(seed=state["seed"])
+        if gate is not None:
+            gpu.params["layers"]["cross"]["attn"]["gate"].fill_(gate)
         params = params_to_numpy(gpu)
 
     def zeros():
@@ -1522,7 +1595,8 @@ def train_parity(state, cfg, P, cut, weights):
     del tree, params
     toks = np.random.default_rng(state["seed"] + 3).integers(
         0, cfg.vocab_size, size=(P["batch"], P["seq"] + 1)).astype(np.int32)
-    batch = {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy()}
+    batch = {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy(),
+             **media_batch(cfg, P["batch"], state["seed"] + 4, "cpu")}
     acfg = AdamWConfig(lr=1e-3)
     t0 = time.monotonic()
     cpu_state, cpu_met = make_train_step(cpu, acfg)(cpu_state, batch)
@@ -1548,7 +1622,9 @@ def train_parity(state, cfg, P, cut, weights):
           "n_layers": cfg.n_layers, "cut": cut,
           "dtype": "float32", "allow_tf32": False, "batch": P["batch"],
           "seq": P["seq"], "attn_impl": "blocked", "attn_block": P["block"],
-          "loss_cpu": loss_cpu, "loss_gpu": loss_gpu, "loss_rel_err": loss_rel,
+          "random_inputs": sorted(k for k in batch
+                                  if k not in ("tokens", "labels")),
+          "tanh_gate": gate, "loss_cpu": loss_cpu, "loss_gpu": loss_gpu, "loss_rel_err": loss_rel,
           "loss_terms_cpu": loss_terms(cpu_met),
           "loss_terms_gpu": loss_terms(gpu_met),
           "loss_gate": loss_gate, "grad_norm_rel_err": gn_rel,
@@ -1561,7 +1637,8 @@ def train_parity(state, cfg, P, cut, weights):
           "gpu": state["smi"]})
     require(counts == want,
             f"train parity {cfg.name}: launches {counts}, expected {want}")
-    require(math.isfinite(loss_gpu), f"train parity {cfg.name}: loss not finite")
+    require(math.isfinite(loss_gpu) and math.isfinite(gn_rel),
+            f"train parity {cfg.name}: loss or gradient norm not finite")
     require(loss_rel < loss_gate,
             f"train parity {cfg.name}: loss {loss_gpu} vs {loss_cpu}")
     require(max(per_leaf.values()) < grad_gate,
@@ -1573,7 +1650,9 @@ def train_parity(state, cfg, P, cut, weights):
 
 def train_parities(state):
     """deepseek-7b at full width, 2 layers (numpy weights); olmoe-1b-7b at
-    full width, 2 layers; deepseek-v3-671b reduced with its MTP block."""
+    full width, 2 layers; deepseek-v3-671b reduced with its MTP block;
+    rwkv6-7b at full width, 2 layers; zamba2-7b at full width, one group;
+    whisper-small whole; the vlm reduced, its gates at 0.7."""
     from dataclasses import replace
     from repro_torch.configs import get_arch
 
@@ -1589,6 +1668,23 @@ def train_parities(state):
                  PARITY_TRAIN_DSV3, "the reduced config (d_model 64, 4 layers: "
                  "1 dense + 3 MoE of 8 experts top-2 and a shared expert, MLA "
                  "ranks 32/16, the MTP block), the CPU tests' own", "init")
+    train_parity(state, replace(get_arch("rwkv6-7b"),
+                                n_layers=PARITY_TRAIN["layers"]),
+                 PARITY_TRAIN, "depth 32 -> 2; width and vocabulary full",
+                 "init")
+    train_parity(state, replace(get_arch("zamba2-7b"), n_layers=6),
+                 PARITY_TRAIN, "depth 81 -> 6: one group of 6 Mamba2 blocks "
+                 "and a shared attention block; width and vocabulary full",
+                 "init")
+    train_parity(state, get_arch("whisper-small"), PARITY_TRAIN_WHISPER,
+                 "none: 12 encoder layers over 1500 random frames, 12 decoder "
+                 "layers", "init")
+    train_parity(state, get_arch("llama-3.2-vision-90b").reduced(),
+                 PARITY_TRAIN_VLM, "the reduced config (d_model 64, 4 layers: "
+                 "two groups of a self-attention and a gated cross-attention "
+                 "layer over 16 random media tokens), the CPU tests' own; a "
+                 "full-width group is 51 GB of host memory for weights and "
+                 "gradients", "init", gate=0.7)
 
 
 def width_backward_dsv3(state):
@@ -1658,13 +1754,91 @@ def width_backward_dsv3(state):
     torch.cuda.empty_cache()
 
 
-def train_full_width(state, arch, layers, cut):
+def width_backward_vlm(state):
+    """llama-3.2-vision-90b's loss and backward at full width, float32: one
+    group of 4 self-attention layers and the gated cross-attention layer,
+    B=1, S=2048 with blocked attention (the train launcher's choice above
+    512 tokens), remat "nothing", the gate at 0.7 and 1601 random media
+    tokens; no optimizer step. The loss and every leaf's gradient must be
+    finite, no leaf's gradient all zero, each norm launched forward and
+    backward. The peak is given beside the reckoning: the weights, as many
+    bytes of gradients, and what is left, the activations."""
+    from dataclasses import replace
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.convert import flatten_tree
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train.step import loss_and_grads
+
+    P = WIDTH_BACKWARD_VLM
+    cfg = replace(get_arch("llama-3.2-vision-90b"), n_layers=P["layers"])
+    run = RunConfig(param_dtype="float32", compute_dtype="float32",
+                    attn_impl="blocked", remat="nothing")
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Model(cfg, run).init(seed=state["seed"]).trainable()
+    with torch.no_grad():
+        model.params["layers"]["cross"]["attn"]["gate"].fill_(P["gate"])
+    n_params = sum(p.numel() for p in model.tree.parameters())
+    toks = np.random.default_rng(state["seed"] + 6).integers(
+        0, cfg.vocab_size, size=(P["batch"], P["seq"] + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy(),
+             **media_batch(cfg, P["batch"], state["seed"] + 7, "cuda")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    (loss, metrics, grads), ms = timed_call(
+        lambda: loss_and_grads(model, model.params, batch))
+    counts, shapes = read_counts(), read_shapes()
+    peak = torch.cuda.max_memory_allocated()
+    names = sorted(flatten_tree(grads))
+    not_finite = [n for n, g in zip(names, leaves(grads))
+                  if not bool(torch.isfinite(g).all())]
+    zero = [n for n, g in zip(names, leaves(grads)) if float(g.abs().max()) == 0]
+    per_step = train_norms(cfg)
+    want = {"rmsnorm": per_step, "rmsnorm_backward": per_step,
+            "flash_attention": 0, "wkv6": 0, "ssd": 0}
+    weight_bytes = 4 * n_params
+    emit({"phase": "train", "part": "width_backward", "arch": cfg.name,
+          "n_layers": cfg.n_layers,
+          "cut": "depth 100 -> 5: one group of 4 self-attention layers and the "
+                 "gated cross-attention layer; width, heads, media tokens and "
+                 "vocabulary full; no optimizer step (an AdamW state of 6.38 G "
+                 "parameters is 102 GB)",
+          "params": n_params, "dtype": "float32", "allow_tf32": False,
+          "batch": P["batch"], "seq": P["seq"], "attn_impl": "blocked",
+          "remat": "nothing", "tanh_gate": P["gate"], "random_inputs": ["media"],
+          "loss": float(loss), "loss_terms": loss_terms(metrics),
+          "grad_leaves": len(names), "grad_leaves_not_finite": not_finite,
+          "grad_leaves_all_zero": zero, "loss_and_backward_ms": ms,
+          "peak_memory_bytes": peak, "allocated_before_bytes": base,
+          "weight_bytes": weight_bytes, "gradient_bytes": weight_bytes,
+          "beyond_weights_and_gradients_bytes": peak - 2 * weight_bytes,
+          "launches": counts, "launches_by_width": shapes_text(shapes),
+          "gpu": state["smi"]})
+    require(counts == want, f"train width {cfg.name}: launches {counts}, "
+                            f"expected {want}")
+    require(math.isfinite(float(loss)),
+            f"train width {cfg.name}: loss {float(loss)}")
+    require(not not_finite, f"train width {cfg.name}: gradients not finite: "
+                            f"{not_finite}")
+    require(not zero, f"train width {cfg.name}: gradients all zero: {zero}")
+    add_launches(state, counts, shapes)
+    del model, grads, loss, metrics, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_full_width(state, arch, layers, cut, S=TRAIN_S):
     """`arch` at full width, cut to `layers` layers, float32, through the
-    command line a user would call: TRAIN_STEPS steps that write a
-    checkpoint at the end; the launches of each kernel counted and
-    asserted; then one more step from the state in memory and the same
+    command line a user would call: TRAIN_STEPS steps of TRAIN_B x S tokens
+    that write a checkpoint at the end; the launches of each kernel counted
+    and asserted; then one more step from the state in memory and the same
     step from the checkpoint, which must agree to the bit (for the MoE
-    family this holds the dispatch's backward to the same bits too)."""
+    family this holds the dispatch's backward to the same bits too). The
+    vlm and audio families' steps take the launcher's all-zero media or
+    frames."""
     from dataclasses import replace
     from repro_torch.checkpoint import latest_step, restore_checkpoint
     from repro_torch.configs import RunConfig, get_arch
@@ -1675,7 +1849,7 @@ def train_full_width(state, arch, layers, cut):
     from repro_torch.optim.adamw import leaves
     from repro_torch.train.step import init_train_state, make_train_step
 
-    L, B, S, N = layers, TRAIN_B, TRAIN_S, TRAIN_STEPS
+    L, B, N = layers, TRAIN_B, TRAIN_STEPS
     lr = 3e-4
     ck = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(ck, ignore_errors=True)
@@ -1702,12 +1876,13 @@ def train_full_width(state, arch, layers, cut):
     step_s = steady[len(steady) // 2]
 
     # one more step from the state in memory, and from the checkpoint
-    run = RunConfig(attn_impl="blocked", remat="nothing",
-                    compute_dtype="float32")          # the launcher's
+    run = RunConfig(attn_impl="full" if S <= 512 else "blocked",
+                    remat="nothing", compute_dtype="float32")  # the launcher's
     acfg = AdamWConfig(lr=lr)
     model = Model(cfg, run)
     step_fn = make_train_step(model, acfg, total_steps=N)
-    batch = make_batch_fn(cfg.vocab_size, B, S, state["seed"])(N)
+    batch = {**make_batch_fn(cfg.vocab_size, B, S, state["seed"])(N),
+             **train_cli.family_inputs(cfg, B)}
     state_a, met_a = step_fn(train_state, batch)
     loss_a = float(met_a["loss"])
     want_params = [t.detach().cpu() for t in leaves(state_a.params)]
@@ -1730,7 +1905,9 @@ def train_full_width(state, arch, layers, cut):
           "cut": cut, "params": n_params,
           "active_params": analytic_param_count(cfg, active_only=True),
           "dtype": "float32", "batch": B, "seq": S,
-          "attn_impl": "blocked", "remat": "nothing", "lr": lr,
+          "attn_impl": run.attn_impl, "remat": "nothing", "lr": lr,
+          "family_inputs": {k: list(v.shape) for k, v in
+                            train_cli.family_inputs(cfg, B).items()},
           "losses": losses, "router_aux": report.aux,
           "step_seconds": report.step_times,
           "step_ms": step_s * 1e3, "tokens_per_s": B * S / step_s,
@@ -1779,10 +1956,21 @@ def phase_train(state):
                      "of 16 layers is 110 GB; width, 64 experts top-8, heads "
                      "and vocabulary full")
     width_backward_dsv3(state)
+    cuts = {"rwkv6-7b": "depth 32 -> 4: the float32 state (16 bytes a "
+                        "parameter) of 32 layers is 120 GB; width, heads and "
+                        "vocabulary full",
+            "zamba2-7b": "depth 81 -> 6: one group of 6 Mamba2 blocks and a "
+                         "shared attention block (of the 13 groups' 107.5 GB "
+                         "of float32 state); width and vocabulary full",
+            "whisper-small": "none: 12 encoder layers over 1500 frames (the "
+                             "launcher's zeros), 12 decoder layers, S = 448"}
+    for arch, layers, S in FAMILY_TRAIN:
+        train_full_width(state, arch, layers, cuts[arch], S=S)
+    width_backward_vlm(state)
 
 
 def planner_job(state, arch, mode, run, kernels, n_layers=None,
-                anchor=None):
+                anchor=None, seq=PLANNER_S):
     """One job through HBMPlanner.plan on the card (the ladder profiled,
     fitted and selected for), then one step at the depth extrapolated to
     under CUDAMemoryProfiler: the prediction must be confident and within
@@ -1798,7 +1986,7 @@ def planner_job(state, arch, mode, run, kernels, n_layers=None,
     if n_layers is not None:
         cfg = replace(cfg, n_layers=n_layers)
     B = PLANNER_TRAIN_B if mode == "train" else PLANNER_B
-    shape = ShapeConfig(f"{mode}_{PLANNER_S}", PLANNER_S, B, mode)
+    shape = ShapeConfig(f"{mode}_{seq}", seq, B, mode)
     planner = HBMPlanner()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1812,7 +2000,7 @@ def planner_job(state, arch, mode, run, kernels, n_layers=None,
     rel = abs(pred - truth.job_mem_bytes) / truth.job_mem_bytes
     sel = rep.selection
     line = {"phase": "planner", "arch": arch, "mode": mode, "batch": B,
-            "seq": PLANNER_S, "dtype": run.compute_dtype,
+            "seq": seq, "dtype": run.compute_dtype,
             "attn_impl": run.attn_impl, "remat": run.remat,
             "n_layers": cfg.n_layers,
             "ladder": planner.depth_ladder(cfg, anchor),
@@ -1868,10 +2056,12 @@ def select_at_full_depth(state, arch, rep, planner, **extra):
 
 def phase_planner(state):
     """Crispy's planner over the port: deepseek-7b's and zamba2-7b's bf16
-    prefill at B=4, S=2048 (the kernels' path), and deepseek-7b's and
-    olmoe-1b-7b's float32 train steps at B=2, S=2048 as the train launcher
-    runs them, with the presets' remat; then the selection for each train
-    job at its full depth (30 and 16 layers), which must be feasible."""
+    prefill at B=4, S=2048 (the kernels' path), and deepseek-7b's,
+    olmoe-1b-7b's and zamba2-7b's float32 train steps at B=2, S=2048 and
+    whisper-small's at B=2, S=448 as the train launcher runs them, with the
+    presets' remat; then the selection for the deepseek-7b, olmoe-1b-7b and
+    zamba2-7b train jobs at their full depths (30, 16 and 81 layers), which
+    must be feasible."""
     from repro_torch.configs import RunConfig
     from repro_torch.core.catalog import gpu_catalog
     from repro_torch.core.hbm_planner import GPU_OVERHEAD_GIB
@@ -1899,16 +2089,24 @@ def phase_planner(state):
         state, "olmoe-1b-7b", "train", f32, ("rmsnorm", "rmsnorm_backward"),
         n_layers=PLANNER_MOE_LAYERS, anchor=PLANNER_MOE_ANCHOR)
     select_at_full_depth(state, "olmoe-1b-7b", rep, planner)
+    planner_job(state, "whisper-small", "train", f32,
+                ("rmsnorm", "rmsnorm_backward"), anchor=PLANNER_WHISPER_ANCHOR,
+                seq=PLANNER_WHISPER_S)
+    rep, _, planner = planner_job(
+        state, "zamba2-7b", "train", f32, ("rmsnorm", "rmsnorm_backward"),
+        n_layers=PLANNER_ZAMBA_BLOCKS)
+    select_at_full_depth(state, "zamba2-7b", rep, planner)
 
 
 def kernels_line(state):
     """One entry for each kernel at the prefill shape of the model that
-    carries it (the rmsnorm backward: at the train phase's, in its float32;
-    flash attention at D = 128 and, as its own entry, at deepseek-v3's
+    carries it (the rmsnorm backward: at the train phase's, in its float32,
+    and at the other families' float32 train widths 768, 3584, 7168 and
+    8192; flash attention at D = 128 and, as its own entry, at deepseek-v3's
     D = 192, and at each shape of NEW_FLASH; rmsnorm at d = 8192 and 768
     too); `launches` counts the prefill, serve, train and planner phases
     (the D = 192 instance: deepseek-v3-671b's prefill phase, which alone
-    runs it; the NEW_FLASH shapes and the two rmsnorm widths: the wrappers'
+    runs it; the NEW_FLASH shapes and the rmsnorm widths: the wrappers'
     counts at that shape or width)."""
     meta = {
         "rmsnorm": {"source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -1959,6 +2157,15 @@ def kernels_line(state):
                       "shape": shape, "timed_as": "rmsnorm",
                       "launches": state["shape_launches"]["rmsnorm"].get(
                           shape[1], 0)}
+    # the rmsnorm backward in float32 at the other families' train widths,
+    # with the launches the wrapper counted at that width on the main path
+    for rows, d in ((3000, 768), (4096, 3584), (4096, 7168), (2048, 8192)):
+        meta[f"rmsnorm_backward_d{d}"] = {
+            "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+            "replaces": "src/repro/kernels/rmsnorm.py:28",
+            "shape": [rows, d], "timed_as": "rmsnorm_backward",
+            "dtype": str(torch.float32),
+            "launches": state["shape_launches"]["rmsnorm_backward"].get(d, 0)}
     out = []
     bf16 = str(torch.bfloat16)
     for name, m in meta.items():
@@ -2000,7 +2207,8 @@ def main(argv=None) -> int:
 
     state = {"seed": args.seed, "verbose": args.verbose, "smi": smi_line(),
              "launches": dict.fromkeys(KERNELS, 0), "prefill_launches": {},
-             "shape_launches": {"flash_attention": {}, "rmsnorm": {}}}
+             "shape_launches": {"flash_attention": {}, "rmsnorm": {},
+                                "rmsnorm_backward": {}}}
     run = {"env": phase_env, "kernels": phase_kernels, "parity": phase_parity,
            "prefill": phase_prefill, "serve": phase_serve, "train": phase_train,
            "planner": phase_planner}

@@ -255,11 +255,15 @@ def rmsnorm_backward(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
                  partial.data_ptr(), dscale.data_ptr(), rows, d, eps, codes,
                  blocks, int(vector))
     rmsnorm_backward.launches += 1
+    rmsnorm_backward.launches_by_width[d] = \
+        rmsnorm_backward.launches_by_width.get(d, 0) + 1
     return dx, dscale
 
 
-# number of kernel launches made through the backward's wrapper
+# number of kernel launches made through the backward's wrapper, in all and
+# by row width
 rmsnorm_backward.launches = 0
+rmsnorm_backward.launches_by_width = {}
 
 
 class _RmsNormFn(torch.autograd.Function):

@@ -79,10 +79,13 @@ def ssd_chunked(xs, dt, A, Bm, Cm, chunk: int, h0=None):
     for c in range(nC):
         xq, dq, bq, cq = xs_c[:, c], dt_c[:, c], Bm_c[:, c], Cm_c[:, c]
         cum = torch.cumsum(dq * A, dim=1)                      # (B,Q,H)
-        # intra-chunk: M[b,h,i,j] = (C_i.B_j) exp(cum_i-cum_j) dt_j  (j<=i)
+        # intra-chunk: M[b,h,i,j] = (C_i.B_j) exp(cum_i-cum_j) dt_j  (j<=i).
+        # The mask goes in before the exp: for j > i the exponent is
+        # positive and may overflow, and exp(inf) under a mask that zeroes
+        # it after would make the backward 0 * inf = NaN
         cb = torch.einsum("bihn,bjhn->bhij", cq, bq)
-        dec = torch.exp(cum[:, :, None, :] - cum[:, None, :, :])  # (B,i,j,H)
-        dec = torch.where(causal, dec.permute(0, 3, 1, 2), 0.0)   # (B,H,i,j)
+        expo = (cum[:, :, None, :] - cum[:, None, :, :]).permute(0, 3, 1, 2)
+        dec = torch.exp(expo.masked_fill(~causal, float("-inf")))  # (B,H,i,j)
         m = cb * dec * dq.permute(0, 2, 1)[:, :, None, :]
         y = torch.einsum("bhij,bjhp->bihp", m, xq)
         y = y + torch.einsum("bihn,bhnp->bihp", cq, h) * \

@@ -11,16 +11,15 @@ once, so that a profiler reads what the step really allocates:
   moments) + one ``make_train_step`` step on a (B, S) batch of tokens and
   labels, for every ported family (the MoE family's loss with the
   router's aux term and the MTP loss); the moments stay alive at the
-  peak, as in the reference's donated step. The vlm and audio families
-  are refused: their training is not ported yet;
+  peak, as in the reference's donated step;
 * ``prefill``: ``Model.prefill`` of a (B, S) prompt into caches of S;
 * ``decode``:  ``Model.init_caches(B, S)`` + one ``decode_step`` of a
   (B, 1) batch.
 
 As the reference's ``input_specs``, the vlm family's batches carry
 ``media`` (B, n_media_tokens, d), and the audio family's ``frames`` (B,
-enc_len, d) to prefill and ``enc_out`` of the same shape to decode, in the
-compute dtype.
+enc_len, d) to train and prefill and ``enc_out`` of the same shape to
+decode, in the compute dtype.
 
 Inputs are drawn from a generator on the device seeded with ``seed``. On a
 CUDA device the callable resets the allocator's peak statistics between
@@ -43,7 +42,7 @@ from repro_torch import resolve_device, resolve_dtype
 from repro_torch.configs.base import (MeshConfig, ModelConfig, RunConfig,
                                       ShapeConfig)
 from repro_torch.launch.presets import preset_run
-from repro_torch.models.model import Model, refuse_training
+from repro_torch.models.model import Model
 from repro_torch.optim import AdamWConfig
 from repro_torch.train.step import init_train_state, make_train_step
 
@@ -58,8 +57,6 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig,
     (None: the GPU), building its weights, state and inputs there."""
     if shape.mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {shape.mode!r}")
-    if shape.mode == "train":
-        refuse_training(cfg)
     device = resolve_device(device)
     run = run or preset_run(cfg, shape, ONE_DEVICE)
     B, S = shape.global_batch, shape.seq_len
@@ -69,8 +66,8 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig,
                              device=device, dtype=torch.int32)
 
     def inputs(generator, n):
-        """The batch of a serving step: tokens, and the family's media,
-        frames or encoder output."""
+        """The batch of a step: tokens, and the family's media, frames or
+        encoder output."""
         batch = {"tokens": tokens(generator, n)}
         if cfg.family in ("vlm", "audio"):
             if cfg.family == "vlm":
@@ -92,8 +89,7 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig,
             acfg = AdamWConfig(moment_dtype=run.moment_dtype,
                                keep_master=run.param_dtype != "float32")
             state = init_train_state(model, seed, acfg)
-            batch = {"tokens": tokens(generator, S),
-                     "labels": tokens(generator, S)}
+            batch = {**inputs(generator, S), "labels": tokens(generator, S)}
             return lambda: make_train_step(model, acfg)(state, batch)[1]
         model.init(seed=seed)
         if shape.mode == "prefill":

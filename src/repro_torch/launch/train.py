@@ -15,26 +15,46 @@ family it must leave one MoE layer at least:
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \
       --layers 4 --steps 5 --batch 2 --seq 2048
 
-The launch line gives the total parameters and those active a token (the
-routed experts counted top_k / n_experts, as the reference counts them);
-for the MoE family the last line gives the router's aux term too. The weights
-are drawn from ``--seed`` by the port's own init, so they are not the
+For the vlm family it rounds down to whole groups of a cross-attention
+period (``configs.cut_depth``); for the audio family it cuts the decoder.
+
+Every family of the JAX package trains. As in the reference's launcher, the
+vlm's steps are fed all-zero ``media`` (B, n_media_tokens, d_model) and the
+audio family's all-zero ``frames`` (B, enc_len, d_model), float32, made a
+step at a time (``family_inputs``); the launch line names them. The launch
+line gives the total parameters and those active a token (the routed
+experts counted top_k / n_experts, as the reference counts them); for the
+MoE family the last line gives the router's aux term too. The weights are
+drawn from ``--seed`` by the port's own init, so they are not the
 reference's for the same seed. Returns (final train state, loop report).
-The vlm and audio families are refused: their training is not ported yet.
 """
 from __future__ import annotations
 
 import argparse
 
+import numpy as np
+
 from repro_torch import resolve_device
 from repro_torch.configs import cut_depth, get_arch
-from repro_torch.configs.base import RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.data.pipeline import ShardedLoader, SyntheticLMDataset
-from repro_torch.models.model import (Model, analytic_param_count,
-                                      refuse_training)
+from repro_torch.models.model import Model, analytic_param_count
 from repro_torch.optim import AdamWConfig
 from repro_torch.train.loop import LoopConfig, train_loop
 from repro_torch.train.step import init_train_state, make_train_step
+
+
+def family_inputs(cfg: ModelConfig, batch: int):
+    """What a step of `cfg`'s family takes beside tokens and labels, as the
+    reference's launcher feeds it: all-zero float32 ``media`` for the vlm,
+    ``frames`` for the audio family; {} for the others."""
+    if cfg.family == "vlm":
+        rows, name = cfg.cross_attn.n_media_tokens, "media"
+    elif cfg.family == "audio":
+        rows, name = cfg.encdec.enc_len, "frames"
+    else:
+        return {}
+    return {name: np.zeros((batch, rows, cfg.d_model), np.float32)}
 
 
 def main(argv=None):
@@ -63,7 +83,6 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    refuse_training(cfg)
     if args.layers is not None:
         cfg = cut_depth(cfg, args.layers)
     run = RunConfig(attn_impl="full" if args.seq <= 512 else "blocked",
@@ -75,11 +94,17 @@ def main(argv=None):
     state = init_train_state(model, args.seed, acfg)
     n_params = sum(p.numel() for p in model.tree.parameters())
     active = analytic_param_count(cfg, active_only=True)
+    extra = "".join(f", {name} {tuple(a.shape)} zeros" for name, a in
+                    family_inputs(cfg, args.batch).items())
     print(f"[launch] {cfg.name} ({'reduced' if args.reduced else 'full'}, "
           f"{cfg.n_layers} layers): {n_params / 1e6:.2f}M params "
-          f"({active / 1e6:.2f}M active a token) on {device}")
+          f"({active / 1e6:.2f}M active a token) on {device}{extra}")
 
-    step_fn = make_train_step(model, acfg, total_steps=args.steps)
+    train_step = make_train_step(model, acfg, total_steps=args.steps)
+
+    def step_fn(state, batch):
+        return train_step(state, {**batch, **family_inputs(cfg, args.batch)})
+
     ds = SyntheticLMDataset(cfg.vocab_size, args.seed)
     loader = ShardedLoader(ds, args.batch, args.seq)
     lcfg = LoopConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,

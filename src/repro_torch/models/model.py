@@ -32,12 +32,14 @@ encoder-decoder ``layers.enc.attn.wq``, ``layers.dec.cross.wq``,
 ``layers.dec.ln_cross`` and ``layers.enc_ln``. The serving entry points run under
 ``torch.no_grad()``; ``loss_fn`` runs the same forward with grad mode on, and
 ``trainable()`` makes the parameters require gradients (they are created
-frozen). The dense and MoE families train on the card (the MoE loss with
-the router's aux term and DeepSeek-V3's MTP loss); there the only kernels a
-training step runs are rmsnorm and its backward. The wkv6 and ssd kernels
-have no backward yet and refuse an input that needs one, so the ssm and
-hybrid families train on the CPU only. The vlm and audio families serve
-only: their training is not ported yet (``refuse_training``).
+frozen). All six families train, on the card and on the CPU (the MoE loss
+with the router's aux term and DeepSeek-V3's MTP loss; the vlm's with
+``media`` in the batch, the audio family's with ``frames``). The train
+launcher sets ``attn_impl`` to ``"full"`` or ``"blocked"``, as the
+reference's does, so that a training step on the card takes the plain
+chunked recurrences (``wkv_chunked``, ``ssd_chunked``) and plain attention,
+and runs only the rmsnorm kernels and their backward: the flash attention,
+wkv6 and ssd kernels have no backward and refuse an input that needs one.
 """
 from __future__ import annotations
 
@@ -55,15 +57,6 @@ from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
-SERVING_ONLY = ("vlm", "audio")
-
-
-def refuse_training(cfg: ModelConfig) -> None:
-    """Raise for a family whose training is not ported yet."""
-    if cfg.family in SERVING_ONLY:
-        raise NotImplementedError(
-            f"training the {cfg.family} family ({cfg.name}) is not ported "
-            f"yet (ROADMAP.md, Queue 1): it serves only")
 
 
 class ParamTree(nn.Module):

@@ -5,15 +5,19 @@ VLM stack (groups of self-attention blocks and one gated cross-attention
 block) and whisper's encoder-decoder.
 
 Every leaf of a stack's parameters has the layer count as its first
-dimension (the hybrid's Mamba2 leaves: groups, then layers in a group); the
-stack is applied by a plain Python loop over that axis, each layer reading
-its slice as a view. Decode caches are updated in place.
+dimension (the hybrid's Mamba2 leaves and the VLM's self-attention leaves:
+groups, then layers in a group); the stack is applied by a plain Python
+loop over that axis. Serving (no grad) reads each layer's slice as a view.
+Decode caches are updated in place.
 
-Under autograd the dense stack takes its layers out with one
-``torch.unbind`` of each leaf, whose backward stacks the layers' gradients
-once; indexing a[i] for every layer would give each layer's backward a
-zero tensor the size of the whole leaf. ``RunConfig.remat`` then wraps each
-layer as the reference wraps its scan body (``remat_wrap``).
+Under autograd every stack takes its layers out with one ``torch.unbind``
+of each leaf (``layer_params``), whose backward stacks the layers'
+gradients once; indexing a[i] for every layer would give each layer's
+backward a zero tensor the size of the whole leaf. ``RunConfig.remat`` then
+wraps the bodies that the reference wraps in ``remat_wrap`` (``layer_fn``):
+the dense and MoE blocks, the RWKV6 layer, the Mamba2 block, the VLM's
+self-attention blocks and the decoder layer of the encoder-decoder; the
+hybrid's shared block and the VLM's cross block run unwrapped, as there.
 """
 from __future__ import annotations
 
@@ -230,27 +234,36 @@ def remat_wrap(fn, policy: str):
     raise ValueError(f"unknown remat policy {policy!r}")
 
 
-def unstack(params, n: int):
-    """The n layers of a stacked tree, each leaf taken apart by one
-    ``torch.unbind``."""
-    parts = tree_map(lambda a: a.unbind(0), params)
-    return [tree_map(lambda t: t[i], parts) for i in range(n)]
+def layer_params(params, n: int):
+    """The n layers of a tree stacked on a leading axis: with grad mode on,
+    each leaf taken apart by one ``torch.unbind``; with no grad (serving),
+    each layer's slices as views."""
+    if torch.is_grad_enabled():
+        parts = tree_map(lambda a: a.unbind(0), params)
+        return [tree_map(lambda t: t[i], parts) for i in range(n)]
+    return [tree_map(lambda a: a[i], params) for i in range(n)]
+
+
+def flat_groups(params):
+    """A tree stacked on (groups, layers in a group) as one stacked on
+    groups x layers: views of the same storage."""
+    return tree_map(lambda a: a.view(-1, *a.shape[2:]), params)
+
+
+def layer_fn(fn, run: RunConfig):
+    """`fn`, a layer of a stack, under `run.remat` when grad mode is on and
+    `run.scan_layers` (the reference remats its scan bodies only); as it is
+    otherwise."""
+    if not torch.is_grad_enabled():
+        return fn
+    return remat_wrap(fn, run.remat if run.scan_layers else "nothing")
 
 
 def stack(params, x, cfg, run, *, kind="dense", positions=None, causal=True):
-    """Run x through a stacked block group -> (x, summed aux). With grad
-    mode on the layers come out of one unbind a leaf and each runs under
-    `run.remat` (when `run.scan_layers`, as the reference remats its scan
-    body only); the serving path (no grad) reads each layer's slices."""
-    n = n_stacked(params)
+    """Run x through a stacked block group -> (x, summed aux)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    if not torch.is_grad_enabled():
-        layers = (tree_map(lambda a: a[i], params) for i in range(n))
-        layer = block
-    else:
-        layers = unstack(params, n)
-        layer = remat_wrap(block, run.remat if run.scan_layers else "nothing")
-    for lp in layers:
+    layer = layer_fn(block, run)
+    for lp in layer_params(params, n_stacked(params)):
         x, aux = layer(lp, x, cfg, run, kind=kind, positions=positions,
                        causal=causal)
         aux_total = aux_total + aux
@@ -318,10 +331,14 @@ def _norms(lp):
     return {"ln1": lp["ln1"], "ln2": lp["ln2"]}
 
 
+def _rwkv_layer(lp, x, cfg, run):
+    return R.rwkv_block(lp, x, cfg, run, _norms(lp))
+
+
 def rwkv_stack(params, x, cfg, run):
-    for i in range(n_stacked(params)):
-        lp = tree_map(lambda a: a[i], params)
-        x = R.rwkv_block(lp, x, cfg, run, _norms(lp))
+    layer = layer_fn(_rwkv_layer, run)
+    for lp in layer_params(params, n_stacked(params)):
+        x = layer(lp, x, cfg, run)
     return x
 
 
@@ -373,23 +390,29 @@ def init_hybrid(cfg: ModelConfig, *, dtype=torch.float32, device=None):
 
 def fill_hybrid(params, generator, cfg: ModelConfig):
     """Draw a hybrid stack's parameters IN PLACE."""
-    flat = tree_map(lambda a: a.view(-1, *a.shape[2:]), params["mamba"])
-    fill_stacked(flat, lambda **kw: init_mamba_layer(generator, cfg, **kw))
+    fill_stacked(flat_groups(params["mamba"]),
+                 lambda **kw: init_mamba_layer(generator, cfg, **kw))
     fill_stack(params["shared"], generator, cfg, "dense", _shared_d_ff(cfg))
     return params
 
 
+def _mamba_layer(lp, x, cfg, run):
+    return x + SSM.mamba2(lp, L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg, run)
+
+
 def hybrid_stack(params, x, cfg, run, *, positions=None):
+    """The groups' Mamba2 blocks (each under `run.remat`), each group
+    followed by its shared block, unwrapped."""
     mamba, shared = params["mamba"], params["shared"]
     G, period = first_leaf(mamba).shape[:2]
-    n_sets = n_stacked(shared)
+    blocks = layer_params(flat_groups(mamba), G * period)
+    sets = layer_params(shared, n_stacked(shared))
+    layer = layer_fn(_mamba_layer, run)
     for g in range(G):
-        for i in range(period):
-            lp = tree_map(lambda a: a[g, i], mamba)
-            x = x + SSM.mamba2(lp, L.rms_norm(x, lp["ln"], cfg.norm_eps),
-                               cfg, run)
-        x, _ = block(tree_map(lambda a: a[g % n_sets], shared), x, cfg, run,
-                     kind="dense", positions=positions)
+        for lp in blocks[g * period:(g + 1) * period]:
+            x = layer(lp, x, cfg, run)
+        x, _ = block(sets[g % len(sets)], x, cfg, run, kind="dense",
+                     positions=positions)
     return x
 
 
@@ -437,21 +460,22 @@ def init_vlm(cfg: ModelConfig, *, dtype=torch.float32, device=None):
 
 def fill_vlm(params, generator, cfg: ModelConfig):
     """Draw a VLM stack's parameters IN PLACE."""
-    fill_stack(tree_map(lambda a: a.view(-1, *a.shape[2:]), params["self"]),
-               generator, cfg, "dense")
+    fill_stack(flat_groups(params["self"]), generator, cfg, "dense")
     fill_stack(params["cross"], generator, cfg, "cross")
     return params
 
 
 def vlm_stack(params, x, media, cfg, run, *, positions=None):
-    """x (B, S, d) through the groups; media (B, M, d) in x's dtype."""
+    """x (B, S, d) through the groups; media (B, M, d) in x's dtype. The
+    self-attention blocks run under `run.remat`, the cross block
+    unwrapped."""
     selfp, crossp = params["self"], params["cross"]
-    n_self = first_leaf(selfp).shape[1]
-    for g in range(n_stacked(crossp)):
-        for i in range(n_self):
-            x, _ = block(tree_map(lambda a: a[g, i], selfp), x, cfg, run,
-                         kind="dense", positions=positions)
-        cp = tree_map(lambda a: a[g], crossp)
+    G, n_self = first_leaf(selfp).shape[:2]
+    selfs = layer_params(flat_groups(selfp), G * n_self)
+    layer = layer_fn(block, run)
+    for g, cp in enumerate(layer_params(crossp, G)):
+        for lp in selfs[g * n_self:(g + 1) * n_self]:
+            x, _ = layer(lp, x, cfg, run, kind="dense", positions=positions)
         x, _ = block(cp, x, cfg, run, kind="cross",
                      media_kv=A.cross_attn_kv(cp["attn"], media))
     return x
@@ -546,12 +570,13 @@ def _dec_block(lp, x, enc_out, cfg, run, positions):
 
 def encdec_apply(params, frames, tokens_x, cfg, run, *, positions=None):
     """frames (B, enc_len, d) stub embeddings; tokens_x (B, S, d) embedded
-    tokens -> the decoder's output (B, S, d)."""
+    tokens -> the decoder's output (B, S, d). The decoder layers run under
+    `run.remat`, as the encoder's blocks do (``stack``)."""
     enc_out = encdec_encode(params, frames, cfg, run)
+    layer = layer_fn(_dec_block, run)
     x = tokens_x
-    for i in range(n_stacked(params["dec"])):
-        x = _dec_block(tree_map(lambda a: a[i], params["dec"]), x, enc_out,
-                       cfg, run, positions)
+    for lp in layer_params(params["dec"], n_stacked(params["dec"])):
+        x = layer(lp, x, enc_out, cfg, run, positions)
     return x
 
 

@@ -54,9 +54,12 @@ def init_train_state(model: Model, seed: Optional[int],
 
 def loss_and_grads(model: Model, params: Dict, batch):
     """(loss, metrics, grads): the loss detached, grads as a nested dict
-    like `params`."""
+    like `params`. A leaf that the forward never reads gets a zero gradient
+    of its shape and dtype, as under ``jax.value_and_grad``: whisper's
+    decoder layers hold a cross-attention gate (``layers.dec.cross.gate``)
+    that its ungated cross-attention does not use."""
     loss, metrics = model.loss_fn(batch, params)
-    grads = torch.autograd.grad(loss, leaves(params))
+    grads = torch.autograd.grad(loss, leaves(params), materialize_grads=True)
     return loss.detach(), metrics, like_tree(params, grads)
 
 

@@ -277,6 +277,25 @@ def test_rmsnorm_backward_kernel(card, shape, dtype, residual, scale_dtype):
     assert_dscale_close(dscale, want_dscale, scale_dtype)
 
 
+@pytest.mark.parametrize("rows,d", [(3000, 768), (2048, 8192)])
+@pytest.mark.parametrize("residual", [False, True])
+def test_rmsnorm_backward_kernel_in_float32_at_new_train_widths(card, rows, d,
+                                                                residual):
+    """The rows of whisper's encoder at B = 2 (d 768) and of the vlm's
+    full-width train step (d 8192; a float32 row holds h and g in shared
+    memory, 64 KB of it), in float32 as the train launcher runs them."""
+    f32 = torch.float32
+    x, g = randn(card, 45, (rows, d), f32), randn(card, 46, (rows, d), f32)
+    r = randn(card, 47, (rows, d), f32) if residual else None
+    sc = 1.0 + 0.1 * randn(card, 48, (d,), f32)
+    before = rmsnorm_backward.launches
+    dx, dscale = rmsnorm_backward(x, sc, g, residual=r)
+    assert rmsnorm_backward.launches == before + 1
+    want_dx, want_dscale = rmsnorm_backward_plain(x, sc, g, residual=r)
+    assert_close(dx, want_dx, f32)
+    assert_dscale_close(dscale, want_dscale, f32)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("residual", [False, True])
 def test_rmsnorm_autograd_on_the_card_launches_both_kernels(card, dtype,

@@ -6,9 +6,9 @@ prefill, decode, caches, conversion, parameter counts, the engine and the
 command line. Every parity sets the tanh gates nonzero (they start at 0,
 which would hide the cross path) and draws the media from a seed: constant
 media make every key equal and the softmax uniform. Tolerances are the
-existing model tests' (logits 1e-4, decode against forward 5e-4). The
-launchers' refusals of the two serving-only families (vlm, audio) are here
-too."""
+existing model tests' (logits 1e-4, decode against forward 5e-4).
+``build_step``'s serving modes for the vlm and audio families are here too;
+their training is in ``tests/test_torch_train_families.py``."""
 from dataclasses import asdict, replace
 
 import jax
@@ -29,7 +29,6 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.convert import (caches_from_numpy, caches_to_numpy,
                                  params_to_numpy)
 from repro_torch.launch import serve as launch_serve
-from repro_torch.launch import train as launch_train
 from repro_torch.launch.dryrun import build_step
 from repro_torch.models import Model, analytic_param_count
 from repro_torch.models import attention as TA
@@ -348,7 +347,7 @@ def test_launcher_runs_reduced_on_the_cpu(capsys):
 
 
 # ---------------------------------------------------------------------------
-# the launchers and the two serving-only families
+# build_step's serving modes for the vlm and audio families
 # ---------------------------------------------------------------------------
 
 
@@ -367,12 +366,3 @@ def test_build_step_feeds_the_familys_inputs(arch):
     assert bool(torch.isfinite(logits).all())
 
 
-@pytest.mark.parametrize("arch", [ARCH, "whisper-small"])
-def test_training_is_refused(arch):
-    cfg = get_arch(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_step(cfg, ShapeConfig("t", 8, 2, "train"), torch_run("full"),
-                   device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launch_train.main(["--arch", arch, "--reduced", "--device", "cpu",
-                           "--steps", "1"])
