@@ -28,8 +28,14 @@ weights), whose optimizer state does not fit one card; and Crispy's
 planner over the port (``repro_torch.core.hbm_planner``): six jobs
 profiled over their depth ladders on the card, extrapolated, and held
 against one measured step at the depth extrapolated to (deepseek-7b's
-float32 train step at 20 layers, near the card's memory, among them).
-Every line of
+float32 train step at 20 layers, near the card's memory, among them). The
+int8 KV cache: deepseek-7b served whole over a cache of 4096 positions in
+bfloat16 and in int8 (bytes, peak, ticks, tokens/s), and its int8 decode
+on the card against the CPU at full width and 4 layers. The allocation
+endpoint beside the engine: deepseek-7b served while eight threads send
+allocation requests to the attached service (answers and tokens must not
+change), then one request that the card answers, held against the
+planner. Every line of
 standard output is
 one JSON object, except the line before the last, which is the card's name
 and power limit as ``nvidia-smi`` prints them. The last line is
@@ -37,7 +43,8 @@ and power limit as ``nvidia-smi`` prints them. The last line is
 not build, launch or agree, a phase out of its gate) ends the run with a
 traceback and a non-zero exit code; no failure is caught.
 
-Phases, in order: env, kernels, parity, prefill, serve, train, planner.
+Phases, in order: env, kernels, parity, prefill, serve, train, planner,
+allocate.
 ``--phases`` runs a subset while developing; such a run never prints the
 last line and exits 2.
 The kernels phase times each kernel on the device (CUDA events) beside its
@@ -71,7 +78,7 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("env", "kernels", "parity", "prefill", "serve", "train",
-          "planner")
+          "planner", "allocate")
 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -257,6 +264,34 @@ CUT_LAYERS = {"deepseek-v3-671b": 4, "llama-3.2-vision-90b": 10}
 # layers, deepseek-v3-671b's one at S = 2048). Only deepseek-7b keeps the
 # bfloat16 gate.
 DECODE_IN_F32 = ("rwkv6-7b", "zamba2-7b", "olmoe-1b-7b", "deepseek-v3-671b")
+# the serve phase's int8 comparison: deepseek-7b whole, bfloat16, the first
+# serve run's traffic (8 slots, 16 requests, prompt 32, 32 new tokens) over
+# a cache of 4096 positions, once in the compute dtype and once in int8:
+# 2 * 128 bytes a (token, head) against 2 * (128 + 2), the int8 values and
+# their bfloat16 scales
+INT8_SERVE = {"slots": 8, "requests": 16, "prompt": 32, "max_new": 32,
+              "max_len": 4096}
+# the parity phase's int8 gate: deepseek-7b at full width cut to 4 layers,
+# float32, `steps` decode steps from empty int8 caches on the card and on
+# the CPU (the plain path), the CPU taking the card's rounding decisions:
+# each step's logits to INT8_LOGITS_GATE, the CPU's own rounding at most
+# one step from the card's and equal at INT8_EQUAL_SHARE of the entries;
+# and the card's decode within the reference's own INT8_REL_GATE of its
+# forward (tests/test_models.py::test_int8_kv_cache_decode_accuracy)
+INT8_PARITY = {"layers": 4, "batch": 2, "steps": 32}
+INT8_LOGITS_GATE = 1e-4
+INT8_EQUAL_SHARE = 0.999
+INT8_REL_GATE = 0.05
+# the allocate phase: one deepseek-7b engine (bfloat16, whole, 8 slots)
+# serves ALLOC_SERVE's requests while ALLOC_THREADS threads send allocation
+# requests; then one request whose points the card measures (the planner
+# phase's deepseek-7b bf16 prefill job), held against the planner within
+# ALLOC_REQUIREMENT_GATE
+ALLOC_SERVE = {"slots": 8, "requests": 8, "prompt": 16, "max_new": 16,
+               "max_len": 64}
+ALLOC_THREADS = 8
+ALLOC_REQUIREMENT_GATE = 0.005
+ALLOC_TIMEOUT_S = 600.0
 SERVE_ARCHS = ("deepseek-7b", "rwkv6-7b", "zamba2-7b", "olmoe-1b-7b",
                "deepseek-v3-671b", "llama-3.2-vision-90b", "whisper-small")
 
@@ -1140,6 +1175,132 @@ def phase_parity(state):
         del cpu, gpu, got, got_gpu, want, batch
         gc.collect()
         torch.cuda.empty_cache()
+    parity_int8(state)
+
+
+def int8_functions(state):
+    """quantize_kv and decode_attention_q8 on the card against the CPU on
+    the same inputs, at the serve run's shapes (8 rows, 4096 positions, 32
+    heads of 128): quantize_kv bit for bit (elementwise float32 arithmetic),
+    decode_attention_q8 in float32 to TOL, with a ragged kv_len."""
+    from repro_torch.models import attention as A
+    B, S, H, D = INT8_SERVE["slots"], INT8_SERVE["max_len"], 32, 128
+    rng = np.random.default_rng(state["seed"] + 9)
+    x = torch.from_numpy(rng.standard_normal((B, S, H, D), dtype=np.float32))
+    q = torch.from_numpy(rng.standard_normal((B, 1, H, D), dtype=np.float32))
+    kv_len = torch.from_numpy(rng.integers(1, S + 1, B))
+    cq, cs = A.quantize_kv(x)
+    gq, gs = A.quantize_kv(x.cuda())
+    v8, vs = A.quantize_kv(x.flip(1))
+    want = A.decode_attention_q8(q, cq, cs, v8, vs, kv_len)
+    got = A.decode_attention_q8(q.cuda(), gq, gs, v8.cuda(), vs.cuda(),
+                                kv_len.cuda())
+    err, ok = close(got.cpu(), want, torch.float32)
+    out = {"quantize_kv_bit_equal": bool(torch.equal(gq.cpu(), cq)
+                                         and torch.equal(gs.cpu(), cs)),
+           "decode_attention_q8_max_abs_err": err, "tol": TOL[torch.float32],
+           "shape": [B, S, H, D]}
+    require(out["quantize_kv_bit_equal"], "parity int8: quantize_kv differs")
+    require(ok, f"parity int8: decode_attention_q8 differs by {err}")
+    return out
+
+
+def parity_int8(state):
+    """The int8 KV cache on the card against the CPU's plain path on the
+    same weights (deepseek-7b at full width, 4 layers, float32, drawn on the
+    card by the model's init). The card decodes on its own; the CPU takes
+    each step with the card's rounding decisions (the int8 values and
+    scales the card wrote at that step, handed to its gqa_decode in place of
+    its own quantize_kv's), so that both caches hold the same entries and
+    every step starts from one state. Gated: each step's logits, and the
+    CPU's own rounding of its own k and v against the card's (at most one
+    step apart). Left free, one entry that rounds to the other side of a
+    step on one device moves every later layer's and step's k and v, and
+    the two decodes drift apart by whole quantisation steps (PERF.md §6).
+    The card's decode is also held against its own forward at the
+    reference's gate."""
+    from dataclasses import replace
+    from unittest import mock
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.models import attention as A
+    from repro_torch.models.model import Model
+
+    functions = int8_functions(state)
+    P = INT8_PARITY
+    cfg = replace(get_arch("deepseek-7b"), n_layers=P["layers"])
+    run = RunConfig(param_dtype="float32", compute_dtype="float32",
+                    attn_impl="kernel", kv_cache_dtype="int8")
+    gpu = Model(cfg, run).init(seed=state["seed"])
+    cpu = Model(cfg, run, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    B, n, V, L = P["batch"], P["steps"], cfg.vocab_size, cfg.n_layers
+    tokens = np.random.default_rng(state["seed"] + 7).integers(0, V, (B, n))
+    cg, cc = gpu.init_caches(B, n), cpu.init_caches(B, n)
+    require(cg["k"].dtype == torch.int8 and cg["k_scale"].dtype == torch.bfloat16,
+            "parity int8: the caches are not int8 with bfloat16 scales")
+    own_quantize = A.quantize_kv
+    rounding = {"max_step": 0, "equal": 0, "total": 0, "scale_rel": 0.0}
+
+    def card_rounding(decided):
+        """quantize_kv for the CPU's step: the card's decision, next in
+        order (each layer's k, then its v), after comparing the CPU's own."""
+        def quantize(x):
+            q_own, s_own = own_quantize(x)
+            q, s = decided.pop(0)
+            d = (q_own.int() - q.int()).abs()
+            rounding["max_step"] = max(rounding["max_step"], int(d.max()))
+            rounding["equal"] += int((d == 0).sum())
+            rounding["total"] += d.numel()
+            rounding["scale_rel"] = max(rounding["scale_rel"], float(
+                ((s_own.float() - s.float()).abs() / s.float()).max()))
+            return q, s
+        return quantize
+
+    reset_counts()
+    steps, errs = [], []
+    for t in range(n):
+        batch = {"tokens": tokens[:, t:t + 1]}
+        lg, cg = gpu.decode_step(batch, cg)
+        decided = [(cg[name][i, :, t].cpu(), cg[name + "_scale"][i, :, t].cpu())
+                   for i in range(L) for name in ("k", "v")]
+        with mock.patch.object(A, "quantize_kv", card_rounding(decided)):
+            lc, cc = cpu.decode_step(batch, cc)
+        require(not decided, "parity int8: a layer's k or v was not quantized")
+        steps.append(lg[:, 0, :V])
+        errs.append(float((lg[..., :V].cpu() - lc[..., :V]).abs().max()))
+    counts = read_counts()
+    same_cache = all(torch.equal(cg[name].cpu(), cc[name]) for name in cc)
+    full = gpu.forward({"tokens": tokens})[..., :V]
+    rel = float((full - torch.stack(steps, 1)).abs().max()
+                / full.abs().max())
+    equal_share = rounding["equal"] / rounding["total"]
+    emit({"phase": "parity", "part": "int8_kv", "arch": cfg.name,
+          "n_layers": L, "cut": "depth 30 -> 4; width and vocabulary full",
+          "dtype": "float32", "kv_cache_dtype": "int8", "batch": B,
+          "steps": n, "functions": functions,
+          "logits_card_vs_cpu_max_abs_err": max(errs),
+          "logits_max_abs": float(full.abs().max()),
+          "logits_gate": INT8_LOGITS_GATE,
+          "rounding_max_step": rounding["max_step"],
+          "rounding_equal_share": equal_share,
+          "equal_share_gate": INT8_EQUAL_SHARE,
+          "rounding_scale_max_rel": rounding["scale_rel"],
+          "caches_equal": same_cache,
+          "decode_vs_forward_rel_err": rel, "rel_gate": INT8_REL_GATE,
+          "launches": counts, "gpu": state["smi"]})
+    require(max(errs) < INT8_LOGITS_GATE,
+            f"parity int8: card vs CPU logits differ by {max(errs)}")
+    require(rounding["max_step"] <= 1 and equal_share >= INT8_EQUAL_SHARE,
+            f"parity int8: rounding {rounding}")
+    require(rounding["scale_rel"] <= 2 ** -7,
+            f"parity int8: scales differ by {rounding['scale_rel']}")
+    require(same_cache, "parity int8: the caches differ")
+    require(rel < INT8_REL_GATE, f"parity int8: decode vs forward {rel}")
+    require(counts["rmsnorm"] == n * (2 * L + 1),
+            f"parity int8: rmsnorm launches {counts}")
+    del gpu, cpu, cg, cc, full, steps
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def reset_counts():
@@ -1506,9 +1667,103 @@ def serve_path(state, arch, slots, n_req, prompt_len, max_new, max_len):
     torch.cuda.empty_cache()
 
 
+def cache_bytes(caches):
+    return sum(t.numel() * t.element_size() for t in leaves(caches))
+
+
+def prompts_for(cfg, n, length, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, cfg.vocab_size, size=length).tolist()
+            for _ in range(n)]
+
+
+def engine_run(engine, prompts, max_new):
+    """Serve `prompts` through `engine`, one timed tick at a time: (the
+    requests in order of rid, each tick's ms). A tick ends in the copy of
+    its logits to the host, so its time is the device's too."""
+    from repro_torch.serve.engine import Request
+    engine.finished = []
+    for rid, prompt in enumerate(prompts):
+        engine.submit(Request(rid, prompt=prompt, max_new_tokens=max_new))
+    tick_ms = []
+    while engine.pending or any(engine.active):
+        t0 = time.perf_counter()
+        engine.tick()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+    return sorted(engine.finished, key=lambda r: r.rid), tick_ms
+
+
+def serve_int8(state):
+    """deepseek-7b whole, bfloat16, through ServeEngine with a cache of
+    INT8_SERVE["max_len"] positions, in the compute dtype and in int8: the
+    caches' bytes, the peak, each tick's ms and tokens/s of each."""
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import ServeEngine
+
+    P = INT8_SERVE
+    cfg = get_arch("deepseek-7b")
+    run = RunConfig(attn_impl="kernel", remat="nothing",
+                    param_dtype="bfloat16", compute_dtype="bfloat16")
+    model = build_model(cfg, run, seed=state["seed"])
+    prompts = prompts_for(cfg, P["requests"], P["prompt"], state["seed"] + 6)
+    ticks_want = -(-P["requests"] // P["slots"]) * (P["prompt"] + P["max_new"] - 1)
+    out = {}
+    for kv in ("compute", "int8"):
+        model.run = run.with_(kv_cache_dtype=kv)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        engine = ServeEngine(model, slots=P["slots"], max_len=P["max_len"],
+                             seed=state["seed"])
+        nbytes = cache_bytes(engine.caches)
+        reset_counts()
+        done, tick_ms = engine_run(engine, prompts, P["max_new"])
+        counts, shapes = read_counts(), read_shapes()
+        n_tokens = sum(len(r.out_tokens) for r in done)
+        run_s = sum(tick_ms) / 1e3
+        want = {name: k * len(tick_ms) for name, k in PER_STEP[cfg.name].items()}
+        emit({"phase": "serve", "part": "kv_cache_dtype", "arch": cfg.name,
+              "kv_cache_dtype": kv, **P, "cache_bytes": nbytes,
+              "cache_gib": nbytes / 1024 ** 3,
+              "k_dtype": str(engine.caches["k"].dtype),
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+              "ticks": len(tick_ms), "tick_ms_median": float(np.median(tick_ms)),
+              "tick_ms_p95": float(np.percentile(tick_ms, 95)),
+              "tick_ms_mean": float(np.mean(tick_ms)),
+              "engine_seconds": run_s, "new_tokens": n_tokens,
+              "tokens_per_s": n_tokens / run_s, "launches": counts,
+              "gpu": state["smi"]})
+        require(len(done) == P["requests"] and all(
+            len(r.out_tokens) == P["max_new"] and
+            all(0 <= t < cfg.vocab_size for t in r.out_tokens) for r in done),
+            f"serve {kv}: a request ended short or out of range")
+        require(len(tick_ms) == ticks_want, f"serve {kv}: {len(tick_ms)} ticks")
+        require(counts == want, f"serve {kv}: launches {counts}, expected {want}")
+        add_launches(state, counts, shapes)
+        out[kv] = (nbytes, [r.out_tokens for r in done])
+        del engine
+    D = cfg.d_head
+    ratio = out["int8"][0] / out["compute"][0]
+    same = np.mean([a == b for ta, tb in zip(out["int8"][1], out["compute"][1])
+                    for a, b in zip(ta, tb)])
+    emit({"phase": "serve", "part": "int8_vs_compute", "arch": cfg.name,
+          "cache_bytes_ratio": ratio, "expected_ratio": (D + 2) / (2 * D),
+          "greedy_tokens_equal_share": float(same), "gpu": state["smi"]})
+    # the pos leaves (int32, one a layer and slot) are all that is not k, v
+    # or their scales
+    require(abs(ratio - (D + 2) / (2 * D)) < 1e-3,
+            f"serve int8: cache bytes ratio {ratio}")
+    model.run = run
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_serve(state):
     serve_path(state, "deepseek-7b", slots=8, n_req=16, prompt_len=32,
                max_new=32, max_len=256)
+    serve_int8(state)
     # one wave of 8 requests each: every tick of rwkv6-7b launches wkv6
     serve_path(state, "rwkv6-7b", slots=8, n_req=8, prompt_len=16, max_new=16,
                max_len=64)
@@ -2071,8 +2326,8 @@ def phase_planner(state):
                      param_dtype="bfloat16", compute_dtype="bfloat16")
     f32 = RunConfig(attn_impl="blocked", remat="boundaries",
                     param_dtype="float32", compute_dtype="float32")
-    _, truth, _ = planner_job(state, "deepseek-7b", "prefill", bf16,
-                              ("rmsnorm", "flash_attention"))
+    state["planner_prefill_rep"], truth, _ = planner_job(
+        state, "deepseek-7b", "prefill", bf16, ("rmsnorm", "flash_attention"))
     overhead_gib = truth.overhead_bytes / GiB
     planner_job(state, "zamba2-7b", "prefill", bf16,
                 ("rmsnorm", "flash_attention", "ssd"))
@@ -2096,6 +2351,211 @@ def phase_planner(state):
         state, "zamba2-7b", "train", f32, ("rmsnorm", "rmsnorm_backward"),
         n_layers=PLANNER_ZAMBA_BLOCKS)
     select_at_full_depth(state, "zamba2-7b", rep, planner)
+
+
+def allocation_traffic():
+    """The allocate phase's 16 requests: 8 first requests, then the same 8
+    again (each a repeat). The first 8 are the six scout jobs whose memory
+    grows linearly and a rerun of each kmeans job (another noise seed, its
+    own signature): their answers do not depend on the order in which the
+    service's batches meet them, so that answers given under concurrency
+    can be held against answers given one at a time."""
+    from repro_torch.core.simulator import GiB, make_profile_fn, scout_like_jobs
+
+    def one(job, seed=0, **extra):
+        full = job.dataset_gib * GiB
+        return dict(job=job.name, profile_at=make_profile_fn(job, seed),
+                    full_size=full, anchor=full * 0.01, **extra)
+
+    linear = [j for j in scout_like_jobs() if j.mem_profile == "linear"]
+    firsts = [one(j) for j in linear] + [
+        one(j, seed=1, signature=j.name + "/rerun")
+        for j in linear if j.name.startswith("kmeans")]
+    require(len(firsts) == ALLOC_THREADS, "allocate: traffic changed")
+    return firsts + firsts
+
+
+def wire_answer(wire):
+    """A wire answer without what differs from one call to the next."""
+    return {k: v for k, v in wire.items() if k not in ("wall_s", "trace_id")}
+
+
+def phase_allocate(state):
+    """The allocation endpoint beside the engine: one deepseek-7b engine
+    (bfloat16, whole, 8 slots) with the AWS-like allocation service of the
+    serve demo attached, and a second endpoint over the GPU catalog.
+    (a) ALLOC_THREADS threads send allocation_traffic() (8 first requests,
+    a barrier, their 8 repeats) while the main thread serves: every answer
+    equals the one the same request gets one at a time with no engine, the
+    greedy tokens equal those of the same engine without the traffic, and
+    the repeats are registry hits. (b) One request answered from the card:
+    its profile_at (gpu_profile_fn) runs the planner phase's deepseek-7b
+    bf16 prefill job at each depth of the planner's ladder on the service's
+    worker thread, while the engine stays resident and does not tick (the
+    profiler reads the process's peak): the points equal the planner's to
+    the byte, the requirement is within ALLOC_REQUIREMENT_GATE of the
+    planner's and the selection is the same."""
+    import threading
+    from repro_torch.allocator import AllocationService
+    from repro_torch.configs import RunConfig, ShapeConfig, get_arch
+    from repro_torch.core.catalog import aws_like_catalog, gpu_catalog
+    from repro_torch.core.hbm_planner import (GPU_OVERHEAD_GIB, HBMPlanner,
+                                              gpu_profile_fn)
+    from repro_torch.core.history import ExecutionHistory
+    from repro_torch.core.simulator import build_history, scout_like_jobs
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import AllocationEndpoint, ServeEngine
+
+    traffic = allocation_traffic()
+    catalog = aws_like_catalog()
+    with AllocationService(catalog,
+                           build_history(scout_like_jobs(), catalog)) as svc:
+        ep = AllocationEndpoint(svc)
+        want = [wire_answer(ep.handle(timeout=ALLOC_TIMEOUT_S, **r))
+                for r in traffic]
+
+    P = ALLOC_SERVE
+    cfg = get_arch("deepseek-7b")
+    run = RunConfig(attn_impl="kernel", remat="nothing",
+                    param_dtype="bfloat16", compute_dtype="bfloat16")
+    model = build_model(cfg, run, seed=state["seed"])
+    prompts = prompts_for(cfg, P["requests"], P["prompt"], state["seed"] + 8)
+    aws_svc = AllocationService(catalog, build_history(scout_like_jobs(), catalog))
+    gpu_svc = AllocationService(gpu_catalog(), ExecutionHistory(),
+                                overhead_per_node_gib=GPU_OVERHEAD_GIB,
+                                leeway=0.05)
+    with aws_svc, gpu_svc:
+        engine = ServeEngine(model, slots=P["slots"], max_len=P["max_len"],
+                             seed=state["seed"], allocator=aws_svc)
+        quiet, quiet_ms = engine_run(engine, prompts, P["max_new"])
+        n = len(traffic) // 2
+        got, walls, arrived = [None] * len(traffic), [0.0] * len(traffic), []
+        barrier = threading.Barrier(n)
+
+        def ask(i):
+            t0 = time.perf_counter()
+            got[i] = wire_answer(engine.allocate(timeout=ALLOC_TIMEOUT_S,
+                                                 **traffic[i]))
+            walls[i] = (time.perf_counter() - t0) * 1e3
+            arrived.append(time.perf_counter())
+
+        def client(i):
+            ask(i)
+            barrier.wait(timeout=ALLOC_TIMEOUT_S)
+            ask(n + i)
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(n)]
+        reset_counts()
+        t_start = time.perf_counter()
+        for t in threads:
+            t.start()
+        busy, busy_ms = engine_run(engine, prompts, P["max_new"])
+        t_end = time.perf_counter()
+        for t in threads:
+            t.join(timeout=ALLOC_TIMEOUT_S)
+        counts_a, shapes_a = read_counts(), read_shapes()
+        require(not any(t.is_alive() for t in threads),
+                "allocate: a client thread did not finish")
+        stats = engine.allocation_endpoint.stats()
+        tokens = lambda done: [r.out_tokens for r in done]
+        n_tok = sum(len(r.out_tokens) for r in busy)
+        emit({"phase": "allocate", "part": "traffic_while_serving",
+              "arch": cfg.name, **P, "allocation_requests": len(traffic),
+              "threads": n, "answers_equal_sequential": got == want,
+              "tokens_equal_quiet": tokens(busy) == tokens(quiet),
+              "answers_before_serving_ended": sum(t < t_end for t in arrived),
+              "allocation_wall_ms_p50": float(np.percentile(walls, 50)),
+              "allocation_wall_ms_p95": float(np.percentile(walls, 95)),
+              "allocation_wall_ms_first_p50": float(np.percentile(walls[:n], 50)),
+              "allocation_wall_ms_repeat_p50": float(np.percentile(walls[n:], 50)),
+              "quiet_tick_ms_median": float(np.median(quiet_ms)),
+              "busy_tick_ms_median": float(np.median(busy_ms)),
+              "busy_tick_ms_p95": float(np.percentile(busy_ms, 95)),
+              "quiet_tokens_per_s": n_tok / (sum(quiet_ms) / 1e3),
+              "busy_tokens_per_s": n_tok / (sum(busy_ms) / 1e3),
+              "serve_seconds_with_traffic": t_end - t_start,
+              "sources": sorted({w["source"] for w in got}),
+              "stats": {k: stats[k] for k in (
+                  "requests", "batches", "profile_calls", "registry_hits",
+                  "cache_hits", "plan_cache_hits", "zoo_confident")},
+              "launches": counts_a, "gpu": state["smi"]})
+        require(got == want, "allocate: an answer under concurrency differs "
+                             "from the sequential one")
+        require(tokens(busy) == tokens(quiet),
+                "allocate: the greedy tokens changed under allocation traffic")
+        require(stats["registry_hits"] == n and stats["requests"] == len(traffic),
+                f"allocate: repeats were not registry hits: {stats}")
+        want_a = {k: v * len(busy_ms) for k, v in PER_STEP[cfg.name].items()}
+        require(counts_a == want_a,
+                f"allocate: launches {counts_a}, expected {want_a}")
+        add_launches(state, counts_a, shapes_a)
+
+        # (b) one request answered from the card, the engine idle
+        shape = ShapeConfig(f"prefill_{PLANNER_S}", PLANNER_S, PLANNER_B,
+                            "prefill")
+        profile_at = gpu_profile_fn(cfg, shape, run)
+        points = {}
+
+        def measured(size):
+            r = profile_at(size)
+            points[size] = r.job_mem_bytes
+            return r
+
+        sizes = HBMPlanner.depth_ladder(cfg)
+        ticks = engine.ticks
+        resident = torch.cuda.memory_allocated()
+        reset_counts()
+        wire, wall_ms = timed_call(lambda: AllocationEndpoint(gpu_svc).handle(
+            timeout=ALLOC_TIMEOUT_S, job=f"{cfg.name}:{shape.name}",
+            profile_at=measured, sizes=sizes, full_size=cfg.n_layers))
+        counts_b, shapes_b = read_counts(), read_shapes()
+        require(engine.ticks == ticks, "allocate: the engine ticked during "
+                                       "the card's profile")
+        rep = state.get("planner_prefill_rep")
+        source = "planner phase"
+        if rep is None:
+            reset_counts()
+            rep = HBMPlanner().plan(cfg, shape, run=run)
+            add_launches(state, read_counts(), read_shapes())
+            source = "HBMPlanner.plan in this phase"
+        planner_points = dict(zip(rep.ladder, rep.per_dev_bytes))
+        GiB = 1024 ** 3
+        rel = abs(wire["requirement_gib"] - rep.requirement_gib) / rep.requirement_gib
+        emit({"phase": "allocate", "part": "answered_from_the_card",
+              "arch": cfg.name, "shape": [PLANNER_B, PLANNER_S], "mode": "prefill",
+              "dtype": run.compute_dtype, "attn_impl": run.attn_impl,
+              "sizes": sizes, "full_size": cfg.n_layers,
+              "points_gib": {str(k): v / GiB for k, v in points.items()},
+              "planner_points_gib": {str(k): v / GiB
+                                     for k, v in planner_points.items()},
+              "points_equal_planner": points == planner_points,
+              "planner_source": source,
+              "resident_bytes_during_profile": resident,
+              "candidate": wire["candidate"], "source": wire["source"],
+              "requirement_gib": wire["requirement_gib"],
+              "planner_requirement_gib": rep.requirement_gib,
+              "requirement_rel_diff": rel, "gate": ALLOC_REQUIREMENT_GATE,
+              "config": wire["config"],
+              "planner_config": rep.selection.config.name,
+              "profiled": wire["profiled"], "wall_ms": wall_ms,
+              "launches": counts_b, "gpu": state["smi"]})
+        require(points == planner_points,
+                f"allocate: points {points} differ from the planner's "
+                f"{planner_points}")
+        require(rel < ALLOC_REQUIREMENT_GATE,
+                f"allocate: requirement {wire['requirement_gib']} against the "
+                f"planner's {rep.requirement_gib}")
+        require(wire["config"] == rep.selection.config.name,
+                f"allocate: {wire['config']} against the planner's "
+                f"{rep.selection.config.name}")
+        require(counts_b["rmsnorm"] > 0 and counts_b["flash_attention"] > 0,
+                f"allocate: the profiled steps launched {counts_b}")
+        add_launches(state, counts_b, shapes_b)
+        del engine
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def kernels_line(state):
@@ -2211,7 +2671,7 @@ def main(argv=None) -> int:
                                 "rmsnorm_backward": {}}}
     run = {"env": phase_env, "kernels": phase_kernels, "parity": phase_parity,
            "prefill": phase_prefill, "serve": phase_serve, "train": phase_train,
-           "planner": phase_planner}
+           "planner": phase_planner, "allocate": phase_allocate}
     t0 = time.monotonic()
     for name in PHASES:
         if name in phases:

@@ -40,6 +40,28 @@ CACHE_LEAVES = {
     "moe-mla": _moe_leaves(True, False),
     "moe-mla+dense": _moe_leaves(True, True),
 }
+# the scale leaves an int8 KV cache adds beside each GQA cache's k and v
+SCALE_LEAVES = ("k_scale", "v_scale")
+
+
+def _cache_leaves(kind: str, quant: bool):
+    """CACHE_LEAVES[kind], with k_scale and v_scale beside every k when
+    `quant` (an int8 GQA cache; MLA and RWKV caches have no scales)."""
+    leaves = CACHE_LEAVES[kind]
+    if not quant:
+        return leaves
+    out = []
+    for path in leaves:
+        out.append(path)
+        if path.rsplit(".", 1)[-1] == "k":
+            out += [path[:-1] + name for name in SCALE_LEAVES]
+    return tuple(out)
+
+
+def _is_quant(flat: Mapping) -> bool:
+    return any(path.rsplit(".", 1)[-1] in SCALE_LEAVES for path in flat)
+
+
 # (leaf, its batch axis, leaf with the cache length or None, its axis)
 _CACHE_SIZES = {"dense": ("k", 1, "k", 2), "ssm": ("wkv", 1, None, None),
                 "hybrid": ("mamba.h", 2, "attn.k", 2),
@@ -142,8 +164,8 @@ def params_to_numpy(model: Model) -> Dict:
 def _wanted_caches(flat: Mapping, model: Model) -> Dict[str, torch.Tensor]:
     """The model's caches on the meta device, flattened, at the batch size
     and cache length that `flat` carries."""
-    kind = _cache_kind(model)
-    _check_leaves("caches", flat, CACHE_LEAVES[kind])
+    kind, quant = _cache_kind(model), _is_quant(flat)
+    _check_leaves("caches", flat, _cache_leaves(kind, quant))
     leaf, b_axis, len_leaf, len_axis = _CACHE_SIZES[kind]
     shape = np.shape(flat[leaf])
     if len(shape) <= b_axis:
@@ -156,7 +178,7 @@ def _wanted_caches(flat: Mapping, model: Model) -> Dict[str, torch.Tensor]:
                              f"length axis")
         max_len = len_shape[len_axis]
     return flatten_tree(model.init_caches(shape[b_axis], max_len,
-                                          device="meta"))
+                                          device="meta", quant=quant))
 
 
 def caches_from_numpy(tree: Mapping, model: Model) -> Dict:
@@ -170,7 +192,12 @@ def caches_from_numpy(tree: Mapping, model: Model) -> Dict:
                "kr": (L,B,Smax,rope), "pos": (L,B)}, and "dense" of the same
                kind when the config has leading dense layers};
       vlm:    {"k", "v": (G,P-1,B,Smax,K,D), "pos": (G,P-1,B)};
-      audio:  the dense tree over the decoder's layers."""
+      audio:  the dense tree over the decoder's layers.
+    An int8 KV cache (a tree with k_scale / v_scale beside each k and v)
+    keeps its int8 k and v as int8 (never through float32) and its
+    bfloat16 scales by name; a tree without scales loads in the compute
+    dtype, whatever the model's ``kv_cache_dtype`` (what its prefill
+    returns)."""
     flat = flatten_tree(tree)
     want = _wanted_caches(flat, model)
     for path, w in want.items():
@@ -184,9 +211,11 @@ def caches_from_numpy(tree: Mapping, model: Model) -> Dict:
 
 def caches_to_numpy(caches: Mapping) -> Dict:
     """The port's caches as nested dicts of numpy arrays (bfloat16 leaves
-    come back as float32). The leaves must be those of a ported family."""
+    come back as float32, int8 ones as int8). The leaves must be those of a
+    ported family, with or without int8 scales."""
     flat = flatten_tree(caches)
-    if set(flat) not in [set(v) for v in CACHE_LEAVES.values()]:
+    if set(flat) not in [set(_cache_leaves(kind, _is_quant(flat)))
+                         for kind in CACHE_LEAVES]:
         raise KeyError(f"caches: leaves {sorted(flat)} are no ported "
                        f"family's ({CACHE_LEAVES})")
     return unflatten_tree({path: _to_numpy(t) for path, t in flat.items()})

@@ -1,13 +1,15 @@
-"""Crispy's planner over the port: the depth ladder, the linear memory
-model and its R^2 gate, the GPU catalog, the selectors, and the profilers,
-of which ``CUDAMemoryProfiler`` measures a step's peak memory on the card.
-The JAX package's ``crispy.py``, ``simulator.py`` and ``local_jobs.py`` are
-not ported yet."""
-from repro_torch.core.catalog import (ClusterConfig, NodeType, gpu_catalog,
+"""Crispy over the port: the depth ladder, the linear memory model and its
+R^2 gate, the GPU and AWS-like catalogs, the selectors, the profilers, of
+which ``CUDAMemoryProfiler`` measures a step's peak memory on the card, the
+planner, the one-shot ``CrispyAllocator`` and the paper's simulated and
+local dataflow jobs."""
+from repro_torch.core.catalog import (ClusterConfig, NodeType,
+                                      aws_like_catalog, gpu_catalog,
                                       medium_config)
+from repro_torch.core.crispy import CrispyAllocator, CrispyReport, ModelFitter
 from repro_torch.core.history import Execution, ExecutionHistory
 from repro_torch.core.hbm_planner import (GPU_OVERHEAD_GIB, HBMPlanner,
-                                          PlanReport)
+                                          PlanReport, gpu_profile_fn)
 from repro_torch.core.memory_model import (R2_GATE, LinearMemoryModel,
                                            fit_memory_model)
 from repro_torch.core.profiler import (CUDAMemoryProfiler, ProfileResult,

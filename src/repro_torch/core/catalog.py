@@ -1,8 +1,10 @@
 """Cluster configuration catalogs of the port.
 
-``NodeType``, ``ClusterConfig`` and ``medium_config`` are copies of the JAX
-package's ``repro/core/catalog.py``. In place of its TPU catalog the port
-has ``gpu_catalog()``: NVIDIA H100 80GB HBM3 cards, one to eight in one node
+``NodeType``, ``ClusterConfig``, ``medium_config`` and ``aws_like_catalog``
+(the paper's search space: {c,m,r} x {large, xlarge, 2xlarge} x scale-outs
+4..48, with c4/m4/r4 memory and 2017-era us-east-1 on-demand prices) are
+copies of the JAX package's ``repro/core/catalog.py``. In place of its TPU
+catalog the port has ``gpu_catalog()``: NVIDIA H100 80GB HBM3 cards, one to eight in one node
 and 16, 32 or 64 over several nodes.
 
 * ``mem_gib`` is the card's whole memory as ``torch.cuda.mem_get_info``
@@ -81,6 +83,28 @@ def medium_config(catalog: List[ClusterConfig]) -> ClusterConfig:
         if c.name == want.name:
             return c
     return want
+
+
+# -- AWS-like (paper evaluation space) --------------------------------------
+
+_AWS_NODES = [
+    #        name        cores mem$/h
+    NodeType("c4.large", 2, 3.75, 0.100),
+    NodeType("c4.xlarge", 4, 7.5, 0.199),
+    NodeType("c4.2xlarge", 8, 15.0, 0.398),
+    NodeType("m4.large", 2, 8.0, 0.100),
+    NodeType("m4.xlarge", 4, 16.0, 0.200),
+    NodeType("m4.2xlarge", 8, 32.0, 0.400),
+    NodeType("r4.large", 2, 15.25, 0.133),
+    NodeType("r4.xlarge", 4, 30.5, 0.266),
+    NodeType("r4.2xlarge", 8, 61.0, 0.532),
+]
+
+_AWS_SCALEOUTS = [4, 6, 8, 10, 12, 16, 24, 32, 40, 48]
+
+
+def aws_like_catalog() -> List[ClusterConfig]:
+    return [ClusterConfig(n, s) for n in _AWS_NODES for s in _AWS_SCALEOUTS]
 
 
 # -- GPU ----------------------------------------------------------------------

@@ -28,7 +28,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Union
+from typing import Callable, List, Optional, Union
 
 import torch
 
@@ -36,7 +36,7 @@ from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.core.catalog import ClusterConfig, gpu_catalog
 from repro_torch.core.history import ExecutionHistory
 from repro_torch.core.memory_model import LinearMemoryModel, fit_memory_model
-from repro_torch.core.profiler import CUDAMemoryProfiler
+from repro_torch.core.profiler import CUDAMemoryProfiler, ProfileResult
 from repro_torch.core.sampling import integer_ladder
 from repro_torch.core.selector import Selection, select_bfa
 from repro_torch.launch.dryrun import build_step
@@ -61,6 +61,32 @@ def _reduced_depth(cfg: ModelConfig, n_layers: int) -> ModelConfig:
         period = cfg.cross_attn.period
         n_layers = max(period, (n_layers // period) * period)
     return dataclasses.replace(cfg, n_layers=n_layers)
+
+
+def gpu_profile_fn(cfg: ModelConfig, shape: ShapeConfig,
+                   run: Optional[RunConfig] = None,
+                   device: Optional[Union[str, torch.device]] = None
+                   ) -> Callable[[float], ProfileResult]:
+    """`profile_at(size)` for an allocation request that the card answers:
+    `size` is a depth, and the reading is the peak of one step of
+    ``_reduced_depth(cfg, int(size))`` under ``CUDAMemoryProfiler``, the
+    measurement ``HBMPlanner.profile_memory`` makes. A request then takes
+    ``sizes=HBMPlanner.depth_ladder(cfg)`` (rounded to whole groups first
+    for the hybrid and vlm families: the pipeline fits against the sizes
+    it asked for, the planner against the rounded ones) and
+    ``full_size=cfg.n_layers``.
+
+    The profiler reads the process's peak of allocated bytes and refuses a
+    job that leaves bytes allocated: while it runs, nothing else in the
+    process may allocate on the card. Tensors that stay resident (a serving
+    engine's weights and caches) are fine, since the reading is taken
+    beyond them; an engine that ticks meanwhile is not. The caller keeps
+    the two apart."""
+    def profile_at(size: float) -> ProfileResult:
+        small = _reduced_depth(cfg, int(size))
+        return CUDAMemoryProfiler().profile(
+            build_step(small, shape, run, device), size, device)
+    return profile_at
 
 
 @dataclass

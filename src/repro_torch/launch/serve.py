@@ -20,7 +20,9 @@ its MTP block), or
 (two groups of 4 self-attention layers and 1 gated cross-attention layer,
 10.66 G parameters, 21.3 GB in bfloat16). The reference's launcher has no
 such flag. The vlm and audio families are fed the reference engine's
-all-zero media and encoder output.
+all-zero media and encoder output. ``--int8-kv`` keeps every GQA KV cache in
+int8 with bfloat16 scales (``kv_cache_dtype="int8"``), as the reference's
+launcher does.
 """
 from __future__ import annotations
 
@@ -59,10 +61,6 @@ def main(argv=None):
                          "the reference's launcher)")
     args = ap.parse_args(argv)
 
-    if args.int8_kv:
-        raise NotImplementedError(
-            "--int8-kv: the int8 KV cache is not ported yet (ROADMAP.md, "
-            "Queue 1)")
     if args.prompt_len < 1 or args.prompt_len + args.max_new > args.max_len:
         raise ValueError("--prompt-len + --max-new must fit in --max-len")
     device = resolve_device(args.device)
@@ -72,7 +70,8 @@ def main(argv=None):
     if args.layers is not None:
         cfg = cut_depth(cfg, args.layers)
     run = RunConfig(attn_impl="kernel", remat="nothing",
-                    param_dtype=args.dtype, compute_dtype=args.dtype)
+                    param_dtype=args.dtype, compute_dtype=args.dtype,
+                    kv_cache_dtype="int8" if args.int8_kv else "compute")
     model = build_model(cfg, run, device=device, seed=args.seed)
     engine = ServeEngine(model, slots=args.slots, max_len=args.max_len,
                          seed=args.seed)
@@ -89,7 +88,8 @@ def main(argv=None):
     print(f"[serve] {cfg.name}: {len(done)} requests, {toks} tokens in "
           f"{wall:.2f}s ({toks / wall:.1f} tok/s, slots={args.slots}, "
           f"ticks={engine.ticks}, layers={cfg.n_layers}, "
-          f"kv={run.compute_dtype}, device={device})")
+          f"kv={'int8' if args.int8_kv else run.compute_dtype}, "
+          f"device={device})")
     print(f"[serve] latency p50={np.percentile(lats, 50):.2f}s "
           f"p95={np.percentile(lats, 95):.2f}s")
     return done

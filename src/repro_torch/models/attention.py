@@ -9,7 +9,9 @@ yet), ``"full"`` the plain version that builds the score matrix,
 ``"blocked"`` and ``"zigzag"`` the reference's online-softmax walk over
 blocks of queries and keys in plain tensor code (what its trainer takes
 above 512 tokens). ``gqa_prefill`` honours the setting exactly as ``gqa``
-does. Decode attention over the cache is plain tensor code.
+does. Decode attention over the cache is plain tensor code, over a cache in
+the compute dtype or an int8 one (``quantize_kv``, ``decode_attention_q8``:
+per-(position, head) bfloat16 scales, dequantized a block at a time).
 
 MLA runs its softmax core through the same switch, at the combined q/k dim
 (128 + 64 = 192 at deepseek-v3) with v zero-padded to it and the output
@@ -90,6 +92,69 @@ def decode_attention(q, k_cache, v_cache, kv_len):
     """Single-step decode. q: (B,1,H,D); caches (B,Smax,K,D); kv_len scalar
     or (B,)."""
     return full_attention(q, k_cache, v_cache, causal=False, kv_len=kv_len)
+
+
+# ---------------------------------------------------------------------------
+# int8-quantized KV cache: symmetric per-(position, head) scales; decode
+# attention walks the context in blocks, so that only one dequantized block
+# is ever made (plain tensor code, as in the reference: it has no kernel)
+# ---------------------------------------------------------------------------
+
+
+def quantize_kv(x):
+    """x: (..., D) -> (int8 values, bfloat16 scales (..., 1)). The scale is
+    the float32 abs-max over D over 127, at least 1e-8; values round half
+    to even and clip to +-127."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    # divided by a tensor: on the GPU PyTorch divides by a Python scalar
+    # through its reciprocal, which rounds the other way now and then, and
+    # the scale (and every value under it) would differ from the CPU's
+    s = (amax / torch.full_like(amax, 127.0)).clamp(min=1e-8)
+    q = torch.round(xf / s).clamp(-127, 127).to(torch.int8)
+    return q, s.to(torch.bfloat16)
+
+
+def decode_attention_q8(q, kq, ks, vq, vs, kv_len, block: int = 4096):
+    """Decode attention against an int8 cache, dequantizing block by block
+    under an online softmax in float32. q: (B,1,H,D); kq/vq: (B,S,K,D)
+    int8; ks/vs: (B,S,K,1) scales; kv_len: (B,) or scalar. As in the
+    reference, a last block shorter than `block` is padded with zero keys
+    and values, which count wherever kv_len reaches past S (an idle slot)."""
+    B, _, H, D = q.shape
+    S, K = kq.shape[1], kq.shape[2]
+    G = H // K
+    block = min(block, S)
+    qg = q.reshape(B, K, G, D).float()
+    scale = 1.0 / math.sqrt(D)
+    kv_len = torch.as_tensor(kv_len, device=q.device)
+    if kv_len.dim() == 0:
+        kv_len = kv_len.expand(B)
+    kv_len = kv_len[:, None, None, None]
+    m = torch.full((B, K, G), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, K, G), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, K, G, D), dtype=torch.float32, device=q.device)
+    for lo in range(0, S, block):
+        hi = min(lo + block, S)
+        kb = kq[:, lo:hi].float() * ks[:, lo:hi].float()
+        vb = vq[:, lo:hi].float() * vs[:, lo:hi].float()
+        if hi - lo < block:                     # zero padding, last dim first
+            pad = (0, 0, 0, 0, 0, block - (hi - lo))
+            kb, vb = F.pad(kb, pad), F.pad(vb, pad)
+        s = torch.einsum("bkgd,bskd->bkgs", qg, kb) * scale
+        pos = lo + torch.arange(block, device=q.device)
+        s = torch.where(pos < kv_len, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        msafe = torch.where(m_new > NEG_INF / 2, m_new, torch.zeros_like(m_new))
+        p = torch.where(s > NEG_INF / 2, torch.exp(s - msafe[..., None]),
+                        torch.zeros_like(s))
+        corr = torch.where(m > NEG_INF / 2, torch.exp(m - msafe),
+                           torch.zeros_like(m))
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bkgs,bskd->bkgd", p, vb)
+        m = m_new
+    o = acc / l.clamp(min=1e-30)[..., None]
+    return o.reshape(B, 1, H, D).to(q.dtype)
 
 
 def _fresh(B, K, G, bq, D, device):
@@ -309,43 +374,63 @@ def gqa_prefill(params, x, cfg: ModelConfig, run: RunConfig, *,
     return out, (k, v)
 
 
+def _write_rows(cache, rows, idx, keep, new):
+    """cache[b, pos[b]] = new[b] IN PLACE for the rows where `keep`; the
+    other rows (pos at or past Smax) keep what they held."""
+    cache[rows, idx] = torch.where(keep, new.to(cache.dtype), cache[rows, idx])
+
+
 def gqa_decode(params, x, cache, cfg: ModelConfig, run: RunConfig):
     """One-token decode against a KV cache.
 
     cache: {"k": (B,Smax,K,D), "v": ..., "pos": (B,) int32} — pos[b] is the
     slot this token writes for row b (per-row: continuous batching);
-    kv_len = pos+1. The k and v tensors are updated IN PLACE and handed back
-    in the returned dict beside a new `pos`. A row whose pos is at or past
-    Smax writes nothing, as an out-of-range scatter does in the reference:
-    the engine steps idle slots too, and their pos runs past the end.
+    kv_len = pos+1. int8 caches carry "k_scale"/"v_scale" (B,Smax,K,1) in
+    bfloat16 beside int8 "k"/"v". The cache tensors are updated IN PLACE
+    and handed back in the returned dict beside a new `pos`. A row whose
+    pos is at or past Smax writes nothing (its values nor its scales), as
+    an out-of-range scatter does in the reference: the engine steps idle
+    slots too, and their pos runs past the end.
     """
     B = x.shape[0]
     pos = cache["pos"]                       # (B,)
     q, k, v = _project_qkv(params, x, cfg, pos[:, None])
-    k_cache, v_cache = cache["k"], cache["v"]
-    smax = k_cache.shape[1]
+    smax = cache["k"].shape[1]
     rows = torch.arange(B, device=x.device)
     in_range = pos < smax
     idx = torch.where(in_range, pos, torch.zeros_like(pos)).long()
     keep = in_range[:, None, None]
-    k_cache[rows, idx] = torch.where(keep, k[:, 0].to(k_cache.dtype),
-                                     k_cache[rows, idx])
-    v_cache[rows, idx] = torch.where(keep, v[:, 0].to(v_cache.dtype),
-                                     v_cache[rows, idx])
-    o = decode_attention(q, k_cache, v_cache, pos + 1)
-    return _project_out(params, o, x), \
-        {"k": k_cache, "v": v_cache, "pos": pos + 1}
+    out = dict(cache)
+    if "k_scale" in cache:                   # int8 quantized cache
+        for name, t in (("k", k), ("v", v)):
+            values, scales = quantize_kv(t[:, 0])
+            _write_rows(cache[name], rows, idx, keep, values)
+            _write_rows(cache[name + "_scale"], rows, idx, keep, scales)
+        o = decode_attention_q8(q, cache["k"], cache["k_scale"], cache["v"],
+                                cache["v_scale"], pos + 1)
+    else:
+        _write_rows(cache["k"], rows, idx, keep, k[:, 0])
+        _write_rows(cache["v"], rows, idx, keep, v[:, 0])
+        o = decode_attention(q, cache["k"], cache["v"], pos + 1)
+    out["pos"] = pos + 1
+    return _project_out(params, o, x), out
 
 
 def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, *,
                    device=None, quant: bool = False):
-    if quant:
-        raise NotImplementedError(
-            "the int8 KV cache is not ported yet (ROADMAP.md, Queue 1)")
+    """Zeroed k, v (batch, max_len, K, Dh) in `dtype` and pos (batch,)
+    int32; with `quant`, k and v in int8 and their bfloat16 scales
+    k_scale, v_scale (batch, max_len, K, 1)."""
     K, Dh = cfg.n_kv_heads, cfg.d_head
-    return {"k": torch.zeros((batch, max_len, K, Dh), dtype=dtype, device=device),
-            "v": torch.zeros((batch, max_len, K, Dh), dtype=dtype, device=device),
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    cache = {name: torch.zeros((batch, max_len, K, Dh), device=device,
+                               dtype=torch.int8 if quant else dtype)
+             for name in ("k", "v")}
+    if quant:
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros((batch, max_len, K, 1), device=device,
+                                      dtype=torch.bfloat16)
+    cache["pos"] = torch.zeros((batch,), dtype=torch.int32, device=device)
+    return cache
 
 
 # ---------------------------------------------------------------------------

@@ -297,11 +297,15 @@ class Model(nn.Module):
         return x, aux
 
     # --------------------------------------------------------------- serving
-    def init_caches(self, batch: int, max_len: int, *, device=None) -> Dict:
+    def init_caches(self, batch: int, max_len: int, *, device=None,
+                    quant: Optional[bool] = None) -> Dict:
         """Zeroed caches on `device` (default: the model's), stacked on a
         leading layer axis:
           dense:  k, v (L, B, max_len, K, D) in the compute dtype, pos (L, B)
-                  int32;
+                  int32; under ``kv_cache_dtype="int8"`` (or `quant`) k, v
+                  in int8 beside bfloat16 k_scale, v_scale (L, B, max_len,
+                  K, 1), in every GQA cache of every family (MLA and RWKV
+                  keep theirs as they are, as in the reference);
           moe:    {"dense": the first dense layers', "moe": the moe
                   layers'}, each the dense tree or, for MLA, ckv
                   (L, B, max_len, r), kr (L, B, max_len, rope), pos (L, B);
@@ -314,6 +318,7 @@ class Model(nn.Module):
           audio:  the dense tree of the decoder's layers."""
         cfg, dt = self.cfg, self.compute_dtype
         device = self.device if device is None else device
+        q8 = self.run.kv_cache_dtype == "int8" if quant is None else quant
 
         def stacked(n, one):
             return T.tree_map(lambda a: a.new_zeros((n, *a.shape)), one)
@@ -322,7 +327,7 @@ class Model(nn.Module):
             if cfg.attention_kind == "mla":
                 return A.init_mla_cache(cfg, batch, max_len, dt, device=device)
             return A.init_gqa_cache(cfg, batch, max_len, dt, device=device,
-                                    quant=self.run.kv_cache_dtype == "int8")
+                                    quant=q8)
 
         if cfg.family in ("dense", "audio"):
             return stacked(cfg.n_layers, kv())
@@ -356,7 +361,12 @@ class Model(nn.Module):
         last position's hidden state goes through the final norm and the
         head, so the logits own B x 1 x V elements and no (B, S, V) logits
         are made (for these families the reference slices the whole
-        forward's)."""
+        forward's).
+
+        As in the reference, the dense and moe caches hold the prompt's k
+        and v in the compute dtype even under ``kv_cache_dtype="int8"``
+        (no scales), so decode after a prefill takes the compute-dtype
+        branch."""
         tokens = self._tokens(batch)
         B, S = tokens.shape
         cfg, run = self.cfg, self.run

@@ -230,5 +230,9 @@ def test_init_gqa_and_cache_shapes():
     c = TA.init_gqa_cache(cfg, 3, 10, torch.bfloat16)
     assert tuple(c["k"].shape) == (3, 10, K, Dh) and c["k"].dtype == torch.bfloat16
     assert c["pos"].dtype == torch.int32 and tuple(c["pos"].shape) == (3,)
-    with pytest.raises(NotImplementedError):
-        TA.init_gqa_cache(cfg, 3, 10, torch.bfloat16, quant=True)
+    c = TA.init_gqa_cache(cfg, 3, 10, torch.bfloat16, quant=True)
+    assert {n: (tuple(a.shape), a.dtype) for n, a in c.items()} == {
+        "k": ((3, 10, K, Dh), torch.int8), "v": ((3, 10, K, Dh), torch.int8),
+        "k_scale": ((3, 10, K, 1), torch.bfloat16),
+        "v_scale": ((3, 10, K, 1), torch.bfloat16),
+        "pos": ((3,), torch.int32)}

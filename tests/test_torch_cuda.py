@@ -901,6 +901,42 @@ def test_reduced_dense_plan_is_confident_and_extrapolates(card):
     assert rel < 0.10, f"extrapolation off by {rel:.2%}"
 
 
+def test_gpu_profile_fn_answers_a_request_as_the_planner_does(card):
+    """An allocation request whose profile_at is gpu_profile_fn: each
+    point is the step's peak that HBMPlanner.profile_memory reads at that
+    depth, to the byte, and the answer is the planner's requirement and
+    selection over the same ladder."""
+    from repro_torch.allocator import AllocationService
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core.hbm_planner import (GPU_OVERHEAD_GIB, HBMPlanner,
+                                              _reduced_depth, gpu_profile_fn)
+    from repro_torch.core.history import ExecutionHistory
+    from repro_torch.core.catalog import gpu_catalog
+    from repro_torch.serve.engine import AllocationEndpoint
+
+    cfg = get_arch("deepseek-7b").reduced(d_model=128, n_layers=24,
+                                          vocab_size=512)
+    run = RunConfig(attn_impl="full", remat="nothing",
+                    param_dtype="float32", compute_dtype="float32")
+    shape = ShapeConfig("prefill_128", 128, 4, "prefill")
+    planner = HBMPlanner()
+    profile_at = gpu_profile_fn(cfg, shape, run, card)
+    r = profile_at(4.0)
+    assert r.size == 4.0
+    assert r.job_mem_bytes == planner.profile_memory(
+        _reduced_depth(cfg, 4), shape, run, card)
+    rep = planner.plan(cfg, shape, card, run=run)
+    with AllocationService(gpu_catalog(), ExecutionHistory(),
+                           overhead_per_node_gib=GPU_OVERHEAD_GIB,
+                           leeway=planner.leeway) as svc:
+        wire = AllocationEndpoint(svc).handle(
+            timeout=300, job="reduced", profile_at=profile_at,
+            sizes=planner.depth_ladder(cfg), full_size=cfg.n_layers)
+    assert wire["requirement_gib"] == pytest.approx(rep.requirement_gib,
+                                                    rel=1e-6)
+    assert wire["config"] == rep.selection.config.name
+
+
 # -- the MoE family's training and the chunked AdamW update -------------------
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b"])

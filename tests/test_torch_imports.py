@@ -12,7 +12,9 @@ ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
 EXAMPLES = [ROOT / "examples" / "gpu_advisor_torch.py",
-            ROOT / "benchmarks" / "torch_train_step_memory.py"]
+            ROOT / "benchmarks" / "torch_train_step_memory.py",
+            ROOT / "benchmarks" / "torch_loss_backward_peak.py",
+            ROOT / "benchmarks" / "torch_serve_profile.py"]
 SOURCES = sorted(PACKAGE.rglob("*.py")) + [SMOKE] + EXAMPLES
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "repro"}
 
@@ -56,8 +58,16 @@ def test_sources_are_found():
             "src/repro_torch/core/hbm_planner.py",
             "src/repro_torch/launch/presets.py",
             "src/repro_torch/launch/dryrun.py",
+            "src/repro_torch/allocator/service.py",
+            "src/repro_torch/pipeline/pipeline.py",
+            "src/repro_torch/telemetry/spans.py",
+            "src/repro_torch/core/crispy.py",
+            "src/repro_torch/core/simulator.py",
+            "src/repro_torch/core/local_jobs.py",
             "examples/gpu_advisor_torch.py",
-            "benchmarks/torch_train_step_memory.py"} <= names
+            "benchmarks/torch_train_step_memory.py",
+            "benchmarks/torch_loss_backward_peak.py",
+            "benchmarks/torch_serve_profile.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,

@@ -204,7 +204,8 @@ def test_default_device_raises_without_a_card():
 
 def test_other_families_and_int8_kv_wait():
     """Every family of the ten archs builds, reduced and at full size (on
-    the meta device); an unknown family raises; the int8 KV cache waits."""
+    the meta device); an unknown family raises; the int8 KV cache, which
+    waited until it was ported, builds int8 k and v with bfloat16 scales."""
     from dataclasses import replace
     assert sorted(PORTED_FAMILIES) == sorted(
         {cfg.family for cfg in ARCHS.values()})
@@ -215,8 +216,9 @@ def test_other_families_and_int8_kv_wait():
     with pytest.raises(ValueError, match="unknown family"):
         Model(replace(cfg, family="diffusion"), device="cpu")
     m = Model(cfg, RunConfig(kv_cache_dtype="int8"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.init_caches(1, 8)
+    c = m.init_caches(1, 8)
+    assert sorted(c) == ["k", "k_scale", "pos", "v", "v_scale"]
+    assert c["k"].dtype == torch.int8 and c["v_scale"].dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b",

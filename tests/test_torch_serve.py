@@ -173,10 +173,12 @@ def test_launcher_runs_reduced_on_the_cpu(capsys):
     assert "device=cpu" in out
 
 
-def test_launcher_refuses_what_waits():
-    with pytest.raises(NotImplementedError, match="int8"):
-        launch_serve.main(["--arch", "deepseek-7b", "--reduced", "--device",
-                           "cpu", "--int8-kv"])
+def test_launcher_refuses_what_waits(capsys):
+    # --int8-kv waited until the int8 KV cache was ported; it now serves
+    done = launch_serve.main(["--arch", "deepseek-7b", "--reduced",
+                              "--device", "cpu", "--int8-kv",
+                              "--requests", "2", "--max-new", "4"])
+    assert len(done) == 2 and "kv=int8" in capsys.readouterr().out
     with pytest.raises(ValueError, match="max-len"):
         launch_serve.main(["--arch", "deepseek-7b", "--reduced", "--device",
                            "cpu", "--prompt-len", "60", "--max-new", "16"])
