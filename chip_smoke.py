@@ -35,7 +35,11 @@ on the card against the CPU at full width and 4 layers. The allocation
 endpoint beside the engine: deepseek-7b served while eight threads send
 allocation requests to the attached service (answers and tokens must not
 change), then one request that the card answers, held against the
-planner. Every line of
+planner, whose points, model and profiling budget live on a crispy-daemon
+(``repro_torch.state``): a second service over TCP and a third after the
+daemon restarts from its root answer it from the stored points with no
+kernel launched, and ``python -m repro_torch.telemetry.trace_tool``
+stitches a request across the service and the daemon. Every line of
 standard output is
 one JSON object, except the line before the last, which is the card's name
 and power limit as ``nvidia-smi`` prints them. The last line is
@@ -66,9 +70,11 @@ import importlib.util
 import io
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2394,7 +2400,18 @@ def phase_allocate(state):
     worker thread, while the engine stays resident and does not tick (the
     profiler reads the process's peak): the points equal the planner's to
     the byte, the requirement is within ALLOC_REQUIREMENT_GATE of the
-    planner's and the selection is the same."""
+    planner's and the selection is the same. Its service keeps its points,
+    models and profiling budget on a crispy-daemon (unix socket and loopback
+    TCP, state under a root directory): the daemon's profile log holds the
+    five points and the budget is charged their seconds. (c) A second
+    service over TCP, with a registry of its own and a profile_at that
+    raises, answers the same request from the daemon's rows: 5 store hits,
+    nothing profiled, the same answer to the bit, no kernel launched, the
+    peak and the engine's ticks unchanged. (d) The daemon is stopped and
+    started again from its root; a third service answers the same from
+    disk. (e) The traces are published to the daemon and
+    `python -m repro_torch.telemetry.trace_tool` stitches a request's spans
+    in the service and in the daemon under one trace id."""
     import threading
     from repro_torch.allocator import AllocationService
     from repro_torch.configs import RunConfig, ShapeConfig, get_arch
@@ -2404,7 +2421,9 @@ def phase_allocate(state):
     from repro_torch.core.history import ExecutionHistory
     from repro_torch.core.simulator import build_history, scout_like_jobs
     from repro_torch.models.model import build_model
+    from repro_torch.profiling import ProfilingBudget
     from repro_torch.serve.engine import AllocationEndpoint, ServeEngine
+    from repro_torch.state import CrispyDaemon, DaemonBackend
 
     traffic = allocation_traffic()
     catalog = aws_like_catalog()
@@ -2421,9 +2440,20 @@ def phase_allocate(state):
     model = build_model(cfg, run, seed=state["seed"])
     prompts = prompts_for(cfg, P["requests"], P["prompt"], state["seed"] + 8)
     aws_svc = AllocationService(catalog, build_history(scout_like_jobs(), catalog))
-    gpu_svc = AllocationService(gpu_catalog(), ExecutionHistory(),
-                                overhead_per_node_gib=GPU_OVERHEAD_GIB,
-                                leeway=0.05)
+    # the daemon's unix socket goes in a short directory of its own (a
+    # socket's path is limited to ~108 bytes)
+    state_dir = tempfile.mkdtemp(prefix="crispyd-")
+    sock, root = os.path.join(state_dir, "d.sock"), os.path.join(state_dir, "root")
+    daemon = CrispyDaemon(sock, root=root, listen="127.0.0.1:0").start()
+    backend = DaemonBackend(sock)
+    budget = ProfilingBudget(charge_s=600.0, backend=backend)
+
+    def gpu_service(**kw):
+        return AllocationService(gpu_catalog(), ExecutionHistory(),
+                                 overhead_per_node_gib=GPU_OVERHEAD_GIB,
+                                 leeway=0.05, **kw)
+
+    gpu_svc = gpu_service(backend=backend, budget=budget)
     with aws_svc, gpu_svc:
         engine = ServeEngine(model, slots=P["slots"], max_len=P["max_len"],
                              seed=state["seed"], allocator=aws_svc)
@@ -2495,11 +2525,12 @@ def phase_allocate(state):
         shape = ShapeConfig(f"prefill_{PLANNER_S}", PLANNER_S, PLANNER_B,
                             "prefill")
         profile_at = gpu_profile_fn(cfg, shape, run)
-        points = {}
+        points, point_walls = {}, []
 
         def measured(size):
             r = profile_at(size)
             points[size] = r.job_mem_bytes
+            point_walls.append(r.wall_s)
             return r
 
         sizes = HBMPlanner.depth_ladder(cfg)
@@ -2552,10 +2583,149 @@ def phase_allocate(state):
         require(counts_b["rmsnorm"] > 0 and counts_b["flash_attention"] > 0,
                 f"allocate: the profiled steps launched {counts_b}")
         add_launches(state, counts_b, shapes_b)
+        shared_state(state, cfg, engine, sizes, points, point_walls, wire,
+                     wall_ms, gpu_svc, daemon, sock, root, gpu_service)
         del engine
+    backend.close()
+    shutil.rmtree(state_dir)
     del model
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def shared_state(state, cfg, engine, sizes, points, point_walls, wire_b,
+                 wall_ms_b, gpu_svc, daemon, sock, root, gpu_service):
+    """Part (b)'s gates on the daemon, then parts (c), (d) and (e) of the
+    allocate phase (see phase_allocate)."""
+    from repro_torch.allocator import ModelRegistry
+    from repro_torch.core.profiler import ProfileResult
+    from repro_torch.serve.engine import AllocationEndpoint
+    from repro_torch.state import CrispyDaemon, DaemonBackend
+    from repro_torch.telemetry import publish_traces, trace_tool
+
+    t_start = time.monotonic()
+    # (b) on the daemon: closing the service pushes its buffered rows
+    gpu_svc.close()
+    GiB = 1024 ** 3
+    job = wire_b["job"]
+    with DaemonBackend(sock) as admin:
+        rows = [r for r in admin.read("profiles")[0]
+                if r.get("kind") == "profile" and r["sig"] == job]
+        stored = {r["size"]: ProfileResult.from_dict(r["result"]).job_mem_bytes
+                  for r in rows}
+        metrics_1 = admin.metrics()
+    snap = gpu_svc.budget.snapshot()
+    require(len(rows) == len(sizes) == 5 and stored == points,
+            f"allocate: the daemon's profile log holds {stored}, the card "
+            f"measured {points}")
+    require(snap["points_spent"] == len(sizes) and snap["shared"],
+            f"allocate: the shared budget reads {snap}")
+    require(math.isclose(snap["charged_s"], sum(point_walls), rel_tol=1e-12),
+            f"allocate: the budget charged {snap['charged_s']} s for points "
+            f"of {point_walls} s")
+
+    def no_profile(size):
+        raise SmokeFailure(f"allocate: a service profiled depth {size} again")
+
+    def answer_from_the_store(address, transport):
+        """The request of (b) through a new service over `address`, with a
+        registry of its own (the shared one would answer before the
+        store is read)."""
+        with DaemonBackend(address) as b, \
+                gpu_service(backend=b, registry=ModelRegistry()) as svc:
+            torch.cuda.synchronize()
+            peak, ticks = torch.cuda.max_memory_allocated(), engine.ticks
+            reset_counts()
+            wire, ms = timed_call(lambda: AllocationEndpoint(svc).handle(
+                timeout=ALLOC_TIMEOUT_S, include_trace=True, job=job,
+                profile_at=no_profile, sizes=sizes, full_size=cfg.n_layers))
+            counts = read_counts()
+            got = {"wall_ms": ms, "profiled": wire["profiled"],
+                   "store_hits": svc.stats.store_hits,
+                   "wire_store_hits": wire["trace"]["acquisition"]["store_hits"],
+                   "backend_transport": svc.backend_transport,
+                   "requirement_gib": wire["requirement_gib"],
+                   "launches": counts, "trace_id": wire["trace_id"]}
+            require(wire["profiled"] == 0 and svc.stats.profile_calls == 0
+                    and svc.stats.store_hits == len(sizes)
+                    and got["wire_store_hits"] == len(sizes),
+                    f"allocate: over {transport} the store served {got}")
+            require(all(wire[k] == wire_b[k] for k in
+                        ("requirement_gib", "candidate", "config", "source")),
+                    f"allocate: over {transport} answered {wire_answer(wire)}, "
+                    f"the card's answer was {wire_answer(wire_b)}")
+            require(svc.backend_transport == transport,
+                    f"allocate: transport {svc.backend_transport}")
+            require(not any(counts.values()),
+                    f"allocate: answering from the store launched {counts}")
+            require(torch.cuda.max_memory_allocated() == peak,
+                    "allocate: answering from the store moved the peak")
+            require(engine.ticks == ticks, "allocate: the engine ticked")
+        return got
+
+    # (c) a second service over loopback TCP
+    over_tcp = answer_from_the_store(daemon.tcp_address, "tcp")
+
+    # (d) the daemon stops (it drains and unlinks its socket) and starts
+    # again from its root
+    daemon.stop()
+    require(not os.path.exists(sock), "allocate: the stopped daemon left "
+                                      "its socket")
+    daemon = CrispyDaemon(sock, root=root).start()
+    after_restart = answer_from_the_store(sock, "unix")
+
+    # (e) the traces, stitched by the command-line tool in its own process
+    with DaemonBackend(sock) as admin:
+        publish_traces(admin, "chip-smoke")
+        metrics_2 = admin.metrics()
+    tool = [sys.executable, "-m", "repro_torch.telemetry.trace_tool",
+            "--daemon", sock]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t_tool = time.monotonic()
+    proc = subprocess.run(tool + ["--slowest", "5", "--expect-cross-process"],
+                          capture_output=True, text=True, timeout=300, env=env)
+    tool_s = time.monotonic() - t_tool
+    require(proc.returncode == 0, f"allocate: trace_tool exited "
+                                  f"{proc.returncode}: {proc.stderr[-2000:]}")
+    require("[chip-smoke]" in proc.stdout and "[crispy-daemon]" in proc.stdout,
+            "allocate: trace_tool printed no cross-process spans")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = trace_tool.main(["--daemon", sock, "--json",
+                                "--trace", after_restart["trace_id"]])
+    traced = json.loads(out.getvalue())
+    spans, todo = [], list(traced["traces"])
+    while todo:
+        span = todo.pop()
+        spans.append((span["source"], span["name"]))
+        todo.extend(span.get("children", ()))
+    require(code == 0 and len(traced["traces"]) == 1
+            and ("chip-smoke", "endpoint.request") in spans
+            and any(src == "crispy-daemon" for src, _ in spans),
+            f"allocate: the restarted daemon's request is not one stitched "
+            f"tree: {sorted(set(spans))}")
+    daemon.stop()
+
+    def op_counts(metrics):
+        return {n.split(".")[2]: h["count"]
+                for n, h in sorted(metrics["histograms"].items())
+                if n.startswith("daemon.op.") and n.endswith(".seconds")}
+
+    emit({"phase": "allocate", "part": "shared_state", "arch": cfg.name,
+          "job": job, "sizes": sizes,
+          "store_rows": [{"size": r["size"],
+                          "job_mem_gib": stored[r["size"]] / GiB,
+                          "wall_s": r["result"]["wall_s"]} for r in rows],
+          "budget": snap, "points_wall_s": point_walls,
+          "answered_from_the_card_ms": wall_ms_b,
+          "second_service_tcp": over_tcp,
+          "third_service_after_restart": after_restart,
+          "daemon_ops_before_restart": op_counts(metrics_1),
+          "daemon_ops_after_restart": op_counts(metrics_2),
+          "trace_tool": next(line for line in proc.stdout.splitlines()
+                             if line.startswith("stitched traces:")),
+          "trace_tool_seconds": tool_s, "traced_spans": sorted(set(spans)),
+          "seconds": time.monotonic() - t_start, "gpu": state["smi"]})
 
 
 def kernels_line(state):

@@ -22,7 +22,8 @@ refreshes and flushes, and wire-facing stats. Requests for the same job
 signature that land in one batch share a single plan; repeats across
 batches hit the model registry and never profile again.
 
-Profiling orchestration composes as in the JAX package:
+Profiling orchestration (repro_torch.profiling) and shared state
+(repro_torch.state) compose as in the JAX package:
 
   adaptive=True      placement-driven acquisition — the default
                      `placement="infogain"` profiles whichever size is
@@ -31,20 +32,22 @@ Profiling orchestration composes as in the JAX package:
                      measurement would not change the answer;
                      `placement="ladder"` keeps the smallest-first
                      prefix with gap-midpoint escalation.
-  budget=            a profiling budget (duck-typed: `try_spend`, `refund`,
-                     `charge`, `snapshot`) gates every fresh profile run
-                     (adaptive or fixed) — the paper's ten-minute envelope
-                     enforced service-wide. Cached points are NEVER charged.
-  executor=          a profiling executor (duck-typed: `map_tasks`, and
-                     `profile_ladder` for fixed ladders) profiles ladders
+  budget=            a shared ProfilingBudget gates every fresh profile
+                     run (adaptive or fixed) — the paper's ten-minute
+                     envelope enforced service-wide. Cached/stored points
+                     are NEVER charged.
+  store=             a ProfileStore (over any repro_torch.state backend) backs
+                     the in-process LRU: points and calibrated anchors
+                     profiled by *any* process are reused.
+  executor=          a ProfilingExecutor profiles fixed ladders
                      point-concurrently and fans independent signature
                      groups of one batch out over its pool.
-  store=, backend=   the shared profile store and state plane (points,
-                     anchors, models and one budget envelope shared by N
-                     service processes). Neither is ported yet: passing
-                     either raises NotImplementedError, and the service
-                     keeps its points in its own LRU and its models in its
-                     own registry.
+  backend=           a `repro_torch.state.StateBackend`: the service builds its
+                     ProfileStore and model registry over it unless
+                     explicit `store=`/`registry=` override them, so N
+                     service processes share points, anchors, models —
+                     and ONE budget envelope when the ProfilingBudget
+                     carries the same backend.
 
 A copy of the JAX package's ``repro/allocator/service.py``.
 """
@@ -82,17 +85,6 @@ def _resolve(fut: Future, result=None, exc: Optional[Exception] = None):
             fut.set_result(result)
     except InvalidStateError:       # cancelled between the check and the set
         pass
-
-
-def _sync_registry(registry) -> None:
-    """Push a registry's deferred saves and read what others saved: the
-    JAX package's ``sync_views`` for a view without backend hooks."""
-    flush = getattr(registry, "flush", None)
-    if callable(flush):
-        flush()
-    refresh = getattr(registry, "refresh", None)
-    if callable(refresh):
-        refresh()
 
 
 @dataclass
@@ -321,22 +313,30 @@ class AllocationService:
                  batch_window_s: float = 0.005,
                  adaptive: bool = False,
                  placement="infogain",      # repro_torch.pipeline point placement
-                 budget=None,               # a ProfilingBudget (duck-typed)
-                 store=None,                # not ported: raises
-                 executor=None,             # a ProfilingExecutor (duck-typed)
-                 backend=None,              # not ported: raises
+                 budget=None,               # repro_torch.profiling ProfilingBudget
+                 store=None,                # repro_torch.profiling ProfileStore
+                 executor=None,             # repro_torch.profiling ProfilingExecutor
+                 backend=None,              # repro_torch.state StateBackend
                  telemetry=None,            # repro_torch.telemetry MetricsRegistry
                  sampler=None):             # warm-path sampling policy:
                                             # None|"adaptive"|"fixed"|int|obj
                                             # (repro_torch.telemetry.sampling)
         self.catalog = catalog
         self.history = history
-        if store is not None or backend is not None:
-            raise NotImplementedError(
-                "store= and backend= need the profiling store and the shared "
-                "state plane, which are not ported yet (ROADMAP.md, Queue 1, "
-                "item 5b)")
         self.backend = backend
+        if backend is not None:
+            # deferred import: repro_torch.profiling imports allocator submodules
+            from repro_torch.profiling.store import (BackendModelRegistry,
+                                               ProfileStore)
+            if store is None:
+                # write-behind: the worker flushes the batch's buffered
+                # point/anchor rows as ONE backend frame per batch (see
+                # _process_batch) instead of one round trip per point
+                store = ProfileStore(backend=backend, namespace="profiles",
+                                     write_behind=True)
+            if registry is None:
+                registry = BackendModelRegistry(backend,
+                                                namespace="registry")
         self.registry = registry if registry is not None else ModelRegistry()
         self.classifier = classifier if classifier is not None \
             else NearestJobClassifier()
@@ -434,7 +434,7 @@ class AllocationService:
     def backend_shards(self) -> Optional[List[Dict]]:
         """Shard topology of a sharded backend: one {"name", "kind",
         "address", "standby"} descriptor per shard (see
-        repro.state.sharding.ShardedBackend.topology); None over a
+        repro_torch.state.sharding.ShardedBackend.topology); None over a
         single backend."""
         topo = getattr(self._shared_backend(), "topology", None)
         if not callable(topo):
@@ -575,13 +575,18 @@ class AllocationService:
         # per-request path doesn't also detach them from every trace
         batch_ctx = next((ctx for _r, _f, _t, ctx in batch
                           if ctx is not None), None)
-        # the reference pulls sibling processes' points and models in here
-        # (one round trip to the shared backend per batch); with no store
-        # and no backend the only view is the registry: flush, then refresh
+        # one round trip per batch: the PREVIOUS batch's buffered
+        # point/anchor rows and deferred registry models ride at the
+        # front of this batch's refresh frame (batch frames read their
+        # own writes), then sibling processes' work is pulled in —
+        # profile points / anchors from the shared store, models from a
+        # shared registry (repro_torch.profiling.store.sync_views). A failure
+        # re-queues the writes and leaves the views stale — both safe.
         try:
+            from repro_torch.profiling.store import sync_views
             with span_if(batch_ctx is not None, "service.refresh",
                          parent=batch_ctx):
-                _sync_registry(self.registry)
+                sync_views(self.store, self.registry)
         except Exception:
             pass                            # stale view is still correct
         # group by (signature, ladder, tags, objective, acquisition

@@ -105,7 +105,7 @@ class CrispyAllocator:
                  placement=None,
                  objective: str = "cheapest_fit") -> CrispyReport:
         """Paper steps 1-4 through the unified pipeline. With
-        `adaptive=True` (or a profiling budget passed as
+        `adaptive=True` (or a `repro_torch.profiling.ProfilingBudget` passed as
         `budget=`) point placement is strategy-driven: the default
         `placement="infogain"` profiles whichever size is expected to
         shrink candidate-model disagreement at full size the most and
@@ -115,13 +115,14 @@ class CrispyAllocator:
         the fixed ladder on clean jobs and fall back identically on noisy
         ones.
 
-        `store=` (a profile store: `get`, `put`, `get_anchor`,
-        `put_anchor`, `refresh`; the JAX package's ProfileStore over its
-        state plane is not ported yet) makes the one-shot path a shared-state
+        `store=` (a `repro_torch.profiling.ProfileStore`, over any
+        `repro_torch.state` backend) makes the one-shot path a shared-state
         citizen too: ladder points and calibrated anchors profiled by any
         process are reused instead of re-measured (the acquisition stage
         refreshes the store, so sibling points are never double-charged),
-        and fresh points are written back."""
+        and fresh points are written back. Pass
+        `budget=ProfilingBudget(..., backend=...)` to arbitrate one
+        cross-process envelope as well."""
         from repro_torch.pipeline import PipelineRequest
         pipeline = self._pipeline(budget=budget, store=store)
         trace = pipeline.run(PipelineRequest(

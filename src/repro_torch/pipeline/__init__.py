@@ -114,10 +114,8 @@ always land on `PipelinePlan.stage_walls` -> `PipelineTrace.stage_walls`
 (opt-in on the wire via `AllocationEndpoint.handle(include_trace=True)`).
 See repro_torch/telemetry/__init__.py for the full observability map.
 
-A copy of the JAX package's ``repro/pipeline/``. Its profiling store,
-budget and executor (``repro.profiling``) and its state plane are not ported
-yet: the pipeline takes any object with their methods. The examples,
-benchmarks and tests named above are the JAX package's.
+A copy of the JAX package's ``repro/pipeline/``. The examples, benchmarks
+and tests named above are the JAX package's.
 """
 from repro_torch.pipeline.acquisition import (AcquisitionStats, MemoryPointCache,
                                         PointSource)

@@ -16,7 +16,7 @@ second time. `PointSource` is now the only implementation of the rule:
   fresh run is refunded, never charged.
 
 Callers plug in at the edges: an optional `cache` (get/put, e.g. the
-service's LRU), an optional `store` (a shared profile store, duck-typed), an
+service's LRU), an optional `store` (repro_torch.profiling.ProfileStore), an
 optional `budget`, and counter hooks for service stats.
 
 A copy of the JAX package's ``repro/pipeline/acquisition.py``.
@@ -29,12 +29,6 @@ from typing import Callable, Optional, Tuple
 
 from repro_torch.core.profiler import ProfileResult
 from repro_torch.telemetry import default_registry
-
-
-class BudgetExhausted(RuntimeError):
-    """A budget denied a point. The JAX package defines it in its
-    ``profiling/budget.py``, which is not ported yet; its port will take it
-    from here."""
 
 
 @dataclass
@@ -53,8 +47,8 @@ class PointSource:
 
     def __init__(self, signature: str,
                  profile_at: Callable[[float], ProfileResult],
-                 budget=None,                 # a ProfilingBudget (duck-typed)
-                 store=None,                  # a ProfileStore (duck-typed)
+                 budget=None,                 # repro_torch.profiling ProfilingBudget
+                 store=None,                  # repro_torch.profiling ProfileStore
                  cache=None,                  # object with get/put (LRU view)
                  refresh_store: bool = True,
                  telemetry=None):             # repro_torch.telemetry MetricsRegistry
@@ -174,6 +168,7 @@ class PointSource:
         def pp(size: float) -> Tuple[ProfileResult, bool]:
             got = self.acquire(size)
             if got is None:
+                from repro_torch.profiling.budget import BudgetExhausted
                 raise BudgetExhausted(
                     f"budget denied point {size!r} for {self.signature!r}")
             return got

@@ -159,9 +159,9 @@ class AllocationPipeline:
                  leeway: float = 0.0,
                  adaptive: bool = False,
                  placement="infogain",
-                 budget=None,               # a ProfilingBudget (duck-typed)
-                 store=None,                # a ProfileStore (duck-typed)
-                 executor=None,             # a ProfilingExecutor (duck-typed)
+                 budget=None,               # repro_torch.profiling ProfilingBudget
+                 store=None,                # repro_torch.profiling ProfileStore
+                 executor=None,             # repro_torch.profiling ProfilingExecutor
                  cache=None,                # LRU adapter (get/put), optional
                  defer_registry_save: bool = False,
                  refresh_store: bool = True,

@@ -123,10 +123,7 @@ Where each span/metric hangs (the observability map):
 request-mix tiers and records p50/p99 latency + throughput (plus key
 counters) to `BENCH_load.json` — the perf trajectory across PRs.
 
-A copy of the JAX package's ``repro/telemetry/`` without ``trace_tool.py``,
-which reads a daemon: the JAX package's state plane (``repro.state``), its
-profiling budget (``repro.profiling``) and its daemon, named above, are not
-ported yet (ROADMAP.md, Queue 1, item 5b).
+A copy of the JAX package's ``repro/telemetry/``.
 """
 from repro_torch.telemetry.export import (KEY_FIELDS, TELEMETRY_NS, TRACES_NS,
                                     TelemetryPublisher, aggregate_fleet,

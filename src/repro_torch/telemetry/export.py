@@ -40,7 +40,7 @@ per-process forests into cross-process trees by grafting any root whose
 `parent_id` names a span in ANOTHER process's forest under that span
 (remote-parent adoption: the daemon opens its `daemon.op.*` spans as
 local roots carrying the caller's trace_id/parent_id — see
-repro_torch.telemetry.spans and repro.state.daemon):
+repro_torch.telemetry.spans and repro_torch.state.daemon):
 
   publish_traces(backend, "svc-4711")         # push default_ring roots
   fleet_traces(backend)                       # {source: [root, ...]}
@@ -50,8 +50,7 @@ Every span in a stitched tree is annotated with the `source` that
 produced it, so a printed tree reads "this 40 ms request spent 31 ms in
 svc-4711 and 9 ms across 3 daemon round-trips".
 
-A copy of the JAX package's ``repro/telemetry/export.py``; the state plane
-it publishes through is not ported yet.
+A copy of the JAX package's ``repro/telemetry/export.py``.
 """
 from __future__ import annotations
 

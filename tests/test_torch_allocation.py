@@ -5,20 +5,30 @@ model zoos pick the reference's candidates and requirements, and every
 the reference's wire answer field for field (but ``wall_s`` and
 ``trace_id``), under the three objectives, the fixed ladder and both
 adaptive placements, with tags, and the same ``stats()``, counters and
-spans. Within the port, ``CrispyAllocator`` answers as the service does;
-``store=`` and ``backend=`` wait for their slice; ``ServeEngine`` answers
-allocation requests beside generation, from threads while it serves.
+spans. Over ``backend=`` (memory, file, a crispy-daemon) the service
+gives the reference's answers, ``stats()`` and backend rows; two services
+over one daemon profile nothing twice and never over-grant one envelope;
+``trace_tool`` stitches a request across the service and the daemon.
+Within the port, ``CrispyAllocator`` answers as the service does;
+``ServeEngine`` answers allocation requests beside generation, from
+threads while it serves.
 
 Every service here is closed (``with``), and no future is waited on without
 a timeout: a worker thread left alive would hold the test process."""
+import contextlib
 import dataclasses
+import json
 import math
+import os
+import tempfile
 import threading
 
 import numpy as np
 import pytest
 import torch
 
+import repro.profiling as JP
+import repro.state as JState
 from repro.allocator import AllocationService as JService
 from repro.allocator import fit_runtime_zoo as j_fit_runtime_zoo
 from repro.allocator import fit_zoo as j_fit_zoo
@@ -28,6 +38,8 @@ from repro.core.catalog import aws_like_catalog as j_aws_like_catalog
 from repro.serve.engine import AllocationEndpoint as JEndpoint
 from repro.telemetry import default_ring as j_default_ring
 
+import repro_torch.profiling as TP
+import repro_torch.state as TState
 from repro_torch.allocator import (AllocationRequest, AllocationService,
                                    fit_runtime_zoo, fit_zoo, zoo_fitter)
 from repro_torch.configs import RunConfig, get_arch
@@ -261,11 +273,274 @@ def test_crispy_allocator_answers_as_the_service_does(job_index):
          s2.feasible_count, s2.fell_back)
 
 
-@pytest.mark.parametrize("kw", ["store", "backend"])
-def test_store_and_backend_wait_for_their_slice(kw):
-    with pytest.raises(NotImplementedError, match="5b"):
-        AllocationService(aws_like_catalog(), ExecutionHistory(),
-                          **{kw: object()})
+# ---------------------------------------------------------------------------
+# over the shared state plane, against the reference's
+# ---------------------------------------------------------------------------
+
+
+def _short_socket() -> str:
+    # AF_UNIX paths are length-limited (~108 bytes): not under tmp_path
+    return os.path.join(tempfile.mkdtemp(prefix="crispyd-"), "d.sock")
+
+
+@contextlib.contextmanager
+def _state_backend(pkg, kind, tmp_path):
+    """A `pkg.state` backend of `kind`; a daemon is in-process, on a unix
+    socket, and stopped on exit."""
+    if kind == "memory":
+        yield pkg.InMemoryBackend()
+    elif kind == "file":
+        yield pkg.FileBackend(str(tmp_path / f"{pkg.__name__}-state"))
+    else:
+        sock = _short_socket()
+        with pkg.CrispyDaemon(sock), pkg.DaemonBackend(sock) as backend:
+            yield backend
+
+
+def _untimed(value):
+    """`value` without the fields that hold a time or a local address."""
+    if isinstance(value, dict):
+        return {k: _untimed(v) for k, v in value.items()
+                if k not in ("ts", "created_at", "started_at", "elapsed_s",
+                             "wall_s", "backend_address")}
+    if isinstance(value, (list, tuple)):
+        return [_untimed(v) for v in value]
+    return value
+
+
+def _rows(backend):
+    return {"logs": {ns: backend.read(ns)[0]
+                     for ns in sorted(backend.log_namespaces())},
+            "docs": sorted((ns, key, value, version) for ns, key, value, version
+                           in backend.doc_snapshot())}
+
+
+def _serve_over(service_cls, endpoint_cls, sim, catalog, backend, P):
+    with service_cls(catalog, sim.build_history(), backend=backend,
+                     adaptive=True,
+                     budget=P.ProfilingBudget(charge_s=6000.0,
+                                              backend=backend)) as svc:
+        ep = endpoint_cls(svc)
+        wires = [strip(ep.handle(timeout=TIMEOUT, **r))
+                 for r in _traffic(sim, "cheapest_fit", "infogain")]
+        stats = ep.stats()
+    return wires, stats
+
+
+@pytest.mark.parametrize("kind", ["memory", "file", "daemon"])
+def test_the_service_over_a_backend_answers_as_the_references(kind, tmp_path):
+    """Every scout job over `backend=` (and a shared budget over it): the
+    wire answers, ``stats()`` and the rows and documents left on the
+    backend are the reference's, times and addresses aside."""
+    with _state_backend(JState, kind, tmp_path) as jb:
+        want, want_stats = _serve_over(JService, JEndpoint, JS,
+                                       j_aws_like_catalog(), jb, JP)
+        # a daemon's rows: test_the_daemons_rows_are_the_references
+        want_rows = _rows(jb) if kind != "daemon" else None
+    with _state_backend(TState, kind, tmp_path) as tb:
+        got, got_stats = _serve_over(AllocationService, AllocationEndpoint,
+                                     TS, aws_like_catalog(), tb, TP)
+        got_rows = _rows(tb) if kind != "daemon" else None
+    assert len(got) == len(want) == 20
+    for g, w in zip(got, want):
+        assert g == w, g["job"]
+    assert _untimed(got_stats) == _untimed(want_stats)
+    assert got_stats["backend"] == (kind if kind != "daemon" else "daemon")
+    assert got_stats["backend_transport"] == \
+        ("unix" if kind == "daemon" else None)
+    assert got_stats["profile_calls"] > 0 and got_stats["registry_hits"] > 0
+    if got_rows is not None:
+        assert _untimed(got_rows) == _untimed(want_rows)
+        assert {"profiles", "registry", "budget"} <= \
+            set(got_rows["logs"]) | {ns for ns, *_ in got_rows["docs"]}
+
+
+def test_the_daemons_rows_are_the_references(tmp_path):
+    """The same traffic through each package's daemon, with `root=`: the
+    directories the two daemons leave hold the same rows and documents."""
+    dirs = {}
+    for pkg, svc_cls, ep_cls, sim, catalog, P in (
+            (JState, JService, JEndpoint, JS, j_aws_like_catalog(), JP),
+            (TState, AllocationService, AllocationEndpoint, TS,
+             aws_like_catalog(), TP)):
+        sock, root = _short_socket(), str(tmp_path / pkg.__name__)
+        with pkg.CrispyDaemon(sock, root=root), \
+                pkg.DaemonBackend(sock) as backend:
+            _serve_over(svc_cls, ep_cls, sim, catalog, backend, P)
+        dirs[pkg] = _rows(pkg.FileBackend(root))
+    assert _untimed(dirs[TState]) == _untimed(dirs[JState])
+    assert dirs[TState]["logs"]["profiles"]
+
+
+def _shared_state_demo(pkg, svc_cls, ep_cls, sim, catalog, P, n_jobs=8):
+    """The reference's demo_shared_state (examples/serve_demo.py): service
+    A over the unix socket, then service B over loopback TCP, one daemon,
+    one budget envelope."""
+    jobs = sim.scout_like_jobs()[:n_jobs]
+    history = sim.build_history(jobs, catalog)
+    out = []
+    sock = _short_socket()
+    with pkg.CrispyDaemon(sock, listen="127.0.0.1:0") as daemon:
+        for address in (sock, daemon.tcp_address):
+            with pkg.DaemonBackend(address) as backend:
+                budget = P.ProfilingBudget(charge_s=600.0 * len(jobs),
+                                           backend=backend)
+                with svc_cls(catalog, history, backend=backend,
+                             adaptive=True, budget=budget) as svc:
+                    ep = ep_cls(svc)
+                    wires = [strip(ep.handle(
+                        timeout=TIMEOUT, job=j.name,
+                        profile_at=sim.make_profile_fn(j),
+                        full_size=j.dataset_gib * GiB,
+                        anchor=j.dataset_gib * GiB * 0.01)) for j in jobs]
+                    out.append((wires, _untimed(ep.stats())))
+    return out
+
+
+def test_two_services_over_one_daemon_profile_nothing_twice():
+    want = _shared_state_demo(JState, JService, JEndpoint, JS,
+                              j_aws_like_catalog(), JP)
+    got = _shared_state_demo(TState, AllocationService, AllocationEndpoint,
+                             TS, aws_like_catalog(), TP)
+    assert got == want
+    (a_wires, a), (b_wires, b) = got
+    assert a["profile_calls"] > 0 and b["profile_calls"] == 0
+    assert b["registry_hits"] + b["store_hits"] >= len(b_wires)
+    assert (a["backend_transport"], b["backend_transport"]) == ("unix", "tcp")
+    # B charged the shared envelope nothing
+    assert b["budget"]["charged_s"] == a["budget"]["charged_s"] > 0
+    assert b["budget"]["points_spent"] == a["budget"]["points_spent"]
+    # a model A fitted answers B from the shared registry
+    zoo = [(aw, bw) for aw, bw in zip(a_wires, b_wires)
+           if aw["source"] == "zoo"]
+    assert zoo
+    for aw, bw in zoo:
+        assert bw["source"] == "registry"
+        assert (bw["requirement_gib"], bw["config"]) == \
+            (aw["requirement_gib"], aw["config"])
+
+
+def test_a_shared_envelope_is_never_over_granted_across_two_services():
+    """Two services over one daemon spend one envelope of LIMIT points
+    from 8 threads: the fresh profiles of both add up to the envelope's
+    count, which never passes LIMIT, and the rest are denied."""
+    limit = 17
+    jobs = TS.scout_like_jobs()
+    catalog = aws_like_catalog()
+    sock = _short_socket()
+    with TState.CrispyDaemon(sock, listen="127.0.0.1:0") as daemon, \
+            TState.DaemonBackend(sock) as b1, \
+            TState.DaemonBackend(daemon.tcp_address) as b2:
+        services = [AllocationService(
+            catalog, TS.build_history(), backend=b, adaptive=True,
+            budget=TP.ProfilingBudget(max_points=limit, backend=b))
+            for b in (b1, b2)]
+        answers = []
+
+        def client(i):
+            svc = services[i % 2]
+            for j in jobs[i::8]:
+                answers.append(AllocationEndpoint(svc).handle(
+                    timeout=TIMEOUT, **payload(TS, j, seed=i)))
+
+        with services[0], services[1]:
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=2 * TIMEOUT)
+            assert not any(t.is_alive() for t in threads)
+            fresh = sum(s.stats.profile_calls for s in services)
+            snap = services[0].budget.snapshot()
+            denied = sum(s.stats.budget_denied for s in services)
+    assert len(answers) == len(jobs)
+    assert snap["points_spent"] == fresh == limit
+    assert snap["denials"] > 0 and denied > 0
+
+
+def test_trace_tool_stitches_a_request_across_the_service_and_the_daemon(
+        capsys):
+    """A traced request through a service over a daemon, then each
+    package's trace_tool against that daemon: one tree under the request's
+    trace id holds the service's spans and the daemon's, and both tools
+    print the same stitched forest."""
+    from repro.telemetry import trace_tool as j_trace_tool
+    from repro_torch.telemetry import publish_traces
+    from repro_torch.telemetry import trace_tool
+    token = {"trace_id": "feedfacecafe0024", "span_id": "00000000000000bb"}
+    sock = _short_socket()
+    with TState.CrispyDaemon(sock), TState.DaemonBackend(sock) as backend:
+        with AllocationService(aws_like_catalog(), TS.build_history(),
+                               backend=backend) as svc:
+            AllocationEndpoint(svc).handle(
+                timeout=TIMEOUT, trace=token,
+                **payload(TS, TS.scout_like_jobs()[3]))
+        publish_traces(backend, "alloc-svc")
+        argv = ["--daemon", sock, "--slowest", "5", "--expect-cross-process"]
+        assert trace_tool.main(argv) == 0
+        text = capsys.readouterr().out
+        assert trace_tool.main(argv + ["--json", "--trace",
+                                       token["trace_id"]]) == 0
+        got = json.loads(capsys.readouterr().out)
+        assert j_trace_tool.main(argv + ["--json", "--trace",
+                                         token["trace_id"]]) == 0
+        want = json.loads(capsys.readouterr().out)
+    assert got == want
+    assert "[alloc-svc]" in text and "[crispy-daemon]" in text
+    assert got["sources"] == ["alloc-svc", "crispy-daemon"]
+    (tree,) = got["traces"]
+
+    def sources(span):
+        yield span["source"], span["name"]
+        for child in span.get("children", ()):
+            yield from sources(child)
+    seen = set(sources(tree))
+    assert ("alloc-svc", "endpoint.request") in seen
+    assert any(src == "crispy-daemon" and name.startswith("daemon.op.")
+               for src, name in seen)
+
+
+def test_the_shared_state_example_runs(capsys):
+    """examples/serve_demo_torch.py: service B re-profiles nothing."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples", "serve_demo_torch.py")
+    spec = importlib.util.spec_from_file_location("serve_demo_torch", path)
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    assert demo.demo_shared_state(n_jobs=4) == 0
+    out = capsys.readouterr().out
+    assert "service B re-profiled 0 points" in out
+    assert "[crispy-daemon]" in out
+
+
+def test_crispy_allocator_over_a_store_answers_as_the_references(tmp_path):
+    """CrispyAllocator.allocate(store=) with the port's ProfileStore: the
+    reference's report, the points written back, and a second call (a
+    sibling store over the same directory) served from them."""
+    from repro.core.crispy import CrispyAllocator as JCrispy
+    reports = {}
+    for name, crispy, sim, catalog, P, S in (
+            ("jax", JCrispy, JS, j_aws_like_catalog(), JP, JState),
+            ("port", CrispyAllocator, TS, aws_like_catalog(), TP, TState)):
+        root = str(tmp_path / name)
+        job = sim.scout_like_jobs()[2]
+        req = payload(sim, job)
+        alloc = crispy(catalog, sim.build_history())
+        out = []
+        for _ in range(2):
+            store = P.ProfileStore(backend=S.FileBackend(root))
+            rep = alloc.allocate(req["job"], req["profile_at"],
+                                 req["full_size"], anchor=req["anchor"],
+                                 adaptive=True, store=store)
+            out.append((rep.sizes, rep.mems_bytes, rep.requirement_gib,
+                        rep.selection.config.name, rep.trace.plan.profiled,
+                        rep.trace.plan.store_hits, len(store)))
+        reports[name] = out
+    assert reports["port"] == reports["jax"]
+    (first, second) = reports["port"]
+    assert first[4] > 0 and second[4] == 0 and second[5] == len(second[0])
 
 
 def test_a_depth_request_answers_as_the_planner_does():

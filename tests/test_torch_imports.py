@@ -12,6 +12,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
 EXAMPLES = [ROOT / "examples" / "gpu_advisor_torch.py",
+            ROOT / "examples" / "serve_demo_torch.py",
             ROOT / "benchmarks" / "torch_train_step_memory.py",
             ROOT / "benchmarks" / "torch_loss_backward_peak.py",
             ROOT / "benchmarks" / "torch_serve_profile.py"]
@@ -64,7 +65,19 @@ def test_sources_are_found():
             "src/repro_torch/core/crispy.py",
             "src/repro_torch/core/simulator.py",
             "src/repro_torch/core/local_jobs.py",
+            "src/repro_torch/profiling/budget.py",
+            "src/repro_torch/profiling/executor.py",
+            "src/repro_torch/profiling/scheduler.py",
+            "src/repro_torch/profiling/store.py",
+            "src/repro_torch/state/backend.py",
+            "src/repro_torch/state/compaction.py",
+            "src/repro_torch/state/file_backend.py",
+            "src/repro_torch/state/transport.py",
+            "src/repro_torch/state/daemon.py",
+            "src/repro_torch/state/sharding.py",
+            "src/repro_torch/telemetry/trace_tool.py",
             "examples/gpu_advisor_torch.py",
+            "examples/serve_demo_torch.py",
             "benchmarks/torch_train_step_memory.py",
             "benchmarks/torch_loss_backward_peak.py",
             "benchmarks/torch_serve_profile.py"} <= names
