@@ -16,7 +16,7 @@ and frames, through ``Model.forward``, ``Model.prefill``,
 ``Model.decode_step`` and the ``repro_torch.launch.serve`` command line,
 the training path of every family through the ``repro_torch.launch.train``
 command line, each with a resume from its checkpoint: deepseek-7b,
-olmoe-1b-7b and rwkv6-7b at full width cut to 4 layers, zamba2-7b to one
+olmoe-1b-7b and rwkv6-7b at full width cut to 2 layers, zamba2-7b to one
 group of 6 Mamba2 blocks and a shared block (so that the float32 state
 fits), whisper-small whole at its text context of 448; one train step of
 deepseek-7b, olmoe-1b-7b, rwkv6-7b and zamba2-7b at full width (cut in
@@ -47,8 +47,18 @@ and power limit as ``nvidia-smi`` prints them. The last line is
 not build, launch or agree, a phase out of its gate) ends the run with a
 traceback and a non-zero exit code; no failure is caught.
 
+The multi-device machinery (``repro_torch.sharding``, ``launch.mesh``):
+two ranks share the card over gloo, on (1, 2) and (2, 1), and run
+deepseek-7b's sharded forward and train step at full width (4 layers),
+olmoe-1b-7b's expert-parallel MoE layer and the GPipe pipeline against the
+one-device path on the same weights; rank 0's train step run alone
+(``Mesh.alone``) against its peak among its peers; and the planner over
+profile meshes, one rank of the job run alone on the card: deepseek-7b's
+float32 train step on (1, 2) at 30 layers, and llama-3.2-vision-90b's
+full AdamW step on (1, 8).
+
 Phases, in order: env, kernels, parity, prefill, serve, train, planner,
-allocate.
+shard, allocate.
 ``--phases`` runs a subset while developing; such a run never prints the
 last line and exits 2.
 The kernels phase times each kernel on the device (CUDA events) beside its
@@ -84,7 +94,7 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("env", "kernels", "parity", "prefill", "serve", "train",
-          "planner", "allocate")
+          "planner", "shard", "allocate")
 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -179,12 +189,14 @@ PREFILL_S = {"whisper-small": 448}
 # the training path: deepseek-7b at full width cut to TRAIN_LAYERS layers,
 # float32, B x S tokens a step, blocked attention (the reference launcher's
 # choice above 512 tokens), no remat; a step launches 2L + 1 rmsnorm
-# forwards and as many backwards, and no other kernel
-TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2, 2048, 5
+# forwards and as many backwards, and no other kernel. Two layers (1.24 G
+# parameters, 19.9 GB of state), as olmoe-1b-7b's and rwkv6-7b's: the
+# shard phase's time came out of these depths
+TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2, 2048, 5
 PARITY_TRAIN = {"layers": 2, "batch": 1, "seq": 128, "block": 64}
 # the MoE family's training, float32 as the train launcher runs it:
 # olmoe-1b-7b at full width (64 experts top-8, vocabulary 50304) through the
-# launcher, depth 16 -> MOE_TRAIN_LAYERS (1.88 G parameters, 30.1 GB of
+# launcher, depth 16 -> MOE_TRAIN_LAYERS (1.05 G parameters, 16.7 GB of
 # state at 16 bytes a parameter; 16 layers would be 110 GB), with the same
 # batch, steps and resume as deepseek-7b's; the card-vs-CPU parities of
 # olmoe-1b-7b at full width (2 layers) and of deepseek-v3-671b reduced (MLA,
@@ -193,14 +205,14 @@ PARITY_TRAIN = {"layers": 2, "batch": 1, "seq": 128, "block": 64}
 # routed experts and the MTP block (4.41 G parameters: 17.6 GB of weights
 # and as many of gradients; an AdamW state would be 70.6 GB, so no
 # optimizer step is taken)
-MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_LAYERS = 2
 PARITY_TRAIN_MOE = {"layers": 2, "batch": 2, "seq": 256, "block": 64}
 PARITY_TRAIN_DSV3 = {"batch": 2, "seq": 64, "block": 16}
 WIDTH_BACKWARD_DSV3 = {"layers": 2, "experts": 16, "batch": 1, "seq": 256}
 # the ssm, hybrid, vlm and audio families' training, float32 as the train
 # launcher runs it (attention "full" up to 512 tokens, "blocked" above; the
 # plain chunked recurrences; only rmsnorm and its backward on the card):
-# rwkv6-7b at full width cut to 4 layers (1.41 G parameters, 22.6 GB of
+# rwkv6-7b at full width cut to 2 layers (0.97 G parameters, 15.6 GB of
 # state) and zamba2-7b to 6 Mamba2 blocks and a shared block (one group;
 # 1.11 G, 17.7 GB) at TRAIN_B x TRAIN_S, whisper-small whole (0.278 G) at
 # its text context of 448 over 1500 frames, each through the launcher with
@@ -212,7 +224,7 @@ WIDTH_BACKWARD_DSV3 = {"layers": 2, "experts": 16, "batch": 1, "seq": 256}
 # weights and as many of gradients; an AdamW state would be 102 GB, so no
 # optimizer step is taken), B=1, S=2048, blocked attention, over 1601
 # random media tokens with the gate at 0.7
-FAMILY_TRAIN = (("rwkv6-7b", 4, TRAIN_S), ("zamba2-7b", 6, TRAIN_S),
+FAMILY_TRAIN = (("rwkv6-7b", 2, TRAIN_S), ("zamba2-7b", 6, TRAIN_S),
                 ("whisper-small", 12, PREFILL_S["whisper-small"]))
 # (whisper's blocks of 512: blocks of 64 walk the encoder's 1500 x 1500
 # scores in 576 steps a layer, ~11 s of launches on the host a card step)
@@ -298,6 +310,47 @@ ALLOC_SERVE = {"slots": 8, "requests": 8, "prompt": 16, "max_new": 16,
 ALLOC_THREADS = 8
 ALLOC_REQUIREMENT_GATE = 0.005
 ALLOC_TIMEOUT_S = 600.0
+# the shard phase: deepseek-7b at full width cut to SHARD_LAYERS layers,
+# float32, on two ranks of the one card (gloo) over (1, 2) (tensor
+# parallelism) and (2, 1) (data parallelism with ZeRO-1): the forward's
+# logits (B=2, S=2048), one train step as the train phase runs it (blocked
+# attention, remat "boundaries"; two steps on one batch under a warmup of
+# one step: the first, at the schedule's lr 0, fills the moments, and the
+# second, at lr 1e-2, moves each weight by about 1e-2, ten times the
+# parameters' gate, so that a step that made no update, or a block that the
+# ZeRO-1 all-gather never wrote, fails it; the reference's largest move is
+# checked to be above 5 gates. That move is lr g / (|g| + eps): where |g| is
+# near AdamW's eps a float32 difference dg moves it by up to lr dg / eps,
+# so the parameters are gated where |g| is 0 or at least SHARD_SETTLED x
+# eps, read from the reference's second moment. The entries left out must
+# be under 5 % (about 3 % of deepseek-7b's entries here; the record names
+# the leaves that hold most of them), while a rank's block that was never
+# gathered is half a leaf and a step not taken all of it), a bfloat16 forward at B=4 (flash attention at
+# the 16 heads of a rank), olmoe-1b-7b's MoE layer (moe_ep on (1, 2),
+# moe_ep_a2a on (2, 1)) and, on (1, 2), the pipeline over the 4 layers as
+# 2 stages; each against the one-device path on the same weights. The
+# gates: logits 1e-3 (the card-vs-CPU parity's), the loss 1e-4 relative,
+# parameters 1e-3 absolute and moments 1e-3 relative a leaf (the train
+# parities'), the bf16 logits 0.25 (the prefill's), the MoE 1e-4 (the
+# reference's tests/test_distribution.py), the pipeline 1e-3 relative, the
+# rank run alone 2 % of its peak among peers
+SHARD_LAYERS, SHARD_BF16_B, SHARD_LR = 4, 4, 1e-2
+SHARD_STEPS, SHARD_WARMUP, SHARD_SETTLED = 2, 1, 10.0
+SHARD_TRAIN = {"batch": 2, "seq": 2048}
+SHARD_MOE = {"batch": 2, "seq": 64}
+SHARD_PIPE = {"batch": 4, "seq": 256, "micro": 2}
+SHARD_WORLDS = ((1, 2), (2, 1))
+SHARD_TIMEOUT_S = 600.0
+SHARD_DEVICE = "cuda"
+SHARD_GATES = {"logits": 1e-3, "loss": 1e-4, "state": 1e-3, "bf16": 0.25,
+               "moe": 1e-4, "pipe": 1e-3, "alone": 0.02}
+# the vlm's planner job over a profile mesh: 1-3 groups on the ladder,
+# measured at 4 (20 layers)
+PLANNER_VLM = {"mesh": (1, 8), "measure_layers": 20}
+# the requirement the planner gave deepseek-7b's float32 train step at 30
+# layers from one card's ladder, which it split evenly over two H100s
+# before a rank of the job could run (PERF.md section 5)
+DEEPSEEK_TRAIN_30_GIB = 110.02
 SERVE_ARCHS = ("deepseek-7b", "rwkv6-7b", "zamba2-7b", "olmoe-1b-7b",
                "deepseek-v3-671b", "llama-3.2-vision-90b", "whisper-small")
 
@@ -2209,15 +2262,15 @@ def phase_train(state):
     torch.backends.cudnn.allow_tf32 = False
     train_parities(state)
     train_full_width(state, "deepseek-7b", TRAIN_LAYERS,
-                     "depth 30 -> 4: the float32 state (16 bytes a parameter: "
+                     "depth 30 -> 2: the float32 state (16 bytes a parameter: "
                      "weights, gradients, m, v) of 30 layers is 110 GB; width, "
                      "heads and vocabulary full")
     train_full_width(state, "olmoe-1b-7b", MOE_TRAIN_LAYERS,
-                     "depth 16 -> 4: the float32 state (16 bytes a parameter) "
+                     "depth 16 -> 2: the float32 state (16 bytes a parameter) "
                      "of 16 layers is 110 GB; width, 64 experts top-8, heads "
                      "and vocabulary full")
     width_backward_dsv3(state)
-    cuts = {"rwkv6-7b": "depth 32 -> 4: the float32 state (16 bytes a "
+    cuts = {"rwkv6-7b": "depth 32 -> 2: the float32 state (16 bytes a "
                         "parameter) of 32 layers is 120 GB; width, heads and "
                         "vocabulary full",
             "zamba2-7b": "depth 81 -> 6: one group of 6 Mamba2 blocks and a "
@@ -2231,17 +2284,20 @@ def phase_train(state):
 
 
 def planner_job(state, arch, mode, run, kernels, n_layers=None,
-                anchor=None, seq=PLANNER_S):
+                anchor=None, seq=PLANNER_S, profile_mesh=None):
     """One job through HBMPlanner.plan on the card (the ladder profiled,
     fitted and selected for), then one step at the depth extrapolated to
     under CUDAMemoryProfiler: the prediction must be confident and within
     PLANNER_GATE of that step's peak, and each kernel in `kernels` must
-    have launched. Returns (the plan, the measured profile, the planner)."""
+    have launched. With `profile_mesh`, every point and the measured step
+    are rank 0's of the job sharded over it, run alone on the card.
+    Returns (the plan, the measured profile, the planner)."""
     from dataclasses import replace
     from repro_torch.configs import ShapeConfig, get_arch
     from repro_torch.core.hbm_planner import HBMPlanner
     from repro_torch.core.profiler import CUDAMemoryProfiler
     from repro_torch.launch.dryrun import build_step
+    from repro_torch.launch.mesh import Mesh
 
     cfg = get_arch(arch)
     if n_layers is not None:
@@ -2252,8 +2308,11 @@ def planner_job(state, arch, mode, run, kernels, n_layers=None,
     gc.collect()
     torch.cuda.empty_cache()
     reset_counts()
-    rep = planner.plan(cfg, shape, run=run, anchor_layers=anchor)
-    truth = CUDAMemoryProfiler().profile(build_step(cfg, shape, run),
+    rep = planner.plan(cfg, shape, run=run, anchor_layers=anchor,
+                       profile_mesh=profile_mesh)
+    mesh = None if profile_mesh is None else Mesh.alone(profile_mesh, 0)
+    truth = CUDAMemoryProfiler().profile(build_step(cfg, shape, run,
+                                                    mesh=mesh),
                                          cfg.n_layers)
     counts, shapes = read_counts(), read_shapes()
     GiB = 1024 ** 3
@@ -2281,6 +2340,9 @@ def planner_job(state, arch, mode, run, kernels, n_layers=None,
             "measured_step_wall_s": truth.wall_s,
             "selection": sel.config.name, "feasible": sel.feasible_count,
             "fell_back": sel.fell_back, "launches": counts,
+            "profile_mesh": None if profile_mesh is None
+            else list(profile_mesh.shape),
+            "profile_mesh_devices": rep.profile_mesh_devices,
             "gpu": state["smi"]}
     if cfg.hybrid is not None:
         blocks = (cfg.n_layers // cfg.hybrid.period) * cfg.hybrid.period
@@ -2357,6 +2419,561 @@ def phase_planner(state):
         state, "zamba2-7b", "train", f32, ("rmsnorm", "rmsnorm_backward"),
         n_layers=PLANNER_ZAMBA_BLOCKS)
     select_at_full_depth(state, "zamba2-7b", rep, planner)
+
+
+# ---------------------------------------------------------------------------
+# the shard phase: the multi-device machinery on the one card
+# ---------------------------------------------------------------------------
+
+
+def shard_cfgs():
+    """deepseek-7b at full width cut to SHARD_LAYERS layers; olmoe-1b-7b's
+    MoE layer at full width with the capacity factor of each expert-parallel
+    path (ample: nothing drops)."""
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    ds = replace(get_arch("deepseek-7b"), n_layers=SHARD_LAYERS)
+    olmoe = get_arch("olmoe-1b-7b")
+    E = olmoe.moe.n_experts
+    moe = {impl: replace(olmoe, moe=replace(olmoe.moe, impl=impl,
+                                            capacity_factor=float(E * f)))
+           for impl, f in (("ep_tp", 1), ("ep_a2a", 4))}
+    return ds, moe
+
+
+def shard_runs():
+    from repro_torch.configs import RunConfig
+    f32 = dict(param_dtype="float32", compute_dtype="float32")
+    return {"forward": RunConfig(attn_impl="kernel", remat="nothing", **f32),
+            "train": RunConfig(attn_impl="blocked", remat="boundaries", **f32),
+            "bf16": RunConfig(attn_impl="kernel", remat="nothing",
+                              param_dtype="bfloat16", compute_dtype="bfloat16"),
+            "pipe": RunConfig(attn_impl="blocked", remat="nothing", **f32)}
+
+
+def shard_inputs(cfg, moe_cfg, seed, dev):
+    """Tokens, labels, the MoE layer's weights and input and the pipeline's
+    input, drawn on the card from `seed`: the same in the parent and in
+    every rank."""
+    from repro_torch.models import moe as M
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 11)
+    B, S = SHARD_TRAIN["batch"], SHARD_TRAIN["seq"]
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                         device=dev)
+    toks16 = torch.randint(0, cfg.vocab_size, (SHARD_BF16_B, S),
+                           generator=gen, device=dev)
+    Bm, Sm = SHARD_MOE["batch"], SHARD_MOE["seq"]
+    moe_x = 0.5 * torch.randn((Bm, Sm, moe_cfg.d_model), generator=gen,
+                              device=dev)
+    Bp, Sp = SHARD_PIPE["batch"], SHARD_PIPE["seq"]
+    pipe_x = torch.randn((Bp, Sp, cfg.d_model), generator=gen, device=dev)
+    gen.manual_seed(seed + 12)
+    moe_params = M.init_moe(gen, moe_cfg, device=dev)
+    return {"tokens": toks[:, :-1].contiguous(),
+            "labels": toks[:, 1:].contiguous(), "tokens16": toks16,
+            "moe_x": moe_x, "moe_params": moe_params, "pipe_x": pipe_x}
+
+
+def pipe_stack(cfg, run):
+    """The pipeline's stage function: a stage's block of stacked layers."""
+    from repro_torch.models import transformer as T
+
+    def fn(layers, h):
+        return T.stack(layers, h, cfg, run, kind="dense",
+                       positions=torch.arange(h.shape[1], device=h.device))[0]
+    return fn
+
+
+def shard_references(state, ref_dir):
+    """The one-device path on the same weights and inputs, written as
+    checkpoints (``ckpt.save_checkpoint``, whole leaves) for the ranks to
+    read their blocks of: step 1 the float32 forward's logits (B=2) and
+    the bfloat16 forward's (B=4); step 2 the parameters and moments after
+    SHARD_STEPS train steps (the last loss and the largest move of a
+    parameter in `extra`); step 3 the MoE layer's output (the
+    single-device dropless ``moe``); step 4 the sequential stack's output
+    and its layers' gradients."""
+    from repro_torch.checkpoint.ckpt import save_checkpoint
+    from repro_torch.convert import flatten_tree, unflatten_tree
+    from repro_torch.models import moe as M
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    dev = torch.device(SHARD_DEVICE)
+    cfg, moe_cfgs = shard_cfgs()
+    runs = shard_runs()
+    inp = shard_inputs(cfg, moe_cfgs["ep_tp"], state["seed"], dev)
+    t0 = time.monotonic()
+    model = Model(cfg, runs["forward"], dev).init(seed=state["seed"])
+    lg32 = model.forward({"tokens": inp["tokens"]}).cpu()
+    bf16 = Model(cfg, runs["bf16"], dev).init(seed=state["seed"])
+    lg16 = bf16.forward({"tokens": inp["tokens16"]}).cpu()
+    del bf16
+    save_checkpoint(ref_dir, 1, {"logits_f32": lg32, "logits_bf16": lg16})
+    del lg32, lg16
+    # the pipeline's sequential reference, on the model's first weights
+    layers = {k: v.detach().clone().requires_grad_() for k, v in
+              flatten_tree(model.params["layers"]).items()}
+    out = pipe_stack(cfg, runs["pipe"])(unflatten_tree(layers), inp["pipe_x"])
+    grads = torch.autograd.grad(out.sum(), list(layers.values()))
+    save_checkpoint(ref_dir, 4, {"pipe_out": out.detach(), "pipe_grad":
+                                 unflatten_tree(dict(zip(layers, grads)))})
+    del layers, out, grads
+    model.run = runs["train"]
+    acfg = AdamWConfig(lr=SHARD_LR)
+    st = init_train_state(model, None, acfg)
+    before = {k: v.detach().clone() for k, v in
+              flatten_tree(st.params).items()}
+    step = make_train_step(model, acfg, warmup=SHARD_WARMUP)
+    for _ in range(SHARD_STEPS):
+        st, met = step(st, {"tokens": inp["tokens"],
+                            "labels": inp["labels"]})
+    moved = max(float((v.detach() - before[k]).abs().max())
+                for k, v in flatten_tree(st.params).items())
+    del before
+    save_checkpoint(ref_dir, 2, {"params": st.params, "m": st.opt.m,
+                                 "v": st.opt.v},
+                    extra={"loss": float(met["loss"]),
+                           "grad_norm": float(met["grad_norm"]),
+                           "params_max_move": moved})
+    del model, st
+    with torch.no_grad():
+        out, aux = M.moe_local(inp["moe_params"], inp["moe_x"],
+                               moe_cfgs["ep_tp"])
+    save_checkpoint(ref_dir, 3, {"moe_out": out}, extra={"aux": float(aux)})
+    del inp, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return time.monotonic() - t0
+
+
+def ref_block(ref_dir, step, path, spec, mesh, like):
+    """This rank's block of reference leaf `path` (dots) of checkpoint
+    `step`, read memory-mapped, as a tensor like `like` on the card."""
+    from repro_torch.checkpoint.ckpt import restore_checkpoint
+    from repro_torch.convert import flatten_tree, unflatten_tree
+    *parents, leaf = path.split(".")
+    tree = t = {}
+    for p in parents:
+        t = t.setdefault(p, {})
+    t[leaf] = torch.empty(like.shape, dtype=like.dtype)
+    specs = unflatten_tree({path: spec})
+    got, extra = restore_checkpoint(ref_dir, step, tree, shardings=specs,
+                                    mesh=mesh)
+    return flatten_tree(got)[path].to(like.device), extra
+
+
+def state_bytes(st, batch):
+    from repro_torch.optim.adamw import leaves
+    return sum(t.numel() * t.element_size() for t in
+               leaves(st.params) + leaves(st.opt.m) + leaves(st.opt.v) +
+               list(batch.values()))
+
+
+def rel_err(got, want):
+    return float((got.float() - want.float()).abs().max()) / \
+        max(float(want.float().abs().max()), 1e-30)
+
+
+def shard_rank(rank, shape, store, ref_dir, seed, conn):
+    """One rank of a world of two on the one card (gloo): the sharded
+    forward, train step, bf16 forward, MoE and (on (1, 2)) pipeline,
+    each against the one-device references; sends its report."""
+    from repro_torch.configs import MeshConfig
+    from repro_torch.convert import (flatten_tree, shard_params,
+                                     unflatten_tree)
+    from repro_torch.launch.mesh import make_mesh, shutdown
+    from repro_torch.models import moe as M
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.pipeline import pipeline_apply
+    from repro_torch.train.step import (init_train_state, make_train_step,
+                                        state_specs)
+
+    torch.cuda.set_device(0)
+    dev = torch.device(SHARD_DEVICE)
+    mesh = make_mesh(MeshConfig(shape, ("data", "model")), "gloo", dev,
+                     init_method=f"file://{store}", rank=rank,
+                     timeout_s=SHARD_TIMEOUT_S)
+    cfg, moe_cfgs = shard_cfgs()
+    runs = shard_runs()
+    inp = shard_inputs(cfg, moe_cfgs["ep_tp"], seed, dev)
+    rep = {"rank": rank, "mesh": list(shape), "coords": mesh.coords}
+    counts, shapes = dict.fromkeys(KERNELS, 0), {}
+
+    def main_path(fn):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, n in read_counts().items():
+            counts[k] += n
+        add_shapes(shapes, read_shapes())
+        return out
+
+    def local(t, ndim=None):
+        spec = rules.batch_spec(mesh, t.dim() if ndim is None else ndim)
+        return rules.shard_tensor(t, spec, mesh).contiguous()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    C.reset_stats()
+    full = Model(cfg, runs["forward"], dev).init(seed=seed)
+    model = Model(cfg, runs["forward"], dev, mesh)
+    model.load_state_dict(flatten_tree(shard_params(full.params, model.specs,
+                                                 mesh)))
+    # the bf16 model: the same weights rounded, as the one-device one's
+    bf = Model(cfg, runs["bf16"], dev, mesh)
+    bf.load_state_dict(flatten_tree(shard_params(full.params, bf.specs, mesh)))
+    stage_layers = None
+    if shape == (1, 2):
+        # this stage's two layers of the four, for the pipeline
+        s = C.axis_index(mesh, "model")
+        per = SHARD_LAYERS // 2
+        stage_layers = {k: v[s * per:(s + 1) * per].clone() for k, v in
+                        flatten_tree(full.params["layers"]).items()}
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    logit_spec = (rules.batch_spec(mesh, 1)[0], None,
+                  "model" if model.vocab_split else None)
+    # (1) the float32 forward
+    lg = main_path(lambda: model.forward({"tokens": local(inp["tokens"])}))
+    want, _ = ref_block(ref_dir, 1, "logits_f32", logit_spec, mesh, lg)
+    rep["forward_f32_max_abs_err"] = float((lg - want).abs().max())
+    del lg, want
+    # (2) one train step: loss, parameters, moments
+    model.run = runs["train"]
+    acfg = AdamWConfig(lr=SHARD_LR)
+    st = init_train_state(model, None, acfg)
+    batch = {"tokens": local(inp["tokens"]), "labels": local(inp["labels"])}
+    step = make_train_step(model, acfg, warmup=SHARD_WARMUP)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    C.reset_stats()
+    t0 = time.monotonic()
+    st, met = main_path(lambda: step(st, batch))
+    rep["train_step_s"] = time.monotonic() - t0
+    rep["train_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    rep["train_state_bytes"] = state_bytes(st, batch)
+    rep["train_collectives"] = C.stats()
+    for _ in range(SHARD_STEPS - 1):
+        st, met = main_path(lambda: step(st, batch))
+    gc.collect()
+    torch.cuda.empty_cache()
+    pspecs, sspecs = state_specs(model)
+    errs = {"params": {}, "m": {}, "v": {}}
+    extra = {}
+    unsettled = total = 0
+    by_leaf = {}
+    for kind, tree, specs in (("params", st.params, pspecs),
+                              ("m", st.opt.m, sspecs),
+                              ("v", st.opt.v, sspecs)):
+        spec_flat = flatten_tree(specs)
+        for path, t in flatten_tree(tree).items():
+            want, extra = ref_block(ref_dir, 2, f"{kind}.{path}",
+                                    spec_flat[path], mesh, t)
+            if kind == "params":
+                g, _ = ref_block(ref_dir, 2, f"v.{path}", spec_flat[path],
+                                 mesh, t)
+                g.div_(1.0 - acfg.b2 ** SHARD_STEPS).sqrt_()     # |g|
+                loose = (g > 0) & (g < SHARD_SETTLED * acfg.eps)
+                del g
+                by_leaf[path] = int(loose.sum())
+                unsettled += by_leaf[path]
+                total += loose.numel()
+                err = (t.detach() - want).abs_().masked_fill_(loose, 0)
+                errs[kind][path] = float(err.max())
+                del loose, err
+            else:
+                errs[kind][path] = rel_err(t, want)
+            del want
+    rep["params_unsettled_fraction"] = unsettled / total
+    rep["params_unsettled_leaves"] = {
+        path: n / unsettled for path, n in sorted(
+            by_leaf.items(), key=lambda kv: -kv[1])[:3] if n}
+    rep["loss"], rep["loss_ref"] = float(met["loss"]), extra["loss"]
+    rep["grad_norm"], rep["grad_norm_ref"] = float(met["grad_norm"]), \
+        extra["grad_norm"]
+    rep["params_max_abs_err"] = max(errs["params"].values())
+    rep["params_ref_max_move"] = extra["params_max_move"]
+    rep["m_max_rel_err"] = max(errs["m"].values())
+    rep["v_max_rel_err"] = max(errs["v"].values())
+    del st, batch, step, model
+    # (3) the bfloat16 forward: flash attention at this rank's heads
+    gc.collect()
+    torch.cuda.empty_cache()
+    C.reset_stats()
+    lg = main_path(lambda: bf.forward({"tokens": local(inp["tokens16"])}))
+    rep["forward_bf16_collectives"] = C.stats()
+    want, _ = ref_block(ref_dir, 1, "logits_bf16", logit_spec, mesh, lg)
+    rep["forward_bf16_max_abs_err"] = float((lg.float() - want.float()).abs()
+                                           .max())
+    rep["forward_bf16_ref_max_abs"] = float(want.float().abs().max())
+    rep["forward_bf16_argmax_agree"] = float(
+        (lg.argmax(-1) == want.argmax(-1)).float().mean())
+    del lg, want, bf
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (4) the MoE layer: moe_ep over 'model', moe_ep_a2a over 'data'
+    impl = "ep_tp" if shape[1] > 1 else "ep_a2a"
+    mcfg = moe_cfgs[impl]
+    mspecs = rules.param_specs(inp["moe_params"], mesh, runs["forward"])
+    mp = {k: v.requires_grad_() for k, v in
+          shard_params(inp["moe_params"], mspecs, mesh).items()}
+    C.reset_stats()
+    out, aux = M.moe(mp, local(inp["moe_x"]), mcfg, runs["forward"], mesh)
+    out.sum().backward()
+    want, extra = ref_block(ref_dir, 3, "moe_out",
+                            rules.batch_spec(mesh, 3), mesh, out)
+    rep["moe"] = {"impl": impl, "capacity_factor": mcfg.moe.capacity_factor,
+                  "max_abs_err": float((out.detach() - want).abs().max()),
+                  "aux": float(aux.detach()), "aux_ref": extra["aux"],
+                  "grad_w_gate_abs_sum": float(mp["w_gate"].grad.abs().sum()),
+                  "collectives": C.stats()}
+    del mp, out, want
+    # (5) the pipeline: deepseek-7b's 4 layers over the 2 ranks as stages
+    if stage_layers is not None:
+        C.reset_stats()
+        layers = {k: v.requires_grad_() for k, v in stage_layers.items()}
+        out = pipeline_apply(pipe_stack(cfg, runs["pipe"]),
+                             unflatten_tree(layers), inp["pipe_x"], mesh,
+                             n_micro=SHARD_PIPE["micro"], axis="model")
+        grads = dict(zip(layers, torch.autograd.grad(out.sum(),
+                                                     list(layers.values()))))
+        want, _ = ref_block(ref_dir, 4, "pipe_out", (), mesh, out)
+        perr = {}
+        for path, g in grads.items():
+            wg, _ = ref_block(ref_dir, 4, f"pipe_grad.{path}", ("model",),
+                              mesh, g)
+            perr[path] = rel_err(g, wg)
+        rep["pipeline"] = {"stages": 2, "n_micro": SHARD_PIPE["micro"],
+                           "out_rel_err": rel_err(out.detach(), want),
+                           "grad_max_rel_err": max(perr.values()),
+                           "collectives": C.stats()}
+        del layers, out, grads, want
+    rep["launches"] = counts
+    rep["launches_by_shape"] = shapes
+    rep["peak_bytes"] = torch.cuda.max_memory_allocated()
+    conn.send(rep)
+    shutdown(mesh)
+
+
+def run_world(shape, ref_dir, seed):
+    """Spawn the two ranks of `shape` (gloo, the one card, a FileStore in
+    build/), wait for their reports under SHARD_TIMEOUT_S and join them."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    (ROOT / "build").mkdir(exist_ok=True)
+    store_dir = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    procs, conns = [], []
+    for rank in range(shape[0] * shape[1]):
+        parent, child = ctx.Pipe()
+        proc = ctx.Process(target=shard_rank, args=(
+            rank, shape, str(store_dir / "store"), str(ref_dir), seed, child),
+            daemon=True)
+        proc.start()
+        procs.append(proc)
+        conns.append(parent)
+    deadline = time.monotonic() + SHARD_TIMEOUT_S
+    reports = []
+    for rank, conn in enumerate(conns):
+        ready = conn.poll(max(1.0, deadline - time.monotonic()))
+        if not ready:
+            for proc in procs:
+                proc.kill()
+        require(ready, f"shard {shape}: rank {rank} sent no report in "
+                       f"{SHARD_TIMEOUT_S} s")
+        reports.append(conn.recv())
+    for proc in procs:
+        proc.join(120)
+        if proc.is_alive():
+            proc.kill()
+        require(proc.exitcode == 0,
+                f"shard {shape}: a rank exited with {proc.exitcode}")
+    shutil.rmtree(store_dir, ignore_errors=True)
+    return reports
+
+
+def rank_alone_peak(state, shape):
+    """(b): rank 0 of `shape` run alone on the card: the same model, state
+    and batch as rank 0 of the world, its train step's peak over the same
+    span."""
+    from repro_torch.configs import MeshConfig
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding import rules
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    dev = torch.device(SHARD_DEVICE)
+    cfg, _ = shard_cfgs()
+    run = shard_runs()["train"]
+    mesh = Mesh.alone(MeshConfig(shape, ("data", "model")), 0, dev)
+    model = Model(cfg, run, dev, mesh).init(seed=state["seed"])
+    acfg = AdamWConfig(lr=SHARD_LR)
+    st = init_train_state(model, None, acfg)
+    inp = shard_inputs(cfg, shard_cfgs()[1]["ep_tp"], state["seed"], dev)
+    batch = {k: rules.shard_tensor(inp[k], rules.batch_spec(mesh, 2), mesh)
+             .contiguous() for k in ("tokens", "labels")}
+    del inp
+    step = make_train_step(model, acfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    C.reset_stats()
+    reset_counts()
+    st, met = step(st, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    out = {"peak_bytes": peak, "state_bytes": state_bytes(st, batch),
+           "collectives": C.stats(), "launches": read_counts()}
+    del model, st, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_shard(state):
+    """The multi-device machinery on the one card: (a) two ranks (gloo) on
+    (1, 2) and (2, 1) against the one-device path on the same weights;
+    (b) rank 0's train step run alone against its peak among its peers;
+    (c) the planner over profile meshes: deepseek-7b on (1, 2) at 30
+    layers, llama-3.2-vision-90b's full AdamW step on (1, 8)."""
+    from repro_torch.configs import MeshConfig, RunConfig
+    from repro_torch.kernels import build
+
+    t_start = time.monotonic()
+    build.build()
+    build.library()
+    ref_dir = ROOT / "build" / "shard_ref"
+    shutil.rmtree(ref_dir, ignore_errors=True)
+    ref_s = shard_references(state, str(ref_dir))
+    GiB = 1024 ** 3
+    reports, world_s = {}, {}
+    for shape in SHARD_WORLDS:
+        t0 = time.monotonic()
+        reports[shape] = run_world(shape, ref_dir, state["seed"])
+        world_s[shape] = time.monotonic() - t0
+    shutil.rmtree(ref_dir, ignore_errors=True)
+    for shape, reps in reports.items():
+        for rep in reps:
+            add_launches(state, rep["launches"], rep["launches_by_shape"])
+            emit({"phase": "shard", "part": "ranks", "transport": "gloo",
+                  "world_seconds": world_s[shape], "references_seconds": ref_s,
+                  **{k: (shapes_text(v) if k == "launches_by_shape" else v)
+                     for k, v in rep.items()},
+                  "collective_times": "gloo between two ranks of one card: "
+                                      "host-staged loopback, not NVLink; no "
+                                      "yardstick",
+                  "gpu": state["smi"]})
+            what = f"shard {shape} rank {rep['rank']}"
+            require(rep["forward_f32_max_abs_err"] < SHARD_GATES["logits"],
+                    f"{what}: forward {rep['forward_f32_max_abs_err']}")
+            require(abs(rep["loss"] - rep["loss_ref"]) / abs(rep["loss_ref"])
+                    < SHARD_GATES["loss"], f"{what}: loss {rep['loss']} vs "
+                                           f"{rep['loss_ref']}")
+            require(rep["params_ref_max_move"] > 5 * SHARD_GATES["state"],
+                    f"{what}: the reference steps moved a parameter by at "
+                    f"most {rep['params_ref_max_move']}: the gate cannot "
+                    "tell a step from none")
+            require(rep["params_unsettled_fraction"] < 0.05,
+                    f"{what}: {rep['params_unsettled_fraction']} of the "
+                    "parameters were left out of the gate")
+            require(rep["params_max_abs_err"] < SHARD_GATES["state"] and
+                    rep["m_max_rel_err"] < SHARD_GATES["state"] and
+                    rep["v_max_rel_err"] < SHARD_GATES["state"],
+                    f"{what}: state {rep['params_max_abs_err']} "
+                    f"{rep['m_max_rel_err']} {rep['v_max_rel_err']}")
+            require(rep["forward_bf16_max_abs_err"] < SHARD_GATES["bf16"],
+                    f"{what}: bf16 forward {rep['forward_bf16_max_abs_err']}")
+            require(rep["moe"]["max_abs_err"] < SHARD_GATES["moe"] and
+                    rep["moe"]["grad_w_gate_abs_sum"] > 0,
+                    f"{what}: moe {rep['moe']}")
+            if "pipeline" in rep:
+                require(rep["pipeline"]["out_rel_err"] < SHARD_GATES["pipe"]
+                        and rep["pipeline"]["grad_max_rel_err"] <
+                        SHARD_GATES["pipe"], f"{what}: pipeline "
+                                             f"{rep['pipeline']}")
+            require(rep["launches"]["rmsnorm"] > 0 and
+                    rep["launches"]["rmsnorm_backward"] > 0 and
+                    rep["launches"]["flash_attention"] > 0,
+                    f"{what}: a kernel of the path was not launched: "
+                    f"{rep['launches']}")
+    tp_key = (SHARD_BF16_B, SHARD_TRAIN["seq"], SHARD_TRAIN["seq"], 16, 16,
+              128, True)
+    # the shard phase's own launches at the local shape (olmoe-1b-7b's
+    # prefill and serve phases launch the same shape)
+    state["shard_tp_launches"] = sum(
+        rep["launches_by_shape"]["flash_attention"].get(tp_key, 0)
+        for reps in reports.values() for rep in reps)
+    require(state["shard_tp_launches"] > 0,
+            f"shard: flash attention never ran at the local shape {tp_key}")
+    # (b) rank alone against rank among peers
+    alone = rank_alone_peak(state, (1, 2))
+    r0 = reports[(1, 2)][0]
+    peer = r0["train_peak_bytes"] + r0["train_state_bytes"]
+    mine = alone["peak_bytes"] + alone["state_bytes"]
+    diff = (mine - peer) / peer
+    emit({"phase": "shard", "part": "rank_alone", "mesh": [1, 2], "rank": 0,
+          "measure": "the step's peak over what was allocated before it, "
+                     "plus the parameters, moments and batch it holds",
+          "alone_peak_gib": mine / GiB, "among_peers_peak_gib": peer / GiB,
+          "rel_diff": diff,
+          "alone_step_gib": alone["peak_bytes"] / GiB,
+          "among_peers_step_gib": r0["train_peak_bytes"] / GiB,
+          "gate": SHARD_GATES["alone"], "alone": alone,
+          "among_peers_collectives": r0["train_collectives"],
+          "unseen": "NCCL's device buffers (gloo here) and link time",
+          "gpu": state["smi"]})
+    require(abs(diff) < SHARD_GATES["alone"],
+            f"shard: rank alone {mine} vs among peers {peer}")
+    require(alone["collectives"] == {
+        k: (v if k != "host_staged" else alone["collectives"][k])
+        for k, v in r0["train_collectives"].items()},
+            "shard: the rank alone ran other collectives than among its "
+            "peers")
+    # (c) the planner over profile meshes
+    f32 = RunConfig(attn_impl="blocked", remat="boundaries",
+                    param_dtype="float32", compute_dtype="float32")
+    kernels = ("rmsnorm", "rmsnorm_backward")
+    mesh12 = MeshConfig((1, 2), ("data", "model"))
+    rep, truth, planner = planner_job(
+        state, "deepseek-7b", "train", f32, kernels, n_layers=30,
+        anchor=PLANNER_TRAIN_ANCHOR, profile_mesh=mesh12)
+    even = DEEPSEEK_TRAIN_30_GIB / 2
+    emit({"phase": "shard", "part": "planner", "arch": "deepseek-7b",
+          "profile_mesh": [1, 2], "n_layers": 30,
+          "per_rank_predicted_gib": rep.predicted_per_dev_gib,
+          "per_rank_measured_gib": truth.job_mem_bytes / GiB,
+          "requirement_gib": rep.requirement_gib,
+          "even_split_gib": even,
+          "measured_over_even_split": truth.job_mem_bytes / GiB / even,
+          "selection": rep.selection.config.name, "gpu": state["smi"]})
+    mesh18 = MeshConfig(PLANNER_VLM["mesh"], ("data", "model"))
+    rep, truth, planner = planner_job(
+        state, "llama-3.2-vision-90b", "train", f32, kernels,
+        n_layers=PLANNER_VLM["measure_layers"], profile_mesh=mesh18)
+    full = N_LAYERS["llama-3.2-vision-90b"]
+    per_rank = rep.model.requirement(full, planner.leeway) / GiB
+    n_dev = mesh18.n_devices
+    sel = planner.select(per_rank * n_dev, per_rank)
+    emit({"phase": "shard", "part": "planner", "arch": "llama-3.2-vision-90b",
+          "profile_mesh": list(mesh18.shape),
+          "measured_layers": PLANNER_VLM["measure_layers"],
+          "per_rank_predicted_gib_at_full": per_rank,
+          "requirement_gib_at_full": per_rank * n_dev,
+          "selection_at_full": sel.config.name, "feasible": sel.feasible_count,
+          "fell_back": sel.fell_back, "gpu": state["smi"]})
+    require(not sel.fell_back, f"shard: no config for the vlm: {sel}")
+    emit({"phase": "shard", "seconds": time.monotonic() - t_start,
+          "gpu": state["smi"]})
 
 
 def allocation_traffic():
@@ -2733,11 +3350,12 @@ def kernels_line(state):
     carries it (the rmsnorm backward: at the train phase's, in its float32,
     and at the other families' float32 train widths 768, 3584, 7168 and
     8192; flash attention at D = 128 and, as its own entry, at deepseek-v3's
-    D = 192, and at each shape of NEW_FLASH; rmsnorm at d = 8192 and 768
-    too); `launches` counts the prefill, serve, train and planner phases
-    (the D = 192 instance: deepseek-v3-671b's prefill phase, which alone
-    runs it; the NEW_FLASH shapes and the rmsnorm widths: the wrappers'
-    counts at that shape or width)."""
+    D = 192, at each shape of NEW_FLASH and at a tensor-parallel rank's 16
+    heads; rmsnorm at d = 8192 and 768 too); `launches` counts the
+    prefill, serve, train, planner, shard and allocate phases (the D = 192
+    instance: deepseek-v3-671b's prefill phase, which alone runs it; the
+    NEW_FLASH shapes and the rmsnorm widths: the wrappers' counts at that
+    shape or width; the rank's shape: the shard phase's ranks' count)."""
     meta = {
         "rmsnorm": {"source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
                     "replaces": "src/repro/kernels/rmsnorm.py:28",
@@ -2778,6 +3396,15 @@ def kernels_line(state):
             "shape": [NEW_FLASH_B, Sq, Skv, H, Hkv, D],
             "timed_as": "flash_attention", "use": use,
             "launches": by_shape.get((NEW_FLASH_B, Sq, Skv, H, Hkv, D, causal), 0)}
+    # the shard phase's tensor-parallel bf16 forward: 16 heads a rank of
+    # deepseek-7b's 32 (the same shape as olmoe-1b-7b's, timed as that),
+    # with the launches the ranks counted there
+    meta["flash_attention_shard_tp"] = {
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:86",
+        "shape": [SHARD_BF16_B, 2048, 2048, 16, 16, 128],
+        "timed_as": "flash_attention",
+        "launches": state["shard_tp_launches"]}
     # rmsnorm at the two new widths, with the launches the wrapper counted
     # at that width on the main path
     for name, shape in (("rmsnorm_d8192", [8192, 8192]),
@@ -2841,7 +3468,8 @@ def main(argv=None) -> int:
                                 "rmsnorm_backward": {}}}
     run = {"env": phase_env, "kernels": phase_kernels, "parity": phase_parity,
            "prefill": phase_prefill, "serve": phase_serve, "train": phase_train,
-           "planner": phase_planner, "allocate": phase_allocate}
+           "planner": phase_planner, "shard": phase_shard,
+           "allocate": phase_allocate}
     t0 = time.monotonic()
     for name in PHASES:
         if name in phases:

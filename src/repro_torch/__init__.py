@@ -1,14 +1,20 @@
-"""PyTorch and CUDA port of the `repro` package, for one NVIDIA H100.
+"""PyTorch and CUDA port of the `repro` package, for NVIDIA H100s.
 
-Ported so far: the dense decoder-only family, RWKV6 (rwkv6-7b) and the
-Zamba2 hybrid (zamba2-7b) through ``Model.forward``, ``Model.prefill``,
-``Model.decode_step``, ``ServeEngine`` and the ``launch.serve`` command line,
-with hand-written CUDA kernels for RMSNorm, flash attention, the RWKV6
+The six families of the JAX package (dense, MoE with GQA or MLA, RWKV6,
+the Zamba2 hybrid, the VLM and the encoder-decoder) serve and train
+through ``Model``, ``ServeEngine``, ``make_train_step`` and the
+``launch.serve`` / ``launch.train`` command lines, with hand-written CUDA
+kernels for RMSNorm and its backward, flash attention, the RWKV6
 recurrence (wkv6) and the Mamba2 scan (ssd). ``core/`` holds Crispy's
-planner over the port: it profiles a step's peak memory on the card over a
-depth ladder, extrapolates, and selects a GPU count. Entry points run on
-the GPU and raise when there is none; pass ``device="cpu"`` to run the
-plain PyTorch versions on the CPU.
+planner over the port: it profiles a step's peak memory on the card over
+a depth ladder (one rank of a sharded job, on a profile mesh),
+extrapolates, and selects a GPU count; ``allocator/``, ``pipeline/``,
+``profiling/``, ``state/`` and ``telemetry/`` its allocation service.
+``sharding/`` and ``launch/mesh.py`` hold the multi-device machinery: the
+sharding rules, the collectives over ``torch.distributed`` (or a rank run
+alone), tensor, data and expert parallelism with ZeRO-1, and the GPipe
+pipeline. Entry points run on the GPU and raise when there is none; pass
+``device="cpu"`` to run the plain PyTorch versions on the CPU.
 """
 from __future__ import annotations
 

@@ -25,6 +25,12 @@ tensor of `like` at its path (on its device, in its dtype) and returns
 `like`: restoring a ``TrainState`` overwrites the model's own parameters
 and the optimizer's moments, with no second copy of the state in device
 memory.
+
+Over a mesh, leaves are still written whole (the reference's format):
+``save_checkpoint(..., specs=, mesh=)`` all-gathers each split leaf from
+its ranks and rank 0 writes. ``restore_checkpoint(..., shardings=specs,
+mesh=)`` is the elastic restore: each rank reads only its block of each
+file (memory-mapped), under the specs of whatever mesh it restores onto.
 """
 from __future__ import annotations
 
@@ -37,6 +43,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding import rules
 
 
 def leaf_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
@@ -74,9 +83,40 @@ def _from_numpy(arr: np.ndarray) -> torch.Tensor:
 
 
 def save_checkpoint(directory: str, step: int, tree,
-                    extra: Optional[Dict] = None) -> str:
-    """Blocking save of a tree of tensors."""
-    return _write(directory, step, leaf_paths(tree), extra)
+                    extra: Optional[Dict] = None, *, specs=None,
+                    mesh=None) -> str:
+    """Blocking save of a tree of tensors. Over `mesh`, `tree` holds this
+    rank's blocks under `specs` (a tree like it): every rank must call
+    this; the leaves are gathered whole and rank 0 writes them."""
+    pairs = leaf_paths(tree)
+    if mesh is None:
+        return _write(directory, step, pairs, extra)
+    spec_of = dict(leaf_paths(specs))
+    pairs = [(key, _gather_whole(leaf, spec_of[key], mesh))
+             for key, leaf in pairs]
+    final = os.path.join(directory, f"step_{step}")
+    if mesh.rank == 0:
+        _write(directory, step, pairs, extra)
+    C.barrier(mesh)
+    return final
+
+
+def _gather_whole(block: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The whole tensor from every rank's block of it under `spec`."""
+    cur = block.detach()
+    for dim, entry in enumerate(spec):
+        axes = mesh.normalise(rules.entry_axes(entry))
+        if not axes:
+            continue
+        if axes != rules.entry_axes(entry):
+            raise ValueError(f"{entry}: a dim split over axes out of the "
+                             f"mesh's order {mesh.axis_names}")
+        shape = list(cur.shape)
+        shape[dim] *= mesh.size(axes)
+        out = cur.new_empty(shape)
+        C.gather_into_(out, cur, mesh, axes, dim)
+        cur = out
+    return cur
 
 
 def _write(directory: str, step: int, pairs, extra: Optional[Dict]) -> str:
@@ -114,27 +154,40 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 @torch.no_grad()
-def restore_checkpoint(directory: str, step: int, like):
+def restore_checkpoint(directory: str, step: int, like, shardings=None,
+                       mesh=None):
     """Copy every leaf of checkpoint `step` into the tensor of `like` at
     the same path, IN PLACE; returns (like, extra). A leaf missing from the
-    checkpoint, or of another shape, raises before anything is copied."""
+    checkpoint, or of another shape, raises before anything is copied.
+
+    With `shardings` (a tree of specs like `like`) and `mesh`, each leaf of
+    `like` is this rank's block of the stored one under its spec, read
+    memory-mapped: the elastic restore onto any mesh."""
     path = os.path.join(directory, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     stored = manifest["leaves"]
     targets = leaf_paths(like)
+    spec_of = dict(leaf_paths(shardings)) if shardings is not None else {}
     for key, leaf in targets:
         if not isinstance(leaf, torch.Tensor):
             raise TypeError(f"{key}: restore needs a tensor to copy into, "
                             f"got {type(leaf).__name__}")
         if key not in stored:
             raise KeyError(f"checkpoint missing leaf {key}")
-        if tuple(stored[key]["shape"]) != tuple(leaf.shape):
+        want = tuple(stored[key]["shape"])
+        if key in spec_of:
+            want = rules.local_shape(want, spec_of[key], mesh)
+        if want != tuple(leaf.shape):
             raise ValueError(f"{key}: checkpoint shape "
-                             f"{tuple(stored[key]['shape'])} != "
-                             f"{tuple(leaf.shape)}")
+                             f"{tuple(stored[key]['shape'])} gives "
+                             f"{want}, not {tuple(leaf.shape)}")
     for key, leaf in targets:
-        arr = np.load(os.path.join(path, stored[key]["file"]))
+        arr = np.load(os.path.join(path, stored[key]["file"]),
+                      mmap_mode="r" if key in spec_of else None)
+        if key in spec_of:
+            # a copy of the block only: the rest of the file is not read
+            arr = np.array(rules.shard_tensor(arr, spec_of[key], mesh))
         leaf.copy_(_from_numpy(arr))
     return like, manifest.get("extra", {})
 

@@ -154,6 +154,24 @@ def params_from_numpy(tree: Mapping, model: Model) -> Model:
     return model
 
 
+def shard_params(params: Mapping, specs: Mapping, mesh) -> Dict:
+    """This rank's blocks of a whole parameter tree under `specs`
+    (``rules.param_specs``): the JAX package's full parameters (numpy
+    arrays) carried to one rank's shards, ready for ``params_from_numpy``
+    into a ``Model`` over `mesh`; tensors give tensors."""
+    from repro_torch.sharding.rules import shard_tensor
+    out = {}
+    for name, value in params.items():
+        if isinstance(value, Mapping):
+            out[name] = shard_params(value, specs[name], mesh)
+        elif isinstance(value, torch.Tensor):
+            out[name] = shard_tensor(value, specs[name], mesh).contiguous()
+        else:
+            out[name] = np.ascontiguousarray(
+                shard_tensor(np.asarray(value), specs[name], mesh))
+    return out
+
+
 def params_to_numpy(model: Model) -> Dict:
     """The model's parameters as nested dicts of numpy arrays (bfloat16
     leaves come back as float32)."""

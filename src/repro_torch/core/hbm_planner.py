@@ -15,8 +15,14 @@ Paper step                      ->  here
 
 A copy of the JAX package's ``repro/core/hbm_planner.py`` with the same
 ladder, fit, gate and selection; the profile is a step on the card where the
-reference's is an AOT compile on the host. The profile "mesh" is the one
-card, so the per-device bytes are the aggregate requirement.
+reference's is an AOT compile on the host. Without a profile mesh the job
+runs whole on the one card, so its bytes are the aggregate requirement.
+With ``profile_mesh=`` (a ``MeshConfig``), as in the reference, each point
+is the peak of rank 0 of the job sharded over that mesh, run alone on the
+card (``Mesh.alone``: its collectives return zeros of the right shape, so
+it allocates what it would among its peers), and the requirement is the
+per-rank prediction times the mesh's devices. NCCL's own buffers lie
+outside the allocator and belong to the per-GPU overhead.
 
 As in the reference, the fit is against the effective depths after family
 rounding (``_reduced_depth``) and the extrapolation is to ``cfg.n_layers``:
@@ -39,7 +45,9 @@ from repro_torch.core.memory_model import LinearMemoryModel, fit_memory_model
 from repro_torch.core.profiler import CUDAMemoryProfiler, ProfileResult
 from repro_torch.core.sampling import integer_ladder
 from repro_torch.core.selector import Selection, select_bfa
+from repro_torch.configs.base import MeshConfig
 from repro_torch.launch.dryrun import build_step
+from repro_torch.launch.mesh import Mesh
 
 GiB = 1024 ** 3
 # What an NVIDIA H100 80GB HBM3 (700 W) held beyond the allocator's peak at
@@ -95,11 +103,11 @@ class PlanReport:
     ladder: List[int]
     per_dev_bytes: List[float]
     model: LinearMemoryModel
-    predicted_per_dev_gib: float      # at full depth, on the profile card
+    predicted_per_dev_gib: float      # at full depth, a rank of the mesh
     requirement_gib: float            # aggregate, extrapolated
     selection: Optional[Selection]
     profile_wall_s: float
-    profile_mesh_devices: int
+    profile_mesh_devices: int         # the ranks the requirement counts
 
 
 class HBMPlanner:
@@ -115,11 +123,14 @@ class HBMPlanner:
     # -- profiling ----------------------------------------------------------
     def profile_memory(self, cfg: ModelConfig, shape: ShapeConfig,
                        run: Optional[RunConfig] = None,
-                       device: Optional[Union[str, torch.device]] = None
-                       ) -> float:
+                       device: Optional[Union[str, torch.device]] = None,
+                       profile_mesh: Optional[MeshConfig] = None) -> float:
         """Bytes one step of the job allocates on the card at its peak
-        (device None: the GPU; any other than a CUDA device raises)."""
-        job = build_step(cfg, shape, run, device)
+        (device None: the GPU; any other than a CUDA device raises); with
+        a profile mesh, rank 0's of the job sharded over it, run alone."""
+        mesh = None if profile_mesh is None else Mesh.alone(
+            profile_mesh, 0, device)
+        job = build_step(cfg, shape, run, device, mesh=mesh)
         return CUDAMemoryProfiler().profile(job, cfg.n_layers,
                                             device).job_mem_bytes
 
@@ -144,14 +155,16 @@ class HBMPlanner:
              device: Optional[Union[str, torch.device]] = None,
              run: Optional[RunConfig] = None,
              anchor_layers: Optional[int] = None,
-             select: bool = True) -> PlanReport:
+             select: bool = True,
+             profile_mesh: Optional[MeshConfig] = None) -> PlanReport:
         t0 = time.monotonic()
-        n_dev = 1
+        n_dev = 1 if profile_mesh is None else profile_mesh.n_devices
         ladder = self.depth_ladder(cfg, anchor_layers)
         mems = []
         for L in ladder:
             small = _reduced_depth(cfg, L)
-            mems.append(self.profile_memory(small, shape, run, device))
+            mems.append(self.profile_memory(small, shape, run, device,
+                                            profile_mesh))
         # fit vs the *effective* layer counts after family rounding
         eff = [_reduced_depth(cfg, L).n_layers for L in ladder]
         model = fit_memory_model(eff, mems)
@@ -170,9 +183,9 @@ class HBMPlanner:
                job: str = "") -> Selection:
         """The cheapest feasible config (BFA over them when there is a
         history). As in the reference, a requirement is taken to divide
-        evenly over a config's devices; the port cannot run a job sharded
-        yet, so for more than one GPU that is an assumption, not a
-        measurement."""
+        evenly over a config's devices. A plan over a profile mesh measures
+        one rank of the sharded job; a config of another device count is
+        still an even split of that requirement."""
         feasible = []
         for c in self.catalog:
             usable = c.usable_mem_gib(self.overhead)

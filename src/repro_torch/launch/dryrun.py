@@ -28,9 +28,15 @@ weights, state and inputs live, not the build's transients: the float32
 draw of a bf16 vocabulary-sized weight would otherwise be the peak of a
 shallow job. The callable returns the step's output and keeps nothing:
 everything it made is freed when its result is dropped. ``run=None`` takes
-``preset_run`` on a one-device mesh. ``run_cell``, the HLO dump and the
-sharding specs of the reference wait for the port's multi-device
-machinery.
+``preset_run`` on the mesh (one device when there is none).
+
+With ``mesh=`` the step is one rank's of a job sharded over that mesh
+(``launch.mesh``): the model holds this rank's blocks, drawn on the device
+(``Model.init``), the batch is this rank's (B over the batch axes), and the
+step writes its collectives out. Under ``Mesh.alone`` the rank runs by
+itself, its collectives returning zeros, which is how ``HBMPlanner``
+profiles a rank of a profile mesh on one card. ``run_cell``, the HLO
+costs and the roofline of the reference wait for ROADMAP.md item 7b.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ import torch
 from repro_torch import resolve_device, resolve_dtype
 from repro_torch.configs.base import (MeshConfig, ModelConfig, RunConfig,
                                       ShapeConfig)
+from repro_torch.launch.mesh import mesh_config
 from repro_torch.launch.presets import preset_run
 from repro_torch.models.model import Model
 from repro_torch.optim import AdamWConfig
@@ -52,14 +59,23 @@ ONE_DEVICE = MeshConfig((1, 1), ("data", "model"))
 def build_step(cfg: ModelConfig, shape: ShapeConfig,
                run: Optional[RunConfig] = None,
                device: Optional[Union[str, torch.device]] = None,
-               seed: int = 0) -> Callable[[], object]:
+               seed: int = 0, mesh=None) -> Callable[[], object]:
     """A callable that runs one step of `shape.mode` for `cfg` on `device`
-    (None: the GPU), building its weights, state and inputs there."""
+    (None: the mesh's, or the GPU), building its weights, state and inputs
+    there; over `mesh`, this rank's."""
     if shape.mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {shape.mode!r}")
-    device = resolve_device(device)
-    run = run or preset_run(cfg, shape, ONE_DEVICE)
+    device = resolve_device(mesh.device if device is None and mesh is not None
+                            else device)
+    run = run or preset_run(cfg, shape, ONE_DEVICE if mesh is None
+                            else mesh_config(mesh))
     B, S = shape.global_batch, shape.seq_len
+    if mesh is not None:
+        dp = mesh.size(("pod", "data"))
+        if B % dp:
+            raise ValueError(f"batch {B} does not divide over {dp} data "
+                             f"ranks")
+        B //= dp
 
     def tokens(generator, n):
         return torch.randint(0, cfg.vocab_size, (B, n), generator=generator,
@@ -84,7 +100,7 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig,
         """Weights, state and inputs on the device -> the step to run."""
         generator = torch.Generator(device=device)
         generator.manual_seed(seed)
-        model = Model(cfg, run, device=device)
+        model = Model(cfg, run, device=device, mesh=mesh)
         if shape.mode == "train":
             acfg = AdamWConfig(moment_dtype=run.moment_dtype,
                                keep_master=run.param_dtype != "float32")

@@ -23,6 +23,14 @@ decoder over the encoder's output) takes its keys and values from a media
 or encoder tensor and is never causal. Its core is the same switch, at a
 full sequence and at a one-row decode query alike: on the card the flash
 kernel, where the reference takes ``full_attention`` up to 4096 query rows.
+
+Under a mesh whose 'model' axis splits the query heads (``wq``'s block
+holds fewer than ``cfg.n_heads``), GQA and cross-attention run on this
+rank's heads: x enters the split, ``wo``'s output is all-reduced over
+'model'. Where the KV heads do not divide the axis they are replicated
+(the rules' fallback), and each rank takes the KV heads its own query
+heads read, by global head index (``_local_kv``). MLA under a split
+'model' axis is refused (``Model``).
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
+from repro_torch.sharding import collectives as C
 
 NEG_INF = -1e30
 
@@ -329,33 +338,70 @@ def _sequence_attention(q, k, v, run: RunConfig, *, causal: bool):
 # ---------------------------------------------------------------------------
 
 
-def _project_qkv(params, x, cfg: ModelConfig, positions):
+def heads_split(params, cfg: ModelConfig, mesh) -> bool:
+    """Whether this rank holds a block of the query heads over 'model'."""
+    return mesh is not None and params["wq"].shape[-2] != cfg.n_heads
+
+
+def _local_kv(params, cfg: ModelConfig, mesh):
+    """(wk, wv) as this rank's query heads read them. Split over 'model',
+    they are this rank's block; replicated (the KV heads do not divide the
+    axis), the heads from h0 // G to (h1 - 1) // G of this rank's query
+    heads h0 .. h1 - 1 (G query heads a KV head), each weight entering the
+    split so that the ranks' gradients for it are summed."""
+    wk, wv = params["wk"], params["wv"]
+    if wk.shape[-2] != cfg.n_kv_heads:
+        return wk, wv
+    H_l = params["wq"].shape[-2]
+    G = cfg.n_heads // cfg.n_kv_heads
+    if H_l % G and G % H_l:
+        raise NotImplementedError(
+            f"{H_l} query heads a rank over {G} a KV head: a rank's heads "
+            f"would read part of a KV head's group")
+    h0 = C.axis_index(mesh, "model") * H_l
+    k0, k1 = h0 // G, (h0 + H_l - 1) // G + 1
+    return (C.enter_split(wk, mesh, "model")[:, k0:k1],
+            C.enter_split(wv, mesh, "model")[:, k0:k1])
+
+
+def _project_qkv(params, x, cfg: ModelConfig, positions, mesh=None):
+    """q, k, v of x; with the heads split over 'model' (``heads_split``),
+    this rank's."""
     B, S, d = x.shape
-    H, K, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    wq, wk, wv = params["wq"], params["wk"], params["wv"]
+    if heads_split(params, cfg, mesh):
+        x = C.enter_split(x, mesh, "model")
+        wk, wv = _local_kv(params, cfg, mesh)
+    H, K, Dh = wq.shape[-2], wk.shape[-2], wq.shape[-1]
     # (d, H, Dh) weights contract over d: a matmul with the (d, H*Dh) view
-    q = (x @ params["wq"].to(x.dtype).reshape(d, H * Dh)).view(B, S, H, Dh)
-    k = (x @ params["wk"].to(x.dtype).reshape(d, K * Dh)).view(B, S, K, Dh)
-    v = (x @ params["wv"].to(x.dtype).reshape(d, K * Dh)).view(B, S, K, Dh)
+    q = (x @ wq.to(x.dtype).reshape(d, H * Dh)).view(B, S, H, Dh)
+    k = (x @ wk.to(x.dtype).reshape(d, K * Dh)).view(B, S, K, Dh)
+    v = (x @ wv.to(x.dtype).reshape(d, K * Dh)).view(B, S, K, Dh)
     q = L.rotary(q, positions, cfg.rope_kind, cfg.rope_fraction, cfg.rope_theta)
     k = L.rotary(k, positions, cfg.rope_kind, cfg.rope_fraction, cfg.rope_theta)
     return q, k, v
 
 
-def _project_out(params, o, x):
+def _project_out(params, o, x, mesh=None):
+    """o's heads through wo; given a mesh (the heads split over 'model'),
+    all-reduced over 'model'."""
     B, S, H, Dh = o.shape
     wo = params["wo"].to(x.dtype)
-    return o.reshape(B, S, H * Dh) @ wo.reshape(H * Dh, wo.shape[-1])
+    out = o.reshape(B, S, H * Dh) @ wo.reshape(H * Dh, wo.shape[-1])
+    return C.all_reduce(out, mesh, "model") if mesh is not None else out
 
 
 def gqa(params, x, cfg: ModelConfig, run: RunConfig, *, positions=None,
-        causal: bool = True):
-    """Self-attention over a full sequence."""
+        causal: bool = True, mesh=None):
+    """Self-attention over a full sequence (under a mesh: this rank's
+    heads, the output all-reduced over 'model')."""
     S = x.shape[1]
     if positions is None:
         positions = torch.arange(S, device=x.device)
-    q, k, v = _project_qkv(params, x, cfg, positions)
+    q, k, v = _project_qkv(params, x, cfg, positions, mesh)
     o = _sequence_attention(q, k, v, run, causal=causal)
-    return _project_out(params, o, x)
+    return _project_out(params, o, x,
+                        mesh if heads_split(params, cfg, mesh) else None)
 
 
 def gqa_prefill(params, x, cfg: ModelConfig, run: RunConfig, *,
@@ -448,25 +494,37 @@ def init_cross_attn(generator, cfg: ModelConfig, *, dtype=torch.float32,
     return p
 
 
-def cross_attn_kv(params, media):
-    """media (B, M, d) -> k, v (B, M, K, Dh), each contiguous."""
+def cross_attn_kv(params, media, cfg: ModelConfig = None, mesh=None):
+    """media (B, M, d) -> k, v (B, M, K, Dh), each contiguous; with the
+    heads split over 'model', the KV heads this rank's query heads read."""
     B, M, d = media.shape
-    _, K, Dh = params["wk"].shape
-    k = media @ params["wk"].to(media.dtype).reshape(d, K * Dh)
-    v = media @ params["wv"].to(media.dtype).reshape(d, K * Dh)
+    wk, wv = params["wk"], params["wv"]
+    if cfg is not None and heads_split(params, cfg, mesh):
+        media = C.enter_split(media, mesh, "model")
+        wk, wv = _local_kv(params, cfg, mesh)
+    K, Dh = wk.shape[-2:]
+    k = media @ wk.to(media.dtype).reshape(d, K * Dh)
+    v = media @ wv.to(media.dtype).reshape(d, K * Dh)
     return k.view(B, M, K, Dh), v.view(B, M, K, Dh)
 
 
-def cross_attn(params, x, kv, run: RunConfig, gated: bool = True):
+def cross_attn(params, x, kv, run: RunConfig, gated: bool = True,
+               cfg: ModelConfig = None, mesh=None):
     """x (B, S, d) attends to every key of kv (non-causal), S >= 1; the
     output is scaled by tanh(gate) when `gated`. The softmax core is
-    `run.attn_impl`'s, one call for a sequence and for a decode step."""
+    `run.attn_impl`'s, one call for a sequence and for a decode step.
+    With the heads split over 'model' (`cfg` and `mesh` given), kv is
+    ``cross_attn_kv``'s for this rank and the output is all-reduced."""
     k, v = kv
     B, S, d = x.shape
     _, H, Dh = params["wq"].shape
+    split = cfg is not None and heads_split(params, cfg, mesh)
+    if split:
+        x = C.enter_split(x, mesh, "model")
     q = (x @ params["wq"].to(x.dtype).reshape(d, H * Dh)).view(B, S, H, Dh)
     out = _project_out(params, _sequence_attention(q, k, v, run,
-                                                   causal=False), x)
+                                                   causal=False), x,
+                       mesh if split else None)
     if gated:
         out = torch.tanh(params["gate"]).to(x.dtype) * out
     return out

@@ -40,9 +40,25 @@ reference's does, so that a training step on the card takes the plain
 chunked recurrences (``wkv_chunked``, ``ssd_chunked``) and plain attention,
 and runs only the rmsnorm kernels and their backward: the flash attention,
 wkv6 and ssd kernels have no backward and refuse an input that needs one.
+
+``Model(cfg, run, device=, mesh=)`` over a mesh (``launch.mesh``) holds
+this rank's blocks of the parameters, laid out by ``sharding.rules``
+(``self.specs``; ``self.full_shapes`` the whole shapes), and ``forward``
+and ``loss_fn`` take this rank's block of the batch (split over the batch
+axes, ``rules.batch_spec``) and write their collectives out: tensor
+parallelism over 'model' (heads, ff, experts, vocabulary) for the dense,
+MoE (GQA) and VLM families; data parallelism over 'pod' and 'data' for
+every family. ``fsdp_params``' leaves split over 'data' are all-gathered
+once a forward (their gradients reduce-scattered back), ``fsdp_experts``'
+per MoE layer. ``forward`` returns this rank's block of the logits
+(split over the vocabulary where 'model' splits it); ``loss_fn`` the loss
+of the whole batch on every rank. Under a 'model' axis above 1, rwkv6-7b,
+zamba2-7b, whisper-small and MLA raise (ROADMAP.md item 7b), and prefill
+and decode raise under any mesh (sharded decode, item 7b).
 """
 from __future__ import annotations
 
+import zlib
 from typing import Dict, Optional, Union
 
 import torch
@@ -55,8 +71,19 @@ from repro_torch.models import layers as L
 from repro_torch.models import rwkv as R
 from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding import rules
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+# families whose layers have no tensor-parallel form in the port yet
+TP_REFUSED = {"ssm": "rwkv6's wk, wv and wr are replicated where wo, wg, u "
+                     "and w0 are split",
+              "hybrid": "Mamba2's in_proj splits across its concatenated "
+                        "z/x/B/C/dt columns",
+              "audio": "whisper's encoder-decoder has no split form yet"}
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+NORM_LEAVES = ("norm", "ln1", "ln2", "ln_cross", "enc_ln", "q_norm",
+               "kv_norm")
 
 
 class ParamTree(nn.Module):
@@ -79,18 +106,38 @@ class ParamTree(nn.Module):
         return out
 
 
+def refuse_tp(cfg: ModelConfig, mesh) -> None:
+    """Raise for a layout the port has no tensor-parallel form of yet."""
+    if mesh is None or C.axis_size(mesh, "model") == 1:
+        return
+    why = TP_REFUSED.get(cfg.family)
+    if why is None and cfg.attention_kind == "mla":
+        why = "MLA's latent projections have no split form yet"
+    if why is None and cfg.moe is not None and \
+            cfg.moe.impl not in ("ep_tp", "ep_a2a"):
+        why = f"MoE impl {cfg.moe.impl!r} does not split the experts"
+    if why:
+        raise NotImplementedError(
+            f"{cfg.name} over a 'model' axis of {C.axis_size(mesh, 'model')}:"
+            f" {why} (ROADMAP.md, Queue 1, item 7b)")
+
+
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, run: Optional[RunConfig] = None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh=None):
         """Parameters are allocated on `device` in `run.param_dtype` and left
         UNINITIALISED: call `init`, or load weights (`convert.py`,
-        `load_state_dict`). device=None is the GPU, and raises without one."""
+        `load_state_dict`). device=None is the GPU, and raises without one.
+        Over `mesh`, the parameters are this rank's blocks."""
         super().__init__()
         if cfg.family not in PORTED_FAMILIES:
             raise ValueError(f"unknown family {cfg.family!r}; the port holds "
                              f"{PORTED_FAMILIES}")
+        refuse_tp(cfg, mesh)
         self.cfg = cfg
         self.run = run or RunConfig()
+        self.mesh = mesh
         self.device = torch.device(device) if str(device) == "meta" \
             else resolve_device(device)
         self.compute_dtype = resolve_dtype(self.run.compute_dtype)
@@ -99,8 +146,15 @@ class Model(nn.Module):
         # masked to -1e30 in _logits
         v = cfg.vocab_size
         self.padded_vocab = v if v % 128 == 0 else (v // 128 + 1) * 128
-        self.tree = ParamTree(self._param_shapes()).to_empty(
-            device=self.device)
+        shapes = self._param_shapes()
+        self.full_shapes = T.tree_map(lambda a: tuple(a.shape), shapes)
+        self.specs = rules.param_specs(shapes, mesh, self.run)
+        if mesh is not None:
+            shapes = rules.map_with_path(lambda path, a, spec: a.new_empty(
+                rules.local_shape(a.shape, spec, mesh)), shapes, self.specs)
+        self.tree = ParamTree(shapes).to_empty(device=self.device)
+        self.vocab_split = mesh is not None and \
+            self.specs["embed"][:1] == ("model",)
 
     # ------------------------------------------------------------------ init
     def _param_shapes(self) -> Dict:
@@ -141,7 +195,14 @@ class Model(nn.Module):
         """Fill the parameters in place from `generator` (which must live on
         the model's device), or from a new one seeded with `seed`. Weights
         are drawn straight onto the device, leaf by leaf and layer by layer,
-        and stored in `param_dtype`."""
+        and stored in `param_dtype`.
+
+        Over a mesh that splits some leaf, each rank draws its own blocks
+        (``_init_blocks``) and never builds a whole tensor; where no leaf is
+        split the weights are the one-device model's for `seed`."""
+        if self.mesh is not None and self.full_shapes != T.tree_map(
+                lambda a: tuple(a.shape), self.params):
+            return self._init_blocks(seed)
         if generator is None:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(seed)
@@ -177,6 +238,41 @@ class Model(nn.Module):
             T.fill_encdec(params["layers"], generator, cfg)
         return self
 
+    def _init_blocks(self, seed: int) -> "Model":
+        """Every leaf's block drawn on the device by a generator seeded by
+        (seed, the leaf's path, the block's place): ranks that hold the same
+        block (a leaf replicated over an axis) draw the same values. The
+        draw is the one-device init's (truncated normal at 1/sqrt of the
+        whole leaf's fan-in, ones for the norms, zeros for the VLM's gates),
+        not its values. A family with leaves outside that table (FSDP of the
+        ssm, hybrid and audio families) draws the whole model once and keeps
+        its blocks."""
+        flat, specs = _flat(self.params), _flat(self.specs)
+        full = _flat(self.full_shapes)
+        kinds = {path: _leaf_init(path, full[path]) for path in flat}
+        if None in kinds.values():
+            whole = Model(self.cfg, self.run, self.device).init(seed=seed)
+            for path, t in _flat(whole.params).items():
+                flat[path].copy_(rules.shard_tensor(t, specs[path],
+                                                    self.mesh))
+            return self
+        generator = torch.Generator(device=self.device)
+        for path, t in flat.items():
+            kind = kinds[path]
+            spec = specs[path]
+            place = [(i, rules.block_index(self.mesh, e))
+                     for i, e in enumerate(spec) if e is not None]
+            generator.manual_seed(zlib.crc32(f"{seed}:{path}:{place}"
+                                             .encode()))
+            if kind == "ones":
+                t.fill_(1.0)
+            elif kind == "zeros":
+                t.zero_()
+            else:
+                t.copy_(L.dense_init(generator, t.shape, in_axis_size=kind,
+                                     dtype=t.dtype, device=t.device))
+        return self
+
     @property
     def params(self) -> Dict:
         """The parameters as the nested dict the layer functions take."""
@@ -205,20 +301,52 @@ class Model(nn.Module):
         return torch.as_tensor(batch[name]).to(self.device,
                                                self.compute_dtype)
 
+    def _vocab_mesh(self):
+        """The mesh where 'model' splits the vocabulary, else None."""
+        return self.mesh if self.vocab_split else None
+
     def _embed(self, params, tokens):
-        return L.embed(params["embed"], tokens, self.compute_dtype)
+        return L.embed(params["embed"], tokens, self.compute_dtype,
+                       self._vocab_mesh())
 
     def _logits(self, params, x):
         x = L.rms_norm(x, params["norm"], self.cfg.norm_eps)
         head = params["embed"] if self.cfg.tie_embeddings else params["head"]
-        lg = L.logits(head, x)
-        if self.padded_vocab != self.cfg.vocab_size:
-            lg[..., self.cfg.vocab_size:] = -1e30
+        lg = L.logits(head, x, self._vocab_mesh())
+        # the padded columns, in this rank's block of the vocabulary
+        start = C.axis_index(self._vocab_mesh(), "model") * lg.shape[-1]
+        pad = max(self.cfg.vocab_size - start, 0)
+        if pad < lg.shape[-1]:
+            lg[..., pad:] = -1e30
         return lg
+
+    def _cross_entropy(self, lg, labels):
+        return L.cross_entropy(lg, labels, mesh=self.mesh,
+                               vocab_split=self.vocab_split)
+
+    def _gathered(self, params):
+        """`params` with the leaves ``fsdp_params`` split over 'data'
+        all-gathered (differentiably: the backward reduce-scatters their
+        gradients); ``fsdp_experts``' expert leaves stay split, gathered
+        per layer by the MoE."""
+        if self.mesh is None or C.axis_size(self.mesh, "data") == 1:
+            return params
+
+        def one(path, t, spec):
+            if path[-1] in EXPERT_LEAVES and self.run.fsdp_experts:
+                return t
+            for dim, entry in enumerate(spec):
+                if entry == "data":
+                    return C.all_gather(t, self.mesh, "data", dim)
+            return t
+
+        return rules.map_with_path(one, params, self.specs)
 
     @torch.no_grad()
     def forward(self, batch) -> torch.Tensor:
-        """Full-sequence forward -> logits (B, S, padded_vocab)."""
+        """Full-sequence forward -> logits (B, S, padded_vocab); over a mesh,
+        this rank's block (B / dp, S, padded_vocab / M where 'model' splits
+        the vocabulary)."""
         return self._forward(self.params, batch)
 
     def loss_fn(self, batch, params: Optional[Dict] = None):
@@ -234,10 +362,10 @@ class Model(nn.Module):
         for an MTP block also "mtp", which the reference computes and does
         not report. aux is 0 for the dense, ssm and hybrid families."""
         cfg = self.cfg
-        params = self.params if params is None else params
+        params = self._gathered(self.params if params is None else params)
         h, aux = self._hidden(params, batch)
         labels = torch.as_tensor(batch["labels"]).to(self.device).long()
-        ce = L.cross_entropy(self._logits(params, h), labels)
+        ce = self._cross_entropy(self._logits(params, h), labels)
         metrics = {"ce": ce.detach(), "aux": aux.detach()}
         loss = ce
         if cfg.moe is not None:
@@ -259,11 +387,13 @@ class Model(nn.Module):
         nxt = self._embed(params, tokens[:, 1:])
         x = torch.cat([hn, nxt], dim=-1) @ mp["proj"].to(hn.dtype)
         x, _ = T.block(mp["block"], x, cfg, run, kind="moe",
-                       positions=torch.arange(x.shape[1], device=self.device))
+                       positions=torch.arange(x.shape[1], device=self.device),
+                       mesh=self.mesh)
         lg = self._logits(params, x)
-        return L.cross_entropy(lg[:, :-1], labels[:, 2:])
+        return self._cross_entropy(lg[:, :-1], labels[:, 2:])
 
     def _forward(self, params, batch) -> torch.Tensor:
+        params = self._gathered(params)
         return self._logits(params, self._hidden(params, batch)[0])
 
     def _hidden(self, params, batch):
@@ -272,17 +402,18 @@ class Model(nn.Module):
         tokens = self._tokens(batch)
         x = self._embed(params, tokens)
         positions = torch.arange(tokens.shape[1], device=self.device)
-        cfg, run = self.cfg, self.run
+        cfg, run, mesh = self.cfg, self.run, self.mesh
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         if cfg.family == "dense":
             x, aux = T.stack(params["layers"], x, cfg, run, kind="dense",
-                             positions=positions)
+                             positions=positions, mesh=mesh)
         elif cfg.family == "moe":
             if "dense_layers" in params:
                 x, _ = T.stack(params["dense_layers"], x, cfg, run,
-                               kind="dense", positions=positions)
+                               kind="dense", positions=positions, mesh=mesh,
+                               d_ff=cfg.moe.d_ff_dense)
             x, aux = T.stack(params["layers"], x, cfg, run, kind="moe",
-                             positions=positions)
+                             positions=positions, mesh=mesh)
         elif cfg.family == "ssm":
             x = T.rwkv_stack(params["layers"], x, cfg, run)
         elif cfg.family == "hybrid":
@@ -290,7 +421,7 @@ class Model(nn.Module):
                                positions=positions)
         elif cfg.family == "vlm":
             x = T.vlm_stack(params["layers"], x, self._extra(batch, "media"),
-                            cfg, run, positions=positions)
+                            cfg, run, positions=positions, mesh=mesh)
         else:
             x = T.encdec_apply(params["layers"], self._extra(batch, "frames"),
                                x, cfg, run, positions=positions)
@@ -367,6 +498,7 @@ class Model(nn.Module):
         and v in the compute dtype even under ``kv_cache_dtype="int8"``
         (no scales), so decode after a prefill takes the compute-dtype
         branch."""
+        self._refuse_sharded_serving()
         tokens = self._tokens(batch)
         B, S = tokens.shape
         cfg, run = self.cfg, self.run
@@ -401,6 +533,7 @@ class Model(nn.Module):
     def decode_step(self, batch, caches):
         """One token for every sequence in the batch -> (logits (B, 1, V),
         caches). The caches are updated in place and handed back."""
+        self._refuse_sharded_serving()
         params = self.params
         tokens = self._tokens(batch)                     # (B, 1)
         x = self._embed(params, tokens)
@@ -431,14 +564,48 @@ class Model(nn.Module):
         return self._logits(params, x), caches
 
 
+    def _refuse_sharded_serving(self):
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "prefill and decode over a mesh: sharded decode with the "
+                "caches of rules.cache_specs (ROADMAP.md, Queue 1, item 7b)")
+
+
+def _flat(tree, prefix: str = "") -> Dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _leaf_init(path: str, shape) -> object:
+    """How the one-device init draws the leaf at `path` of whole `shape`:
+    "ones", "zeros", the fan-in of its truncated normal, or None where the
+    leaf is outside this table."""
+    *parents, name = path.split(".")
+    if name in NORM_LEAVES:
+        return "ones"
+    if name == "gate" and parents and parents[-1] == "attn":
+        return "zeros"                   # the VLM's tanh gate
+    if name in ("embed", "head"):
+        return shape[-1]
+    if name in ("wq", "wk", "wv", "w_gate", "w_up"):
+        return shape[-3]                 # d, or the expert count
+    if name == "wo" and len(shape) >= 3:
+        return shape[-3] * shape[-2]
+    if name in ("gate", "up", "down", "router", "w_down", "proj"):
+        return shape[-2]
+    return None
+
+
 def build_model(cfg: ModelConfig, run: Optional[RunConfig] = None, *,
                 device: Optional[Union[str, torch.device]] = None,
                 seed: int = 0) -> Model:
     """A model on `device` (None: the GPU) with weights drawn from `seed`."""
     return Model(cfg, run, device=device).init(seed=seed)
-
-
-EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 
 
 def analytic_param_count(cfg: ModelConfig, active_only: bool = False) -> int:

@@ -21,16 +21,27 @@ k rows; on an H100 it gave the same bits on every backward pass
 bit-exact resume of olmoe-1b-7b at full width), so the dispatch needs no
 other form for training.
 
-The expert-parallel paths of the reference (``moe_ep``, ``moe_ep_a2a``)
-run over a mesh of devices and are not ported yet (ROADMAP.md, Queue 1).
+Over a mesh (``launch.mesh``), ``moe(params, x, cfg, run, mesh)``
+dispatches as the reference's does: ``moe_ep`` (experts over 'model', a
+local dispatch of the tokens every model rank holds, the combine
+all-reduced over 'model') or ``moe_ep_a2a`` (experts over 'model' x
+'data', the tokens sent to their expert's data rank and back by two
+all-to-alls). Both keep the reference's static capacity, C from T, top_k
+and ``capacity_factor``, where the single-device ``moe`` sizes each
+group by its largest count: under the rank-alone transport a count would
+be read from zeros, and static shapes make a rank's peak what it is among
+its peers. Their combines, like ``moe``'s, put each choice's output in
+its own row and sum a token's k rows. The aux loss is the whole batch's
+(``route`` over the mesh).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.configs.base import ModelConfig, MoEConfig, RunConfig
 from repro_torch.models import layers as L
+from repro_torch.sharding import collectives as C
 
 
 # ---------------------------------------------------------------------------
@@ -94,20 +105,33 @@ def fill_moe(p, generator, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def route(router_w, x, m: MoEConfig):
+def route(router_w, x, m: MoEConfig, mesh=None):
     """x: (T, d) -> gates (T, k) renormalised, in x's dtype; idx (T, k);
     aux, the switch-style load-balance loss E * sum(frac_e * mean_prob_e)
     over the first choice, float32. The softmax is taken in float32. As in
     the reference, aux's gradient flows through the mean probabilities
-    only: frac is a count of first choices, off the graph."""
+    only: frac is a count of first choices, off the graph.
+
+    Over a mesh whose batch axes split the tokens, the counts and the
+    probabilities' sums are summed over those axes first, so that aux is
+    the whole batch's, as on one device. (The reference's expert-parallel
+    paths average each rank's aux instead, which differs from its own
+    one-device loss.)"""
     logits = x @ router_w.to(x.dtype)
     probs = torch.softmax(logits.float(), dim=-1)
     gates, idx = torch.topk(probs, m.top_k, dim=-1)
     gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
     E = m.n_experts
-    frac = torch.bincount(idx[:, 0], minlength=E).float() / x.shape[0]
-    aux = E * torch.sum(frac * probs.mean(0))
-    return gates.to(x.dtype), idx, aux
+    axes = () if mesh is None else mesh.normalise(("pod", "data"))
+    if not axes:
+        frac = torch.bincount(idx[:, 0], minlength=E).float() / x.shape[0]
+        aux = E * torch.sum(frac * probs.mean(0))
+        return gates.to(x.dtype), idx, aux
+    n = x.shape[0] * mesh.size(axes)
+    counts = C.reduce_(torch.bincount(idx[:, 0], minlength=E).float(), mesh,
+                       axes)
+    mprob = C.all_reduce(probs.sum(0), mesh, axes) / n
+    return gates.to(x.dtype), idx, E * torch.sum(counts / n * mprob)
 
 
 # ---------------------------------------------------------------------------
@@ -243,8 +267,29 @@ class _GatherSlots(torch.autograd.Function):
         return gx, None, None, None
 
 
-def moe(params, x, cfg: ModelConfig):
-    """x: (B, S, d) -> (out, aux): ``moe_dense``'s function, dropless.
+def moe(params, x, cfg: ModelConfig, run: RunConfig = None, mesh=None):
+    """x: (B, S, d) -> (out, aux). With no mesh (or one without a 'model'
+    axis) ``moe_local``; over a mesh with one, ``moe_ep_a2a`` or
+    ``moe_ep`` as ``cfg.moe.impl`` names them (the reference's dispatch).
+    impl "dense" over a 'model' axis above 1 raises (ROADMAP.md item 7b);
+    over one of size 1 it is ``moe_local``."""
+    if mesh is not None and "model" in mesh.axis_names:
+        if cfg.moe.impl == "ep_a2a":
+            return moe_ep_a2a(params, x, cfg, run, mesh)
+        if cfg.moe.impl == "ep_tp":
+            return moe_ep(params, x, cfg, run, mesh)
+        if C.axis_size(mesh, "model") > 1:
+            raise NotImplementedError(
+                f"MoE impl {cfg.moe.impl!r} over a 'model' axis of "
+                f"{C.axis_size(mesh, 'model')}: only 'ep_tp' and 'ep_a2a' "
+                "split the experts (ROADMAP.md, Queue 1, item 7b)")
+    return moe_local(params, x, cfg, mesh)
+
+
+def moe_local(params, x, cfg: ModelConfig, mesh=None):
+    """x: (B, S, d) -> (out, aux): ``moe_dense``'s function, dropless (over
+    a mesh without a 'model' axis: on this rank's tokens, with the whole
+    batch's aux).
 
     The capacity dispatch of ``_dispatch_local`` over all experts, taken
     group by group (``_expert_groups``): each group of consecutive experts
@@ -263,7 +308,7 @@ def moe(params, x, cfg: ModelConfig):
     B, S, d = x.shape
     T, k, E = B * S, m.top_k, m.n_experts
     xt = x.reshape(T, d)
-    gates, idx, aux = route(params["router"], xt, m)
+    gates, idx, aux = route(params["router"], xt, m, mesh)
     order, e_s, rank, counts = _sort_choices(idx.reshape(-1), E)
     tok = order // k                                # the choice's token
     y = torch.empty((T * k, d), dtype=x.dtype, device=x.device)
@@ -281,4 +326,155 @@ def moe(params, x, cfg: ModelConfig):
     out = (y * gates[..., None]).sum(dim=1).reshape(B, S, d)
     if m.n_shared_experts:
         out = out + L.mlp(params["shared"], x, "swiglu")
+    return out, aux
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism over a mesh (the reference's moe_ep, moe_ep_a2a)
+# ---------------------------------------------------------------------------
+
+
+def _experts(params, m: MoEConfig, mesh):
+    """(w_gate, w_up, w_down, split): this rank's experts, their ff gathered
+    over 'data' where ``fsdp_experts`` split it (backward: the gradient
+    reduce-scattered back), and whether 'model' splits the experts."""
+    wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
+    if wg.shape[-1] != m.d_ff_expert:
+        wg = C.all_gather(wg, mesh, "data", wg.dim() - 1)
+        wu = C.all_gather(wu, mesh, "data", wu.dim() - 1)
+        wd = C.all_gather(wd, mesh, "data", wd.dim() - 2)
+    return wg, wu, wd, wg.shape[0] != m.n_experts
+
+
+def _shared(params, x, cfg: ModelConfig, mesh):
+    m = cfg.moe
+    if not m.n_shared_experts:
+        return 0.0
+    return L.mlp(params["shared"], x, "swiglu", mesh,
+                 d_ff=m.d_ff_expert * m.n_shared_experts)
+
+
+def _combine(rows, choice, gates, T: int, k: int):
+    """sum_j gates[t, j] * rows of choice t * k + j: each choice's row put
+    in its own place (`choice` -1 for an empty slot), summed over k in a
+    fixed order."""
+    d = rows.shape[-1]
+    y = rows.new_zeros((T * k + 1, d))
+    y[torch.where(choice >= 0, choice, T * k)] = rows
+    y = y[:-1].view(T, k, d)
+    return (y * gates[..., None]).sum(dim=1)
+
+
+def moe_ep(params, x, cfg: ModelConfig, run: RunConfig, mesh):
+    """Expert parallelism over 'model' (the reference's ``moe_ep``): x
+    (B_l, S, d), this rank's batch, replicated over 'model'; each model
+    rank holds E / M experts and dispatches every token's choices of them
+    into (E / M, C, d) capacity buffers, C = T * top_k * capacity_factor
+    / E. The combine is all-reduced over 'model', where a dense MLP's
+    output would be too."""
+    m = cfg.moe
+    B_l, S, d = x.shape
+    T, k = B_l * S, m.top_k
+    xt = x.reshape(T, d)
+    gates, idx, aux = route(params["router"], xt, m, mesh)
+    wg, wu, wd, split = _experts(params, m, mesh)
+    E_local = wg.shape[0]
+    e_lo = C.axis_index(mesh, "model") * E_local if split else 0
+    if split:
+        xt = C.enter_split(xt, mesh, "model")
+        gates = C.enter_split(gates, mesh, "model")
+    cap = max(1, int(T * k * m.capacity_factor / m.n_experts))
+    n = E_local * cap
+    le = idx.reshape(-1) - e_lo
+    key = torch.where((le >= 0) & (le < E_local), le,
+                      torch.full_like(le, E_local))
+    order, k_s, rank, _ = _sort_choices(key, E_local)
+    valid = (k_s < E_local) & (rank < cap)
+    dest = torch.where(valid, k_s * cap + rank, torch.full_like(rank, n))
+    choice = torch.full((n + 1,), -1, dtype=torch.long, device=x.device)
+    choice[dest] = order
+    choice = choice[:n]
+    xb = xt[(choice // k).clamp(min=0)].masked_fill((choice < 0)[:, None], 0)
+    yb = _local_expert_ffn(wg, wu, wd, xb.view(E_local, cap, d))
+    out = _combine(yb.view(n, d), choice, gates, T, k)
+    if split:
+        out = C.all_reduce(out, mesh, "model")
+    out = out.reshape(B_l, S, d) + _shared(params, x, cfg, mesh)
+    return out, aux
+
+
+def moe_ep_a2a(params, x, cfg: ModelConfig, run: RunConfig, mesh):
+    """DeepSeek-style expert parallelism over 'model' x 'data' (the
+    reference's ``moe_ep_a2a``): E / (M D) experts a rank, expert e on
+    model rank e // (D E_l) and data rank (e // E_l) % D. This rank holds
+    the rules' block of E / M experts (replicated over 'data') and runs its
+    data rank's E_l of them. The choices of this model rank's experts go
+    to their data rank in (D, C_send, d) buffers by an all-to-all over
+    'data', their metadata as float32 beside them; the expert outputs come
+    back by a second, and the combine is all-reduced over 'model'."""
+    m = cfg.moe
+    B_l, S, d = x.shape
+    T, k = B_l * S, m.top_k
+    xt = x.reshape(T, d)
+    gates, idx, aux = route(params["router"], xt, m, mesh)
+    wg, wu, wd, split = _experts(params, m, mesh)
+    M, D = C.axis_size(mesh, "model"), C.axis_size(mesh, "data")
+    if m.n_experts % (M * D):
+        raise ValueError(f"{m.n_experts} experts over model x data "
+                         f"({M} x {D})")
+    E_local = m.n_experts // (M * D)
+    m_idx, d_idx = C.axis_index(mesh, "model"), C.axis_index(mesh, "data")
+    lo = (m_idx * D + d_idx) * E_local - (m_idx * D * E_local if split
+                                          else 0)
+    wg, wu, wd = (w[lo:lo + E_local] for w in (wg, wu, wd))
+    if M > 1:
+        xt = C.enter_split(xt, mesh, "model")
+        gates = C.enter_split(gates, mesh, "model")
+    per_m = D * E_local
+    le = idx - m_idx * per_m
+    mine = (le >= 0) & (le < per_m)
+    owner = torch.where(mine, le // E_local, torch.full_like(le, D))
+    slot = torch.where(mine, le % E_local, torch.zeros_like(le))
+    c_send = max(1, int(T * k * m.capacity_factor / (D * M)))
+    order, dst_s, rank, _ = _sort_choices(owner.reshape(-1), D)
+    t_s = order // k
+    valid = (dst_s < D) & (rank < c_send)
+    n_send = D * c_send
+    dest = torch.where(valid, dst_s * c_send + rank,
+                       torch.full_like(rank, n_send))
+    send_x = xt.new_zeros((n_send + 1, d))
+    send_x[dest] = xt[t_s] * valid[:, None]
+    meta = torch.stack([(t_s + 1).float(), slot.reshape(-1)[order].float()],
+                       dim=-1) * valid[:, None]
+    send_meta = meta.new_zeros((n_send + 1, 2))
+    send_meta[dest] = meta
+    recv_x = C.all_to_all(send_x[:-1].view(D, c_send, d), mesh, "data")
+    with torch.no_grad():
+        recv_meta = C.all_to_all(send_meta[:-1].view(D, c_send, 2), mesh,
+                                 "data").reshape(n_send, 2)
+    rx = recv_x.reshape(n_send, d)
+    rsrc = recv_meta[:, 0].long() - 1
+    rslot = recv_meta[:, 1].long()
+    c_loc = min(max(1, n_send // max(E_local, 1)), n_send)
+    n_loc = E_local * c_loc
+    key = torch.where(rsrc >= 0, rslot, torch.full_like(rslot, E_local))
+    order2, k_s, rank2, _ = _sort_choices(key, E_local)
+    valid2 = (k_s < E_local) & (rank2 < c_loc)
+    dest2 = torch.where(valid2, k_s * c_loc + rank2,
+                        torch.full_like(rank2, n_loc))
+    xb = rx.new_zeros((n_loc + 1, d))
+    xb[dest2] = rx[order2] * valid2[:, None]
+    yb = _local_expert_ffn(wg, wu, wd, xb[:-1].view(E_local, c_loc, d))
+    # the expert outputs back in the received layout, then to their source
+    rows = torch.cat([yb.reshape(n_loc, d), yb.new_zeros((1, d))])[dest2]
+    y_flat = rows.new_zeros((n_send + 1, d))
+    y_flat[torch.where(valid2, order2, torch.full_like(order2, n_send))] = \
+        rows
+    y_back = C.all_to_all(y_flat[:-1].view(D, c_send, d), mesh, "data")
+    back = torch.cat([y_back.reshape(n_send, d), y_back.new_zeros((1, d))])
+    choice = torch.where(valid, order, torch.full_like(order, -1))
+    out = _combine(back[dest], choice, gates, T, k)
+    if M > 1:
+        out = C.all_reduce(out, mesh, "model")
+    out = out.reshape(B_l, S, d) + _shared(params, x, cfg, mesh)
     return out, aux

@@ -18,6 +18,10 @@ wraps the bodies that the reference wraps in ``remat_wrap`` (``layer_fn``):
 the dense and MoE blocks, the RWKV6 layer, the Mamba2 block, the VLM's
 self-attention blocks and the decoder layer of the encoder-decoder; the
 hybrid's shared block and the VLM's cross block run unwrapped, as there.
+
+The decoder, MoE and VLM stacks take ``mesh=``: each layer's blocks are
+then this rank's (``sharding.rules``), and attention, the MLP and the MoE
+write their collectives out (``attention``, ``layers``, ``moe``).
 """
 from __future__ import annotations
 
@@ -88,28 +92,34 @@ def init_block(generator, cfg: ModelConfig, kind: str = "dense",
     return p
 
 
-def _ffn(params, h, cfg: ModelConfig, kind: str):
+def _ffn(params, h, cfg: ModelConfig, kind: str, run=None, mesh=None,
+         d_ff=None):
     """(the block's MLP or MoE of h, the MoE's aux loss or 0)."""
     if kind == "moe":
-        return M.moe(params["moe"], h, cfg)
-    return L.mlp(params["mlp"], h, cfg.mlp_kind), \
+        return M.moe(params["moe"], h, cfg, run, mesh)
+    return L.mlp(params["mlp"], h, cfg.mlp_kind, mesh, d_ff or cfg.d_ff), \
         torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def block(params, x, cfg: ModelConfig, run: RunConfig, *, kind="dense",
-          positions=None, causal=True, media_kv=None):
+          positions=None, causal=True, media_kv=None, mesh=None, d_ff=None):
     """One transformer block. Returns (x, aux_loss). A cross block attends
-    to `media_kv`, the (k, v) of ``attention.cross_attn_kv``."""
+    to `media_kv`, the (k, v) of ``attention.cross_attn_kv``. `d_ff` is
+    the whole MLP width (default cfg.d_ff), which tells a block of it under
+    a mesh."""
     h = L.rms_norm(x, params["ln1"], cfg.norm_eps)
     if kind == "cross":
-        h = A.cross_attn(params["attn"], h, media_kv, run)
+        h = A.cross_attn(params["attn"], h, media_kv, run, cfg=cfg,
+                         mesh=mesh)
+    elif _mla(cfg):
+        h = A.mla(params["attn"], h, cfg, run, positions=positions,
+                  causal=causal)
     else:
-        attn = A.mla if _mla(cfg) else A.gqa
-        h = attn(params["attn"], h, cfg, run, positions=positions,
-                 causal=causal)
+        h = A.gqa(params["attn"], h, cfg, run, positions=positions,
+                  causal=causal, mesh=mesh)
     x = x + h
     h, aux = _ffn(params, L.rms_norm(x, params["ln2"], cfg.norm_eps), cfg,
-                  kind)
+                  kind, run, mesh, d_ff)
     return x + h, aux
 
 
@@ -259,13 +269,14 @@ def layer_fn(fn, run: RunConfig):
     return remat_wrap(fn, run.remat if run.scan_layers else "nothing")
 
 
-def stack(params, x, cfg, run, *, kind="dense", positions=None, causal=True):
+def stack(params, x, cfg, run, *, kind="dense", positions=None, causal=True,
+          mesh=None, d_ff=None):
     """Run x through a stacked block group -> (x, summed aux)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     layer = layer_fn(block, run)
     for lp in layer_params(params, n_stacked(params)):
         x, aux = layer(lp, x, cfg, run, kind=kind, positions=positions,
-                       causal=causal)
+                       causal=causal, mesh=mesh, d_ff=d_ff)
         aux_total = aux_total + aux
     return x, aux_total
 
@@ -465,7 +476,7 @@ def fill_vlm(params, generator, cfg: ModelConfig):
     return params
 
 
-def vlm_stack(params, x, media, cfg, run, *, positions=None):
+def vlm_stack(params, x, media, cfg, run, *, positions=None, mesh=None):
     """x (B, S, d) through the groups; media (B, M, d) in x's dtype. The
     self-attention blocks run under `run.remat`, the cross block
     unwrapped."""
@@ -475,9 +486,10 @@ def vlm_stack(params, x, media, cfg, run, *, positions=None):
     layer = layer_fn(block, run)
     for g, cp in enumerate(layer_params(crossp, G)):
         for lp in selfs[g * n_self:(g + 1) * n_self]:
-            x, _ = layer(lp, x, cfg, run, kind="dense", positions=positions)
-        x, _ = block(cp, x, cfg, run, kind="cross",
-                     media_kv=A.cross_attn_kv(cp["attn"], media))
+            x, _ = layer(lp, x, cfg, run, kind="dense", positions=positions,
+                         mesh=mesh)
+        x, _ = block(cp, x, cfg, run, kind="cross", mesh=mesh,
+                     media_kv=A.cross_attn_kv(cp["attn"], media, cfg, mesh))
     return x
 
 

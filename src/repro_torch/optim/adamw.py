@@ -13,6 +13,12 @@ Memory layout:
     stored params: RunConfig.param_dtype  (the compute copy)
     master:        float32 copy iff a param is not float32 (keep_master)
     m, v:          moment_dtype (float32, or bfloat16 to halve them)
+
+Over a mesh (``train/step.py``) the moments and the master are this
+rank's blocks of ``rules.opt_state_specs`` (ZeRO-1: split over 'data' and
+'pod' besides the parameter's own split), ``init_adamw`` makes them from
+the blocks it is given, and ``adamw_update`` runs on the blocks with the
+norm of the whole gradient (``global_norm`` over the mesh) handed in.
 """
 from __future__ import annotations
 
@@ -66,28 +72,58 @@ def _laid_out(node, it):
     return next(it)
 
 
-def init_adamw(params: Dict, cfg: AdamWConfig) -> OptState:
+def init_adamw(params: Dict, cfg: AdamWConfig,
+               blocks: Optional[Dict] = None) -> OptState:
     """Zeroed moments beside each parameter, and a float32 master when a
-    parameter is stored in lower precision (and cfg.keep_master)."""
+    parameter is stored in lower precision (and cfg.keep_master). Over a
+    mesh, `blocks` (a tree like `params`) holds this rank's block of each
+    parameter under ZeRO-1, and the state is made beside the blocks."""
     mdt = resolve_dtype(cfg.moment_dtype)
+    src = params if blocks is None else blocks
     with torch.no_grad():
-        m = tree_map(lambda p: torch.zeros_like(p, dtype=mdt), params)
-        v = tree_map(lambda p: torch.zeros_like(p, dtype=mdt), params)
+        m = tree_map(lambda p: torch.zeros_like(
+            p, dtype=mdt, memory_format=torch.contiguous_format), src)
+        v = tree_map(lambda p: torch.zeros_like(
+            p, dtype=mdt, memory_format=torch.contiguous_format), src)
         master = None
         if cfg.keep_master and any(p.dtype != torch.float32
                                    for p in leaves(params)):
-            master = tree_map(lambda p: p.detach().float().clone(), params)
+            master = tree_map(lambda p: p.detach().float().contiguous()
+                              .clone(), src)
     return OptState(torch.zeros((), dtype=torch.int32), m, v, master)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32, on the
     leaves' device, as the reference sums them. (Not
     ``torch.linalg.vector_norm``: in float32 on the CPU it loses 2e-4 of
     the norm over 8e6 elements and 7 % over a 102400 x 4096 embedding,
-    where ``torch.sum`` stays within 1e-7.)"""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in leaves(tree)))
+    where ``torch.sum`` stays within 1e-7.)
+
+    Over a mesh, each leaf is this rank's block under its spec (`specs`,
+    a tree like `tree`): the squares of the leaves split over the same
+    axes are summed and all-reduced over those axes, so that a split leaf
+    counts every block once and a replicated one counts once, not once a
+    copy."""
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in leaves(tree)))
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.rules import spec_axes
+    groups: Dict = {}
+    for x, spec in zip(leaves(tree), _spec_leaves(specs)):
+        axes = mesh.normalise(spec_axes(spec))
+        sq = torch.sum(torch.square(x.float()))
+        groups[axes] = groups[axes] + sq if axes in groups else sq
+    return torch.sqrt(sum(C.reduce_(total, mesh, axes)
+                          for axes, total in sorted(groups.items())))
+
+
+def _spec_leaves(specs) -> List:
+    """The specs of a spec tree in ``leaves`` order (a spec is a tuple)."""
+    if isinstance(specs, dict):
+        return [s for key in sorted(specs) for s in _spec_leaves(specs[key])]
+    return [specs]
 
 
 # Elements of one chunk of a leaf's update (256 MiB of float32): the
@@ -104,7 +140,8 @@ CHUNK = 1 << 26
 
 @torch.no_grad()
 def adamw_update(params: Dict, grads: Dict, state: OptState,
-                 cfg: AdamWConfig, lr_scale=1.0, *, chunk: int = CHUNK
+                 cfg: AdamWConfig, lr_scale=1.0, *, chunk: int = CHUNK,
+                 gnorm: Optional[torch.Tensor] = None
                  ) -> Tuple[Dict, OptState, Dict]:
     """One AdamW step, IN PLACE: returns (params, new state, metrics) with
     params, m, v and master the dicts given, their tensors updated.
@@ -114,13 +151,15 @@ def adamw_update(params: Dict, grads: Dict, state: OptState,
     the update computed in float32 from the master (when kept) and every
     new parameter cast to the dtype of the first leaf (the reference casts
     so; the port's parameters share one dtype, so this is each leaf's
-    own).
+    own). `gnorm`, when given, is the gradient's norm (a sharded step's,
+    over the mesh); otherwise it is taken here.
 
     Each leaf is updated over consecutive chunks of at most `chunk`
     elements of its flattened view, each chunk by the same elementwise
     arithmetic in the same order, so the bits do not depend on `chunk`;
     the reference's XLA step fuses the update and holds no temporary."""
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0) \
         if cfg.clip_norm else 1.0
     step = state.step + 1

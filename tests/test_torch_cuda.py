@@ -990,3 +990,82 @@ def test_f32_train_step_grows_by_16_bytes_a_parameter_a_layer(card):
           f"{peak[12] / 2 ** 30:.4f} GiB; growth {got / want:.4f} x 16 B a "
           f"parameter")
     assert abs(got - want) / want < 0.05
+
+
+def _gloo_rank(rank, store, conn):
+    """A rank of a two-rank gloo world on the one card: every collective of
+    the port on CUDA tensors, float32 and bfloat16, against the values the
+    ranks put in."""
+    from repro_torch.configs import MeshConfig
+    from repro_torch.launch.mesh import make_mesh, shutdown
+    from repro_torch.sharding import collectives as C
+    torch.cuda.set_device(0)
+    mesh = make_mesh(MeshConfig((1, 2), ("data", "model")), "gloo", "cuda",
+                     init_method=f"file://{store}", rank=rank, timeout_s=60)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.full((4, 6), float(rank + 1), device="cuda", dtype=dtype)
+        name = str(dtype)
+        out[name] = {
+            "all_reduce": C.all_reduce(x, mesh, "model")[0, 0].item(),
+            "all_gather": C.all_gather(x, mesh, "model", 1)[0].tolist(),
+            "reduce_scatter": C.reduce_scatter(x, mesh, "model",
+                                               0).sum().item(),
+            "all_to_all": C.all_to_all(
+                torch.stack([x[:2] * 10, x[2:]]), mesh, "model")[:, 0, 0]
+            .tolist(),
+            "ppermute": C.ppermute(x, mesh, "model")[0, 0].item()}
+    out["staged"] = C.stats()["host_staged"]["calls"]
+    conn.send(out)
+    shutdown(mesh)
+
+
+def test_collectives_over_gloo_on_the_card(card, tmp_path):
+    """Two ranks share the card over gloo: each collective gives the right
+    values on CUDA tensors; those gloo does not take there (ppermute, and
+    every collective of bfloat16) are staged through host memory."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    procs, conns = [], []
+    for rank in range(2):
+        parent, child = ctx.Pipe()
+        proc = ctx.Process(target=_gloo_rank, daemon=True, args=(
+            rank, str(tmp_path / "store"), child))
+        proc.start()
+        procs.append(proc)
+        conns.append(parent)
+    got = []
+    for conn in conns:
+        assert conn.poll(180), "a rank gave no answer"
+        got.append(conn.recv())
+    for proc in procs:
+        proc.join(60)
+        assert proc.exitcode == 0
+    for rank, out in enumerate(got):
+        for name in (str(torch.float32), str(torch.bfloat16)):
+            r = out[name]
+            assert r["all_reduce"] == 3.0
+            assert r["all_gather"] == [1.0] * 6 + [2.0] * 6
+            assert r["reduce_scatter"] == 3.0 * 12
+            # block j went to rank j: rank 0 gets the blocks of 10s
+            want = [10.0, 20.0] if rank == 0 else [1.0, 2.0]
+            assert r["all_to_all"] == want
+            assert r["ppermute"] == float(2 - rank)
+        assert out["staged"] > 0
+
+
+def test_a_rank_alone_steps_on_the_card(card):
+    """Rank 0 of a (1, 2) mesh run alone: its train step runs on the card
+    through the rmsnorm kernels, at half the heads, ff and vocabulary."""
+    from repro_torch.configs import MeshConfig, ShapeConfig
+    from repro_torch.launch.dryrun import build_step
+    from repro_torch.launch.mesh import Mesh
+    cfg = get_arch("deepseek-7b").reduced(d_model=256, n_heads=4,
+                                          n_kv_heads=4, d_head=64)
+    mesh = Mesh.alone(MeshConfig((1, 2), ("data", "model")), 0)
+    before = rmsnorm_backward.launches
+    build_step(cfg, ShapeConfig("train_64", 64, 2, "train"),
+               RunConfig(attn_impl="blocked", compute_dtype="float32"),
+               mesh=mesh)()
+    torch.cuda.synchronize()
+    assert rmsnorm_backward.launches > before

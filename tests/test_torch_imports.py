@@ -1,6 +1,7 @@
 """The PyTorch package, its examples and chip_smoke.py stand on their own:
 no import of jax or of the JAX package, no library attention or norm call,
-and no failure swallowed in chip_smoke.py."""
+no failure swallowed in chip_smoke.py, and no module of the package but
+sharding/collectives.py that calls torch.distributed."""
 import ast
 import subprocess
 import sys
@@ -76,6 +77,10 @@ def test_sources_are_found():
             "src/repro_torch/state/daemon.py",
             "src/repro_torch/state/sharding.py",
             "src/repro_torch/telemetry/trace_tool.py",
+            "src/repro_torch/sharding/collectives.py",
+            "src/repro_torch/sharding/rules.py",
+            "src/repro_torch/sharding/pipeline.py",
+            "src/repro_torch/launch/mesh.py",
             "examples/gpu_advisor_torch.py",
             "examples/serve_demo_torch.py",
             "benchmarks/torch_train_step_memory.py",
@@ -154,3 +159,29 @@ def test_chip_smoke_fails_without_a_card():
     assert proc.returncode != 0
     assert proc.stdout.strip() == ""
     assert "no CUDA device" in proc.stderr
+
+
+COLLECTIVES = PACKAGE / "sharding" / "collectives.py"
+
+
+def names_torch_distributed(path: Path) -> bool:
+    """Whether `path` imports torch.distributed or reaches it as an
+    attribute (``torch.distributed``, ``dist.`` after such an import)."""
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import) and any(
+                a.name.startswith("torch.distributed") for a in node.names):
+            return True
+        if isinstance(node, ast.ImportFrom) and node.module and (
+                node.module.startswith("torch.distributed") or
+                (node.module == "torch" and
+                 any(a.name == "distributed" for a in node.names))):
+            return True
+        if isinstance(node, ast.Attribute) and node.attr == "distributed":
+            return True
+    return False
+
+
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")),
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_only_the_collectives_module_calls_torch_distributed(path):
+    assert names_torch_distributed(path) == (path == COLLECTIVES), path

@@ -94,12 +94,12 @@ def tie_gaps(monkeypatch):
     gaps = []
     route = TM.route
 
-    def recording(router_w, x, m):
+    def recording(router_w, x, m, mesh=None):
         with torch.no_grad():
             probs = torch.softmax((x @ router_w.to(x.dtype)).float(), -1)
             top = torch.topk(probs, m.top_k + 1, dim=-1).values
             gaps.append(float((top[:, -2] - top[:, -1]).min()))
-        return route(router_w, x, m)
+        return route(router_w, x, m, mesh)
 
     monkeypatch.setattr(TM, "route", recording)
     return gaps
