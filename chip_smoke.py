@@ -50,12 +50,17 @@ traceback and a non-zero exit code; no failure is caught.
 The multi-device machinery (``repro_torch.sharding``, ``launch.mesh``):
 two ranks share the card over gloo, on (1, 2) and (2, 1), and run
 deepseek-7b's sharded forward and train step at full width (4 layers),
-olmoe-1b-7b's expert-parallel MoE layer and the GPipe pipeline against the
-one-device path on the same weights; rank 0's train step run alone
-(``Mesh.alone``) against its peak among its peers; and the planner over
-profile meshes, one rank of the job run alone on the card: deepseek-7b's
-float32 train step on (1, 2) at 30 layers, and llama-3.2-vision-90b's
-full AdamW step on (1, 8).
+olmoe-1b-7b's expert-parallel MoE layer and the GPipe pipeline, then serve
+(float32 prefill of 4 x 2048 tokens and 8 greedy ticks, on each rank's
+blocks of the weights and the caches) deepseek-7b, rwkv6-7b, zamba2-7b,
+whisper-small, deepseek-v3-671b's dense MLA layers and olmoe-1b-7b at full
+width, against the one-device path on the same weights; rank 0's train
+step and prefill run alone (``Mesh.alone``) against their peaks among the
+peers; and the planner over profile meshes, one rank of the job run alone
+on the card: deepseek-7b's float32 train step on (1, 2) at 30 layers,
+llama-3.2-vision-90b's full AdamW step on (1, 8), and mistral-large-123b's
+bf16 prefill on (1, 8) and decode of 32 x 32768 positions on (1, 16), each
+at its 88 layers.
 
 Phases, in order: env, kernels, parity, prefill, serve, train, planner,
 shard, allocate.
@@ -353,6 +358,71 @@ PLANNER_VLM = {"mesh": (1, 8), "measure_layers": 20}
 DEEPSEEK_TRAIN_30_GIB = 110.02
 SERVE_ARCHS = ("deepseek-7b", "rwkv6-7b", "zamba2-7b", "olmoe-1b-7b",
                "deepseek-v3-671b", "llama-3.2-vision-90b", "whisper-small")
+# (a) sharded serving on the two ranks: float32 prefill of B x S prompt
+# tokens (whisper-small: its text context of 448 over its 1500 frames) into
+# caches of S + ticks positions, then `ticks` greedy decode ticks, each fed
+# the one-device path's greedy token, against the one-device path on the
+# same weights: logits and each rank's blocks of the caches within
+# SHARD_GATES["logits"], every tick's greedy token equal. At full width:
+# deepseek-7b cut to SHARD_LAYERS (caches split on heads; also on (2, 1),
+# the batch split), rwkv6-7b to 2 layers (wo split on its layer axis, one
+# layer a rank), zamba2-7b to one group of 6 Mamba2 blocks and a shared
+# block, whisper-small whole, deepseek-v3-671b cut to its 3 dense MLA
+# layers (a dense model of MLA: latents split by positions), olmoe-1b-7b to
+# 2 layers (moe_ep at prefill and decode, capacity factor n_experts / top_k:
+# a capacity of T tokens an expert, which nothing can overflow). A
+# bfloat16 run of deepseek-7b is reported, not gated.
+SHARD_SERVE = {"batch": 4, "seq": 2048, "ticks": 8}
+SHARD_SERVE_S = {"whisper-small": 448}
+SHARD_SERVE_ARCHS = {(1, 2): ("deepseek-7b", "rwkv6-7b", "zamba2-7b",
+                              "whisper-small", "deepseek-v3-671b",
+                              "olmoe-1b-7b"),
+                     (2, 1): ("deepseek-7b",)}
+SHARD_SERVE_LAYERS = {"deepseek-7b": SHARD_LAYERS, "rwkv6-7b": 2,
+                      "zamba2-7b": 6, "olmoe-1b-7b": 2}
+# flash attention's instances on the shard phase's serving ranks and the
+# planner's mistral-large-123b rank, (use, arch, B, Sq, Skv, H, Hkv, D,
+# causal, dtype): a rank's heads of (1, 2), or deepseek-7b's rows of
+# (2, 1); mistral-large-123b's 12 query heads and 1 KV head of (1, 8). The
+# shard phase asserts that every launch of its serving runs has one of
+# these shapes (or the bf16 forward's 16-head one); the kernels phase holds
+# each against the plain version and times it, and the kernels line reads
+# each shape's count
+SHARD_FLASH = (
+    ("shard_deepseek_tp", "deepseek-7b", 4, 2048, 2048, 16, 16, 128, True,
+     "float32"),
+    ("shard_deepseek_dp", "deepseek-7b", 2, 2048, 2048, 32, 32, 128, True,
+     "float32"),
+    ("shard_zamba2_shared", "zamba2-7b", 4, 2048, 2048, 16, 16, 112, True,
+     "float32"),
+    ("shard_whisper_encoder", "whisper-small", 4, 1500, 1500, 6, 6, 64, False,
+     "float32"),
+    ("shard_whisper_self", "whisper-small", 4, 448, 448, 6, 6, 64, True,
+     "float32"),
+    ("shard_whisper_cross", "whisper-small", 4, 448, 1500, 6, 6, 64, False,
+     "float32"),
+    ("shard_whisper_cross_tick", "whisper-small", 4, 1, 1500, 6, 6, 64, False,
+     "float32"),
+    ("shard_mla", "deepseek-v3-671b", 4, 2048, 2048, 64, 64, 192, True,
+     "float32"),
+    ("shard_olmoe", "olmoe-1b-7b", 4, 2048, 2048, 8, 8, 128, True, "float32"),
+    ("planner_mistral", "mistral-large-123b", 4, 2048, 2048, 12, 1, 128, True,
+     "bfloat16"),
+)
+# wkv6 and ssd at a rank's heads of (1, 2), float32 as the serving runs
+# them: rwkv6-7b's prefill (32 of 64 heads) and decode tick, zamba2-7b's
+# prefill (56 of 112 heads); (name, shape)
+SHARD_RECURRENT = (("wkv6_shard", (4, 2048, 32, 64)),
+                   ("wkv6_shard_tick", (4, 1, 32, 64)),
+                   ("ssd_shard", (4, 2048, 56, 64, 64)))
+# (c) the planner over serving profile meshes: mistral-large-123b in
+# bfloat16 (88 layers, 246 GB of weights), its prefill of B=4, S=2048 on
+# (1, 8) (the heads split, 12 and 1 KV head a rank) and its decode of
+# B=32 over 32768 positions on (1, 16) (8 KV heads do not divide 16: the
+# cache split by positions, 2048 a rank), each over the planner's ladder,
+# predicted at 88 layers and measured there on rank 0 alone
+PLANNER_MISTRAL = {"prefill": {"mesh": (1, 8), "batch": 4, "seq": 2048},
+                   "decode": {"mesh": (1, 16), "batch": 32, "seq": 32768}}
 
 
 class SmokeFailure(RuntimeError):
@@ -932,22 +1002,27 @@ def phase_kernels(state):
         torch.cuda.empty_cache()
     # the VLM and enc-dec paths' instances (NEW_FLASH), bf16 at B = 4: key
     # lengths that end in a partial tile, a single query row, non-causal
-    # with Sq != Skv, and D = 64. k and v are views of buffers whose rows
-    # past Skv hold NaN: a kernel that read or weighed a key past the end
-    # of the tensor would put NaN in the output
-    for use, _, Sq, Skv, H, Hkv, D, causal in NEW_FLASH:
-        B = NEW_FLASH_B
-        q = randn((B, Sq, H, D), bf16)
-        k, v = (randn((B, Skv + 128, Hkv, D), bf16).index_fill_(
+    # with Sq != Skv, and D = 64; then the shard phase's ranks' and the
+    # planner's mistral-large-123b rank's (SHARD_FLASH), each in the dtype
+    # its path runs. k and v are views of buffers whose rows past Skv hold
+    # NaN: a kernel that read or weighed a key past the end of the tensor
+    # would put NaN in the output
+    instances = [(use, NEW_FLASH_B, Sq, Skv, H, Hkv, D, causal, bf16)
+                 for use, _, Sq, Skv, H, Hkv, D, causal in NEW_FLASH] + \
+        [(use, B, Sq, Skv, H, Hkv, D, causal, getattr(torch, dt))
+         for use, _, B, Sq, Skv, H, Hkv, D, causal, dt in SHARD_FLASH]
+    for use, B, Sq, Skv, H, Hkv, D, causal, dt in instances:
+        q = randn((B, Sq, H, D), dt)
+        k, v = (randn((B, Skv + 128, Hkv, D), dt).index_fill_(
             1, torch.arange(Skv, Skv + 128, device=dev), float("nan"))[:, :Skv]
             for _ in range(2))
         got = flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        err, ok = close(got, flash_attention_plain(q, k, v, causal=causal), bf16)
+        err, ok = close(got, flash_attention_plain(q, k, v, causal=causal), dt)
         checks.append({"kernel": "flash_attention", "use": use,
                        "shape": [B, Sq, Skv, H, Hkv, D], "causal": causal,
-                       "dtype": str(bf16), "nan_past_skv": True,
-                       "max_abs_err": err, "tol": TOL[bf16], "ok": ok})
+                       "dtype": str(dt), "nan_past_skv": True,
+                       "max_abs_err": err, "tol": TOL[dt], "ok": ok})
         qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
         t = time_in_turns({
             "ms": lambda: flash_attention(q, k, v, causal=causal),
@@ -960,10 +1035,10 @@ def phase_kernels(state):
         t["graph_ms"] = graph_ms(lambda: flash_attention(q, k, v, causal=causal))
         t["library_graph_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=Hkv != H))
-        bnd, by, flops = attn_bound(B, Sq, Skv, H, Hkv, D, causal, bf16)
+        bnd, by, flops = attn_bound(B, Sq, Skv, H, Hkv, D, causal, dt)
         timed.append({"name": "flash_attention", "use": use,
                       "shape": [B, Sq, Skv, H, Hkv, D], "causal": causal,
-                      "dtype": str(bf16), "max_abs_err": err, **t,
+                      "dtype": str(dt), "max_abs_err": err, **t,
                       "bound_ms": bnd, "bound_by": by,
                       "share_of_bound": bnd / t["ms"],
                       "tflops": flops / t["ms"] / 1e9})
@@ -991,10 +1066,14 @@ def phase_kernels(state):
                        "max_abs_err": err, "tol": TOL[f32], "ok": ok})
         del q, k, v, got
     # wkv6 at rwkv6-7b's prefill (B=4, S=2048, H=64, K=64) and decode step
-    # (B=8 slots, S=1, the state read and written in place)
-    for (B, S, dtype, with_state) in ((4, 2048, bf16, False), (4, 2048, f32, False),
-                                      (8, 1, bf16, True)):
-        H, K = 64, 64
+    # (B=8 slots, S=1, the state read and written in place), and at a
+    # rank's 32 heads of (1, 2): the shard phase's float32 prefill and tick
+    for (B, S, H, dtype, with_state) in ((4, 2048, 64, bf16, False),
+                                         (4, 2048, 64, f32, False),
+                                         (8, 1, 64, bf16, True),
+                                         (4, 2048, 32, f32, False),
+                                         (4, 1, 32, f32, True)):
+        K = 64
         r, k, v, lw, u = wkv_inputs(B, S, H, K, dtype, realistic=True)
         st = randn((B, H, K, K)) if with_state else None
         st0 = st.clone() if with_state else None
@@ -1026,9 +1105,10 @@ def phase_kernels(state):
                       "gflop": flops / 1e9, "gbytes": nbytes / 1e9,
                       "tflops": flops / t["ms"] / 1e9})
         del r, k, v, lw, y, st, st0, st_out
-    # ssd at zamba2-7b's prefill: B=4, S=2048, H=112, P=N=64, one group
-    for dtype in (bf16, f32):
-        B, S, H, P, N = 4, 2048, 112, 64, 64
+    # ssd at zamba2-7b's prefill: B=4, S=2048, H=112, P=N=64, one group,
+    # and at a rank's 56 heads of (1, 2), float32 as the shard phase runs it
+    for dtype, H in ((bf16, 112), (f32, 112), (f32, 56)):
+        B, S, P, N = 4, 2048, 64, 64
         inputs = ssd_inputs(B, S, H, P, N, dtype, groups=True, realistic=True)
         y, _ = ssd(*inputs)
         err = check_ssd((B, S, H, P, N), dtype, inputs, y, True)
@@ -2284,7 +2364,7 @@ def phase_train(state):
 
 
 def planner_job(state, arch, mode, run, kernels, n_layers=None,
-                anchor=None, seq=PLANNER_S, profile_mesh=None):
+                anchor=None, seq=PLANNER_S, profile_mesh=None, batch=None):
     """One job through HBMPlanner.plan on the card (the ladder profiled,
     fitted and selected for), then one step at the depth extrapolated to
     under CUDAMemoryProfiler: the prediction must be confident and within
@@ -2302,7 +2382,7 @@ def planner_job(state, arch, mode, run, kernels, n_layers=None,
     cfg = get_arch(arch)
     if n_layers is not None:
         cfg = replace(cfg, n_layers=n_layers)
-    B = PLANNER_TRAIN_B if mode == "train" else PLANNER_B
+    B = batch or (PLANNER_TRAIN_B if mode == "train" else PLANNER_B)
     shape = ShapeConfig(f"{mode}_{seq}", seq, B, mode)
     planner = HBMPlanner()
     gc.collect()
@@ -2315,6 +2395,7 @@ def planner_job(state, arch, mode, run, kernels, n_layers=None,
                                                     mesh=mesh),
                                          cfg.n_layers)
     counts, shapes = read_counts(), read_shapes()
+    state["planner_mistral_shapes"] = shapes["flash_attention"]
     GiB = 1024 ** 3
     pred = rep.model.predict(cfg.n_layers)
     rel = abs(pred - truth.job_mem_bytes) / truth.job_mem_bytes
@@ -2549,6 +2630,221 @@ def shard_references(state, ref_dir):
     return time.monotonic() - t0
 
 
+def serve_shard_cfgs():
+    """The shard phase's serving models, arch -> config (SHARD_SERVE): at
+    full width, cut as SHARD_SERVE_LAYERS says; olmoe-1b-7b's capacity
+    factor n_experts / top_k (each expert's capacity the tokens' count, so
+    that the static capacity of moe_ep drops nothing, as the one-device
+    dropless path does); deepseek-v3-671b's 3 leading dense layers as a
+    dense model of MLA layers."""
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    out = {}
+    for arch in ("deepseek-7b", "rwkv6-7b", "zamba2-7b", "whisper-small",
+                 "olmoe-1b-7b"):
+        cfg = get_arch(arch)
+        if arch in SHARD_SERVE_LAYERS:
+            cfg = replace(cfg, n_layers=SHARD_SERVE_LAYERS[arch])
+        out[arch] = cfg
+    m = out["olmoe-1b-7b"].moe
+    out["olmoe-1b-7b"] = replace(out["olmoe-1b-7b"], moe=replace(
+        m, capacity_factor=float(m.n_experts // m.top_k)))
+    v3 = get_arch("deepseek-v3-671b")
+    out["deepseek-v3-671b"] = replace(
+        v3, family="dense", moe=None, mtp_depth=0,
+        n_layers=v3.moe.first_dense_layers, d_ff=v3.moe.d_ff_dense)
+    return out
+
+
+def serve_shard_inputs(cfg, arch, seed, dev):
+    """The prompts (B, S) of `arch`'s serving job and whisper's frames,
+    drawn on the card from `seed`: the same in the parent and the ranks."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 21)
+    B, S = SHARD_SERVE["batch"], SHARD_SERVE_S.get(arch, SHARD_SERVE["seq"])
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                     device=dev)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((B, cfg.encdec.enc_len, cfg.d_model),
+                                      generator=gen, device=dev)
+    return batch
+
+
+def serve_step(arch, kind):
+    """The reference checkpoint's step of `arch`'s serving job (kind "f32"
+    or "bf16")."""
+    return 100 + 2 * sorted(serve_shard_cfgs()).index(arch) + \
+        (kind == "bf16")
+
+
+def greedy(lg, vocab):
+    """(values, indices) of each row's largest logit over the vocabulary's
+    first `vocab` columns of this block of them, (B, 1, V) -> (B,) each."""
+    lg = lg[:, -1, :vocab].float()
+    return lg.max(dim=-1)
+
+
+def serve_references(state, ref_dir):
+    """The one-device path of each serving job on its weights and prompts:
+    the prefill's logits and caches, SHARD_SERVE["ticks"] greedy ticks (the
+    token fed at tick t is the argmax of the logits before it) and the
+    caches after them, written as checkpoints (``serve_step``); whisper's
+    encoder output, which both paths' ticks attend to. deepseek-7b also in
+    bfloat16. Returns ({(arch, kind): the greedy tokens (ticks + 1, B)},
+    seconds)."""
+    from repro_torch.checkpoint.ckpt import save_checkpoint
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import encdec_encode, tree_map
+
+    dev = torch.device(SHARD_DEVICE)
+    runs = shard_runs()
+    t0 = time.monotonic()
+    tokens = {}
+    for arch, cfg in serve_shard_cfgs().items():
+        for kind in ("f32", "bf16") if arch == "deepseek-7b" else ("f32",):
+            model = Model(cfg, runs["forward" if kind == "f32" else "bf16"],
+                          dev).init(seed=state["seed"])
+            prompt = serve_shard_inputs(cfg, arch, state["seed"], dev)
+            S, ticks = prompt["tokens"].shape[1], SHARD_SERVE["ticks"]
+            extra = {}
+            if cfg.family == "audio":
+                extra["enc_out"] = encdec_encode(
+                    model.params["layers"],
+                    prompt["frames"].to(model.compute_dtype), cfg, model.run)
+            lg, caches = model.prefill(prompt, S + ticks)
+            out = {"prefill": lg, "caches": tree_map(torch.clone, caches)}
+            toks, logits = [greedy(lg, cfg.vocab_size)[1]], []
+            for t in range(ticks):
+                lg, caches = model.decode_step(
+                    {"tokens": toks[-1][:, None], **extra}, caches)
+                logits.append(lg)
+                toks.append(greedy(lg, cfg.vocab_size)[1])
+            out.update({"decode": torch.stack(logits),
+                        "tokens": torch.stack(toks)[:, :, None],
+                        "caches_after": caches, **extra})
+            save_checkpoint(ref_dir, serve_step(arch, kind), out)
+            tokens[(arch, kind)] = torch.stack(toks).cpu()
+            del model, out, caches, lg, logits, extra
+            gc.collect()
+            torch.cuda.empty_cache()
+    return tokens, time.monotonic() - t0
+
+
+def flatten(tree):
+    from repro_torch.convert import flatten_tree
+    return flatten_tree(tree)
+
+
+def serve_rank(mesh, shape, ref_dir, seed, counted):
+    """(a) on one rank: each serving job of `shape` (SHARD_SERVE_ARCHS),
+    float32 (and deepseek-7b's bfloat16 on (1, 2)), on this rank's blocks
+    of the one-device weights: the prefill of this rank's rows, its blocks
+    of the caches, then the ticks fed the reference's greedy tokens; each
+    against this rank's blocks of the reference. Returns {arch: record}."""
+    from repro_torch.convert import shard_params
+    from repro_torch.models.model import Model
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding import rules
+
+    dev = torch.device(SHARD_DEVICE)
+    runs = shard_runs()
+    cfgs = serve_shard_cfgs()
+    out = {}
+    jobs = [(arch, "f32") for arch in SHARD_SERVE_ARCHS[shape]]
+    if shape == (1, 2):
+        jobs.append(("deepseek-7b", "bf16"))
+    for arch, kind in jobs:
+        cfg = cfgs[arch]
+        run = runs["forward" if kind == "f32" else "bf16"]
+        full = Model(cfg, run, dev).init(seed=seed)
+        model = Model(cfg, run, dev, mesh)
+        model.load_state_dict(flatten(shard_params(full.params, model.specs,
+                                                   mesh)))
+        del full
+        prompt = serve_shard_inputs(cfg, arch, seed, dev)
+        bax = rules.batch_spec(mesh, 1)[0]
+        local = {k: rules.shard_tensor(v, (bax,) + (None,) * (v.dim() - 1),
+                                       mesh).contiguous()
+                 for k, v in prompt.items()}
+        B, S = prompt["tokens"].shape
+        B_l, ticks = local["tokens"].shape[0], SHARD_SERVE["ticks"]
+        max_len = S + ticks
+        vocab = "model" if model.vocab_split else None
+        step = serve_step(arch, kind)
+        rec = {"mesh": list(shape), "dtype": kind, "batch": B, "prompt": S,
+               "ticks": ticks, "max_len": max_len,
+               "cache_specs": {k: str(v) for k, v in flatten(
+                   model.cache_specs(B, max_len)).items()}}
+        toks, _ = ref_block(ref_dir, step, "tokens", (None, bax, None), mesh,
+                            torch.empty((ticks + 1, B_l, 1),
+                                        dtype=torch.int64))
+        extra = {}
+        if cfg.family == "audio":
+            extra["enc_out"], _ = ref_block(
+                ref_dir, step, "enc_out", (bax, None, None), mesh,
+                torch.empty((B_l, cfg.encdec.enc_len, cfg.d_model)))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        C.reset_stats()
+        t0 = time.monotonic()
+        (lg, caches), counts_p, shapes_p = counted(
+            lambda: model.prefill(local, max_len))
+        rec["prefill_s"] = time.monotonic() - t0
+        rec["prefill_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        rec["prefill_collectives"] = C.stats()
+        offset = C.axis_index(mesh, "model") * lg.shape[-1] if vocab else 0
+        want, _ = ref_block(ref_dir, step, "prefill", (bax, None, vocab),
+                            mesh, lg)
+        rec["prefill_max_abs_err"] = float((lg.float() - want.float()).abs()
+                                           .max())
+        rec["ref_max_abs_logit"] = float(want.float().abs().max())
+        specs = flatten(model.cache_specs(B, max_len))
+
+        def cache_err(name):
+            errs = {}
+            for path, t in flatten(caches).items():
+                want, _ = ref_block(ref_dir, step, f"{name}.{path}",
+                                    specs[path], mesh, t)
+                errs[path] = float((t.float() - want.float()).abs().max())
+                del want
+            return errs
+
+        rec["caches_max_abs_err"] = cache_err("caches")
+        rows = [greedy(lg, cfg.vocab_size - offset)]
+        wants, _ = ref_block(ref_dir, step, "decode",
+                             (None, bax, None, vocab), mesh,
+                             torch.empty((ticks, *lg.shape), dtype=lg.dtype))
+        C.reset_stats()
+        errs, tick_s, counts_d, shapes_d = [], [], {}, {}
+        for t in range(ticks):
+            t0 = time.monotonic()
+            (lg, caches), c, sh = counted(lambda: model.decode_step(
+                {"tokens": toks[t].to(dev), **extra}, caches))
+            tick_s.append(time.monotonic() - t0)
+            for k, n in c.items():
+                counts_d[k] = counts_d.get(k, 0) + n
+            add_shapes(shapes_d, sh)
+            errs.append(float((lg.float() - wants[t].to(dev).float()).abs()
+                              .max()))
+            rows.append(greedy(lg, cfg.vocab_size - offset))
+        rec["decode_collectives"] = C.stats()
+        rec["tick_ms"] = [1e3 * x for x in tick_s]
+        rec["decode_max_abs_err"] = errs
+        rec["caches_after_max_abs_err"] = cache_err("caches_after")
+        # each tick's largest logit of this rank's block, by global index
+        rec["greedy"] = [(v.cpu().tolist(), (i + offset).cpu().tolist())
+                         for v, i in rows]
+        rec["launches_prefill"], rec["launches_decode"] = counts_p, counts_d
+        rec["shapes"] = {"prefill": shapes_p, "decode": shapes_d}
+        out[arch if kind == "f32" else f"{arch}:bf16"] = rec
+        del model, caches, lg, wants, local, extra
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def ref_block(ref_dir, step, path, spec, mesh, like):
     """This rank's block of reference leaf `path` (dots) of checkpoint
     `step`, read memory-mapped, as a tensor like `like` on the card."""
@@ -2605,14 +2901,20 @@ def shard_rank(rank, shape, store, ref_dir, seed, conn):
     rep = {"rank": rank, "mesh": list(shape), "coords": mesh.coords}
     counts, shapes = dict.fromkeys(KERNELS, 0), {}
 
-    def main_path(fn):
+    def counted(fn):
+        """fn() on the main path -> (its result, the launches it made, by
+        kernel and by shape), added to the rank's totals."""
         reset_counts()
         out = fn()
         torch.cuda.synchronize()
-        for k, n in read_counts().items():
+        made, by = read_counts(), read_shapes()
+        for k, n in made.items():
             counts[k] += n
-        add_shapes(shapes, read_shapes())
-        return out
+        add_shapes(shapes, by)
+        return out, made, by
+
+    def main_path(fn):
+        return counted(fn)[0]
 
     def local(t, ndim=None):
         spec = rules.batch_spec(mesh, t.dim() if ndim is None else ndim)
@@ -2756,6 +3058,10 @@ def shard_rank(rank, shape, store, ref_dir, seed, conn):
                            "grad_max_rel_err": max(perr.values()),
                            "collectives": C.stats()}
         del layers, out, grads, want
+    # (6) the serving jobs: prefill and greedy ticks on this rank's blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep["serve"] = serve_rank(mesh, shape, ref_dir, seed, counted)
     rep["launches"] = counts
     rep["launches_by_shape"] = shapes
     rep["peak_bytes"] = torch.cuda.max_memory_allocated()
@@ -2840,11 +3146,149 @@ def rank_alone_peak(state, shape):
     return out
 
 
+def check_shard_flash(arch, shapes, also=()):
+    """Every flash attention launch of `arch`'s sharded run has one of
+    SHARD_FLASH's shapes for it (or one of `also`)."""
+    keys = {(B, Sq, Skv, H, Hkv, D, causal)
+            for _, a, B, Sq, Skv, H, Hkv, D, causal, _ in SHARD_FLASH
+            if a == arch} | set(also)
+    other = set(shapes.get("flash_attention", {})) - keys
+    require(not other, f"{arch}: flash attention launched at {sorted(other)},"
+                       f" not among SHARD_FLASH's")
+
+
+def merged_greedy(reps, arch, shape, n_rows):
+    """The greedy tokens (ticks + 1, B) of `arch`'s sharded run: each row's
+    largest logit over the ranks that hold a block of its vocabulary."""
+    from repro_torch.configs import MeshConfig
+    from repro_torch.launch.mesh import MeshShape
+    ms = MeshShape(MeshConfig(shape, ("data", "model")))
+    B_l = n_rows // ms.size(("pod", "data"))
+    best = None
+    for rank, rep in enumerate(reps):
+        b0 = ms.index_of(("pod", "data"), rank) * B_l
+        g = rep["serve"][arch]["greedy"]
+        if best is None:
+            best = [[(-math.inf, -1)] * n_rows for _ in g]
+        for t, (vals, idx) in enumerate(g):
+            for j, (v, i) in enumerate(zip(vals, idx)):
+                if v > best[t][b0 + j][0]:
+                    best[t][b0 + j] = (v, i)
+    return torch.tensor([[i for _, i in row] for row in best])
+
+
+def shard_serving(state, reports, serve_tokens, serve_ref_s, tp_key):
+    """(a)'s gates and records: each serving job's prefill, caches and
+    ticks on every rank within SHARD_GATES["logits"] of the one-device
+    path, its greedy tokens equal to that path's, every kernel of its path
+    launched and every flash attention launch at a listed shape; the bf16
+    run's gap and token agreement recorded; the launches of wkv6 and ssd at
+    a rank's shapes kept for the kernels line."""
+    gate = SHARD_GATES["logits"]
+    rec_launches = {name: 0 for name, _ in SHARD_RECURRENT}
+    for shape, reps in reports.items():
+        for key in reps[0]["serve"]:
+            arch, _, kind = key.partition(":")
+            recs = [r["serve"][key] for r in reps]
+            want = serve_tokens[(arch, kind or "f32")]
+            got = merged_greedy(reps, key, shape, want.shape[1])
+            agree = float((got == want).float().mean())
+            worst = {"prefill": max(r["prefill_max_abs_err"] for r in recs),
+                     "caches": max(max(r["caches_max_abs_err"].values())
+                                   for r in recs),
+                     "decode": max(max(r["decode_max_abs_err"]) for r in recs),
+                     "caches_after": max(max(r["caches_after_max_abs_err"]
+                                             .values()) for r in recs)}
+            emit({"phase": "shard", "part": "serve", "arch": arch,
+                  "mesh": list(shape), "dtype": kind or "float32",
+                  "batch": recs[0]["batch"], "prompt": recs[0]["prompt"],
+                  "ticks": recs[0]["ticks"], "max_abs_err": worst,
+                  "ref_max_abs_logit": recs[0]["ref_max_abs_logit"],
+                  "greedy_agree": agree,
+                  "gate": None if kind else gate,
+                  "references_seconds": serve_ref_s,
+                  "ranks": [{k: ({when: shapes_text(by) for when, by in
+                                     v.items()} if k == "shapes" else v)
+                             for k, v in r.items() if k != "greedy"}
+                            for r in recs],
+                  "gpu": state["smi"]})
+            if kind:                        # the bf16 run: recorded only
+                continue
+            what = f"shard serve {arch} {shape}"
+            require(all(v < gate for v in worst.values()),
+                    f"{what}: {worst} against {gate}")
+            require(agree == 1.0, f"{what}: greedy tokens agree at {agree}")
+            for r in recs:
+                path = {k: r["launches_prefill"][k] + r["launches_decode"].get(
+                    k, 0) for k in r["launches_prefill"]}
+                need = ["rmsnorm"] + {"ssm": ["wkv6"], "hybrid": [
+                    "ssd", "flash_attention"]}.get(
+                        serve_shard_cfgs()[arch].family, ["flash_attention"])
+                require(all(path[k] > 0 for k in need),
+                        f"{what}: a kernel of the path was not launched: "
+                        f"{path}")
+                both = {}
+                add_shapes(both, r["shapes"]["prefill"])
+                add_shapes(both, r["shapes"]["decode"])
+                check_shard_flash(arch, both, (tp_key,) if shape == (1, 2)
+                                  else ())
+                if arch == "rwkv6-7b":
+                    rec_launches["wkv6_shard"] += r["launches_prefill"]["wkv6"]
+                    rec_launches["wkv6_shard_tick"] += \
+                        r["launches_decode"]["wkv6"]
+                if arch == "zamba2-7b":
+                    rec_launches["ssd_shard"] += r["launches_prefill"]["ssd"]
+    state["shard_recurrent_launches"] = rec_launches
+    require(all(n > 0 for n in rec_launches.values()),
+            f"shard: a recurrence never ran at a rank's shape: "
+            f"{rec_launches}")
+
+
+def rank_alone_prefill_peak(state, shape):
+    """(b): rank 0 of `shape` run alone on the card: deepseek-7b's float32
+    serving prefill on its blocks, drawn on the card, its peak over what
+    was allocated before it, as rank 0 of the world measured it."""
+    from repro_torch.configs import MeshConfig
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.model import Model
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding import rules
+
+    dev = torch.device(SHARD_DEVICE)
+    cfg = serve_shard_cfgs()["deepseek-7b"]
+    mesh = Mesh.alone(MeshConfig(shape, ("data", "model")), 0, dev)
+    model = Model(cfg, shard_runs()["forward"], dev, mesh).init(
+        seed=state["seed"])
+    prompt = serve_shard_inputs(cfg, "deepseek-7b", state["seed"], dev)
+    bax = rules.batch_spec(mesh, 1)[0]
+    local = {k: rules.shard_tensor(v, (bax, None), mesh).contiguous()
+             for k, v in prompt.items()}
+    del prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    C.reset_stats()
+    reset_counts()
+    with torch.no_grad():
+        lg, caches = model.prefill(local, local["tokens"].shape[1] +
+                                   SHARD_SERVE["ticks"])
+    torch.cuda.synchronize()
+    out = {"peak_bytes": torch.cuda.max_memory_allocated() - base,
+           "collectives": C.stats(), "launches": read_counts()}
+    del model, local, lg, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_shard(state):
     """The multi-device machinery on the one card: (a) two ranks (gloo) on
-    (1, 2) and (2, 1) against the one-device path on the same weights;
-    (b) rank 0's train step run alone against its peak among its peers;
-    (c) the planner over profile meshes: deepseek-7b on (1, 2) at 30
+    (1, 2) and (2, 1) against the one-device path on the same weights,
+    training and serving (SHARD_SERVE); (b) rank 0's train step and
+    deepseek-7b's prefill run alone against their peaks among the peers;
+    (c) the planner over profile meshes: mistral-large-123b's prefill on
+    (1, 8) and decode on (1, 16) (PLANNER_MISTRAL); deepseek-7b on (1, 2) at 30
     layers, llama-3.2-vision-90b's full AdamW step on (1, 8)."""
     from repro_torch.configs import MeshConfig, RunConfig
     from repro_torch.kernels import build
@@ -2855,6 +3299,7 @@ def phase_shard(state):
     ref_dir = ROOT / "build" / "shard_ref"
     shutil.rmtree(ref_dir, ignore_errors=True)
     ref_s = shard_references(state, str(ref_dir))
+    serve_tokens, serve_ref_s = serve_references(state, str(ref_dir))
     GiB = 1024 ** 3
     reports, world_s = {}, {}
     for shape in SHARD_WORLDS:
@@ -2868,7 +3313,7 @@ def phase_shard(state):
             emit({"phase": "shard", "part": "ranks", "transport": "gloo",
                   "world_seconds": world_s[shape], "references_seconds": ref_s,
                   **{k: (shapes_text(v) if k == "launches_by_shape" else v)
-                     for k, v in rep.items()},
+                     for k, v in rep.items() if k != "serve"},
                   "collective_times": "gloo between two ranks of one card: "
                                       "host-staged loopback, not NVLink; no "
                                       "yardstick",
@@ -2908,6 +3353,7 @@ def phase_shard(state):
                     f"{rep['launches']}")
     tp_key = (SHARD_BF16_B, SHARD_TRAIN["seq"], SHARD_TRAIN["seq"], 16, 16,
               128, True)
+    shard_serving(state, reports, serve_tokens, serve_ref_s, tp_key)
     # the shard phase's own launches at the local shape (olmoe-1b-7b's
     # prefill and serve phases launch the same shape)
     state["shard_tp_launches"] = sum(
@@ -2939,6 +3385,23 @@ def phase_shard(state):
         for k, v in r0["train_collectives"].items()},
             "shard: the rank alone ran other collectives than among its "
             "peers")
+    # and rank 0's float32 prefill of deepseek-7b, alone and among peers
+    alone = rank_alone_prefill_peak(state, (1, 2))
+    peer = r0["serve"]["deepseek-7b"]["prefill_peak_bytes"]
+    diff = (alone["peak_bytes"] - peer) / peer
+    emit({"phase": "shard", "part": "rank_alone_prefill", "mesh": [1, 2],
+          "rank": 0, "arch": "deepseek-7b",
+          "measure": "the prefill's peak over what was allocated before it "
+                     "(weights, prompts)",
+          "alone_peak_gib": alone["peak_bytes"] / GiB,
+          "among_peers_peak_gib": peer / GiB, "rel_diff": diff,
+          "gate": SHARD_GATES["alone"], "alone": alone,
+          "among_peers_collectives":
+              r0["serve"]["deepseek-7b"]["prefill_collectives"],
+          "gpu": state["smi"]})
+    require(abs(diff) < SHARD_GATES["alone"],
+            f"shard: prefill rank alone {alone['peak_bytes']} vs among peers "
+            f"{peer}")
     # (c) the planner over profile meshes
     f32 = RunConfig(attn_impl="blocked", remat="boundaries",
                     param_dtype="float32", compute_dtype="float32")
@@ -2972,6 +3435,32 @@ def phase_shard(state):
           "selection_at_full": sel.config.name, "feasible": sel.feasible_count,
           "fell_back": sel.fell_back, "gpu": state["smi"]})
     require(not sel.fell_back, f"shard: no config for the vlm: {sel}")
+    # mistral-large-123b's serving jobs over their profile meshes, bf16:
+    # the planner's ladder, its prediction at 88 layers and rank 0's step
+    # measured there alone
+    bf16 = RunConfig(attn_impl="kernel", remat="nothing",
+                     param_dtype="bfloat16", compute_dtype="bfloat16")
+    for mode, job in PLANNER_MISTRAL.items():
+        mesh = MeshConfig(job["mesh"], ("data", "model"))
+        kernels = ("rmsnorm", "flash_attention") if mode == "prefill" \
+            else ("rmsnorm",)
+        rep, truth, planner = planner_job(
+            state, "mistral-large-123b", mode, bf16, kernels,
+            seq=job["seq"], profile_mesh=mesh, batch=job["batch"])
+        if mode == "prefill":
+            check_shard_flash("mistral-large-123b",
+                              {"flash_attention":
+                               state["planner_mistral_shapes"]}, ())
+        emit({"phase": "shard", "part": "planner_serving",
+              "arch": "mistral-large-123b", "mode": mode,
+              "profile_mesh": list(job["mesh"]), "batch": job["batch"],
+              "seq": job["seq"], "n_layers": 88,
+              "per_rank_predicted_gib": rep.model.predict(88) / GiB,
+              "per_rank_measured_gib": truth.job_mem_bytes / GiB,
+              "requirement_gib": rep.requirement_gib,
+              "selection": rep.selection.config.name,
+              "feasible": rep.selection.feasible_count,
+              "fell_back": rep.selection.fell_back, "gpu": state["smi"]})
     emit({"phase": "shard", "seconds": time.monotonic() - t_start,
           "gpu": state["smi"]})
 
@@ -3405,6 +3894,26 @@ def kernels_line(state):
         "shape": [SHARD_BF16_B, 2048, 2048, 16, 16, 128],
         "timed_as": "flash_attention",
         "launches": state["shard_tp_launches"]}
+    # the shard phase's serving ranks' and the planner's mistral-large-123b
+    # rank's instances (SHARD_FLASH), each in its path's dtype, with the
+    # launches the wrapper counted at that shape on the main path
+    for use, _, B, Sq, Skv, H, Hkv, D, causal, dt in SHARD_FLASH:
+        meta[f"flash_attention_{use}"] = {
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:86",
+            "shape": [B, Sq, Skv, H, Hkv, D], "timed_as": "flash_attention",
+            "use": use, "dtype": str(getattr(torch, dt)),
+            "launches": by_shape.get((B, Sq, Skv, H, Hkv, D, causal), 0)}
+    # wkv6 and ssd at a rank's heads, float32, with the launches the shard
+    # phase's serving ranks counted there (SHARD_RECURRENT)
+    for name, shape in SHARD_RECURRENT:
+        kernel = name.split("_")[0]
+        meta[name] = {"source": f"src/repro_torch/kernels/csrc/{kernel}.cu",
+                      "replaces": {"wkv6": "src/repro/kernels/wkv6.py:69",
+                                   "ssd": "src/repro/kernels/ssd.py:53"}[kernel],
+                      "shape": list(shape), "timed_as": kernel,
+                      "dtype": str(torch.float32),
+                      "launches": state["shard_recurrent_launches"][name]}
     # rmsnorm at the two new widths, with the launches the wrapper counted
     # at that width on the main path
     for name, shape in (("rmsnorm_d8192", [8192, 8192]),

@@ -172,6 +172,27 @@ def shard_params(params: Mapping, specs: Mapping, mesh) -> Dict:
     return out
 
 
+def shard_caches(caches: Mapping, specs: Mapping, mesh) -> Dict:
+    """This rank's blocks of a whole cache tree (the JAX package's caches
+    of one device, numpy arrays, or the port's tensors) under `specs`
+    (``Model.cache_specs``): the blocks a model over `mesh` holds
+    (``Model.init_caches``); the inverse of ``gather_caches``."""
+    return shard_params(caches, specs, mesh)
+
+
+def gather_caches(blocks, specs: Mapping, mesh) -> Dict:
+    """The whole cache tree from every rank's blocks (`blocks[r]`: world
+    rank r's cache tree, numpy arrays or tensors, as ``caches_to_numpy`` or
+    the model gives them) under `specs`: what one device would hold, to be
+    held against the JAX package's caches."""
+    from repro_torch.sharding.rules import gather_tensor
+    flat = [flatten_tree(b) for b in blocks]
+    spec_flat = flatten_tree(specs)
+    return unflatten_tree({path: gather_tensor([f[path] for f in flat],
+                                               spec_flat[path], mesh)
+                           for path in flat[0]})
+
+
 def params_to_numpy(model: Model) -> Dict:
     """The model's parameters as nested dicts of numpy arrays (bfloat16
     leaves come back as float32)."""

@@ -31,8 +31,10 @@ everything it made is freed when its result is dropped. ``run=None`` takes
 ``preset_run`` on the mesh (one device when there is none).
 
 With ``mesh=`` the step is one rank's of a job sharded over that mesh
-(``launch.mesh``): the model holds this rank's blocks, drawn on the device
-(``Model.init``), the batch is this rank's (B over the batch axes), and the
+(``launch.mesh``), in each of the three modes: the model holds this rank's
+blocks, drawn on the device (``Model.init``), the batch is this rank's (B
+over the batch axes), a prefill writes and a decode step reads this rank's
+blocks of the caches (``Model.init_caches`` of the whole batch), and the
 step writes its collectives out. Under ``Mesh.alone`` the rank runs by
 itself, its collectives returning zeros, which is how ``HBMPlanner``
 profiles a rank of a profile mesh on one card. ``run_cell``, the HLO
@@ -111,7 +113,8 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig,
         if shape.mode == "prefill":
             batch = inputs(generator, S)
             return lambda: model.prefill(batch, S)
-        caches = model.init_caches(B, S)
+        caches = model.init_caches(shape.global_batch if mesh is not None
+                                   else B, S)
         batch = inputs(generator, 1)
         return lambda: model.decode_step(batch, caches)
 

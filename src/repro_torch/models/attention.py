@@ -29,8 +29,23 @@ holds fewer than ``cfg.n_heads``), GQA and cross-attention run on this
 rank's heads: x enters the split, ``wo``'s output is all-reduced over
 'model'. Where the KV heads do not divide the axis they are replicated
 (the rules' fallback), and each rank takes the KV heads its own query
-heads read, by global head index (``_local_kv``). MLA under a split
-'model' axis is refused (``Model``).
+heads read, by global head index (``_local_kv``). MLA computes its
+latents whole on every rank (``wdq``, ``wdkv`` and ``wkr`` are
+replicated) and runs ``wuq``, ``wuk``, ``wuv`` and ``wo`` on this rank's
+heads.
+
+Serving over a mesh reads and writes this rank's blocks of the caches, as
+``rules.cache_specs`` lays them out: the batch split over the batch axes,
+the KV heads over 'model' where they divide it, else the positions
+(``kv_context_split``; MLA's latents always by positions). A decode step
+over a cache split by positions is flash decoding over the mesh: the
+queries of every head are gathered over 'model', each rank takes the
+softmax's partial maximum, sum and output over its own positions, the
+partials are combined by a max and a sum over 'model' (``_combine``), and
+each rank keeps its own heads for ``wo``; the new position's key and value
+go to the rank that holds that position. ``pos`` is whole on every rank
+(the rules replicate it) and a rank reads its batch rows of it
+(``_batch_rows``).
 """
 from __future__ import annotations
 
@@ -343,15 +358,16 @@ def heads_split(params, cfg: ModelConfig, mesh) -> bool:
     return mesh is not None and params["wq"].shape[-2] != cfg.n_heads
 
 
-def _local_kv(params, cfg: ModelConfig, mesh):
-    """(wk, wv) as this rank's query heads read them. Split over 'model',
-    they are this rank's block; replicated (the KV heads do not divide the
-    axis), the heads from h0 // G to (h1 - 1) // G of this rank's query
-    heads h0 .. h1 - 1 (G query heads a KV head), each weight entering the
-    split so that the ranks' gradients for it are summed."""
-    wk, wv = params["wk"], params["wv"]
-    if wk.shape[-2] != cfg.n_kv_heads:
-        return wk, wv
+def kv_context_split(cfg: ModelConfig, mesh) -> bool:
+    """Whether ``rules.cache_specs`` splits a GQA cache over 'model' by its
+    positions: the axis is above 1 and the KV heads do not divide it."""
+    n = C.axis_size(mesh, "model")
+    return n > 1 and cfg.n_kv_heads % n != 0
+
+
+def _kv_range(params, cfg: ModelConfig, mesh):
+    """(k0, k1): the KV heads this rank's query heads h0 .. h1 - 1 read,
+    from h0 // G to (h1 - 1) // G (G query heads a KV head)."""
     H_l = params["wq"].shape[-2]
     G = cfg.n_heads // cfg.n_kv_heads
     if H_l % G and G % H_l:
@@ -359,19 +375,33 @@ def _local_kv(params, cfg: ModelConfig, mesh):
             f"{H_l} query heads a rank over {G} a KV head: a rank's heads "
             f"would read part of a KV head's group")
     h0 = C.axis_index(mesh, "model") * H_l
-    k0, k1 = h0 // G, (h0 + H_l - 1) // G + 1
+    return h0 // G, (h0 + H_l - 1) // G + 1
+
+
+def _local_kv(params, cfg: ModelConfig, mesh):
+    """(wk, wv) as this rank's query heads read them. Split over 'model',
+    they are this rank's block; replicated (the KV heads do not divide the
+    axis), the heads ``_kv_range`` names, each weight entering the split
+    so that the ranks' gradients for it are summed."""
+    wk, wv = params["wk"], params["wv"]
+    if wk.shape[-2] != cfg.n_kv_heads:
+        return wk, wv
+    k0, k1 = _kv_range(params, cfg, mesh)
     return (C.enter_split(wk, mesh, "model")[:, k0:k1],
             C.enter_split(wv, mesh, "model")[:, k0:k1])
 
 
-def _project_qkv(params, x, cfg: ModelConfig, positions, mesh=None):
+def _project_qkv(params, x, cfg: ModelConfig, positions, mesh=None,
+                 all_kv: bool = False):
     """q, k, v of x; with the heads split over 'model' (``heads_split``),
-    this rank's."""
+    this rank's query heads and the KV heads they read, or every KV head
+    with `all_kv` (the weights replicated: a cache split by positions)."""
     B, S, d = x.shape
     wq, wk, wv = params["wq"], params["wk"], params["wv"]
     if heads_split(params, cfg, mesh):
         x = C.enter_split(x, mesh, "model")
-        wk, wv = _local_kv(params, cfg, mesh)
+        if not all_kv:
+            wk, wv = _local_kv(params, cfg, mesh)
     H, K, Dh = wq.shape[-2], wk.shape[-2], wq.shape[-1]
     # (d, H, Dh) weights contract over d: a matmul with the (d, H*Dh) view
     q = (x @ wq.to(x.dtype).reshape(d, H * Dh)).view(B, S, H, Dh)
@@ -404,19 +434,41 @@ def gqa(params, x, cfg: ModelConfig, run: RunConfig, *, positions=None,
                         mesh if heads_split(params, cfg, mesh) else None)
 
 
+def _position_block(t, mesh, dim: int = 1):
+    """This rank's block of `t`'s positions (dim `dim`) over 'model'."""
+    n, r = C.axis_size(mesh, "model"), C.axis_index(mesh, "model")
+    if t.shape[dim] % n:
+        raise ValueError(f"a cache of {t.shape[dim]} positions does not "
+                         f"divide over a 'model' axis of {n}")
+    size = t.shape[dim] // n
+    return t.narrow(dim, r * size, size)
+
+
 def gqa_prefill(params, x, cfg: ModelConfig, run: RunConfig, *,
-                positions=None, pad_to: int = 0):
+                positions=None, pad_to: int = 0, mesh=None):
     """Like gqa() but also returns the (k, v) cache content, padded to
-    `pad_to` positions (the serve-time max length)."""
+    `pad_to` positions (the serve-time max length). Over a mesh the cache
+    content is this rank's block (``rules.cache_specs``): its KV heads, or,
+    where the KV heads do not divide 'model', every KV head at this rank's
+    block of the padded positions."""
     S = x.shape[1]
     if positions is None:
         positions = torch.arange(S, device=x.device)
-    q, k, v = _project_qkv(params, x, cfg, positions)
-    o = _sequence_attention(q, k, v, run, causal=True)
-    out = _project_out(params, o, x)
+    split = heads_split(params, cfg, mesh)
+    by_pos = kv_context_split(cfg, mesh)
+    q, k, v = _project_qkv(params, x, cfg, positions, mesh, all_kv=by_pos)
+    ka, va = k, v
+    if by_pos and split:
+        k0, k1 = _kv_range(params, cfg, mesh)
+        ka, va = k[:, :, k0:k1].contiguous(), v[:, :, k0:k1].contiguous()
+    o = _sequence_attention(q, ka, va, run, causal=True)
+    out = _project_out(params, o, x, mesh if split else None)
+    del o, ka, va
     if pad_to > S:
         pad = (0, 0, 0, 0, 0, pad_to - S)      # last dimension first
         k, v = F.pad(k, pad), F.pad(v, pad)
+    if by_pos:
+        k, v = _position_block(k, mesh), _position_block(v, mesh)
     return out, (k, v)
 
 
@@ -426,7 +478,88 @@ def _write_rows(cache, rows, idx, keep, new):
     cache[rows, idx] = torch.where(keep, new.to(cache.dtype), cache[rows, idx])
 
 
-def gqa_decode(params, x, cache, cfg: ModelConfig, run: RunConfig):
+def _write_owned(cache, pos, mesh, new):
+    """cache[b, pos[b] - start] = new[b] IN PLACE where this rank holds
+    position pos[b] of a cache split by positions over 'model' (a block of
+    cache.shape[1] from start = its index times that); a position at or
+    past the whole cache's end is nobody's."""
+    size = cache.shape[1]
+    local = pos - C.axis_index(mesh, "model") * size
+    keep = (local >= 0) & (local < size)
+    idx = torch.where(keep, local, torch.zeros_like(local)).long()
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    _write_rows(cache, rows, idx, keep.view(-1, *[1] * (new.dim() - 1)), new)
+
+
+def _batch_rows(pos, B: int, mesh):
+    """This rank's B rows of `pos`, which the rules replicate whole: its
+    block over the batch axes where the cache's batch is split, else
+    all."""
+    if pos.shape[0] == B:
+        return pos
+    b0 = C.axis_index(mesh, ("pod", "data")) * B
+    return pos[b0:b0 + B]
+
+
+def _visible(pos, size: int, mesh):
+    """(B, size) mask of the positions of this rank's block of a cache split
+    by positions that a decode step at pos attends to (up to pos, or
+    every one where pos is past the end: an idle slot)."""
+    start = C.axis_index(mesh, "model") * size
+    kpos = start + torch.arange(size, device=pos.device)
+    return kpos[None, :] <= pos[:, None]
+
+
+def _combine(s, visible, values, mesh):
+    """Flash decoding over 'model': the softmax over the positions of every
+    rank of scores s (..., T) float32 of this rank's T positions, masked by
+    `visible`, applied to `values(p)` (p the exponentials in the values'
+    dtype -> (..., Dv)). Each rank's partial maximum m, sum l and output o
+    are combined by a max over 'model', then one sum of (l, o) rescaled to
+    it -> (..., Dv) float32."""
+    s = s.masked_fill(~visible, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.where(visible, torch.exp(s - m[..., None]),
+                    torch.zeros_like(s))
+    top = C.reduce_(m.clone(), mesh, "model", "max")
+    scale = torch.exp(m - top)
+    both = torch.cat([(p.sum(dim=-1) * scale)[..., None],
+                      values(p).float() * scale[..., None]], dim=-1)
+    C.reduce_(both, mesh, "model")
+    return both[..., 1:] / both[..., :1].clamp(min=1e-30)
+
+
+def _gqa_decode_by_positions(params, x, cache, pos, cfg: ModelConfig, mesh):
+    """The decode attention of x over a cache split by positions over
+    'model' -> this rank's heads' output (B, 1, H_l, D): every head's query
+    gathered, the new key and value (every KV head) written where this rank
+    holds pos, the partial softmaxes combined (``_combine``)."""
+    split = heads_split(params, cfg, mesh)
+    q, k, v = _project_qkv(params, x, cfg, pos[:, None], mesh, all_kv=True)
+    H_l = q.shape[2]
+    if split:
+        q = C.all_gather(q, mesh, "model", 2)
+    kc, vc = cache["k"], cache["v"]
+    _write_owned(kc, pos, mesh, k[:, 0])
+    _write_owned(vc, pos, mesh, v[:, 0])
+    B, _, H, D = q.shape
+    K = kc.shape[2]
+    G = H // K
+    qg = q.reshape(B, 1, K, G, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, kc) * (1.0 / math.sqrt(D))
+    visible = _visible(pos, kc.shape[1], mesh)[:, None, None, None, :]
+    o = _combine(s.float(), visible,
+                 lambda p: torch.einsum("bkgqs,bskd->bkgqd", p.to(vc.dtype),
+                                        vc), mesh)
+    o = o.permute(0, 3, 1, 2, 4).reshape(B, 1, H, D).to(q.dtype)
+    if split:
+        r = C.axis_index(mesh, "model")
+        o = o[:, :, r * H_l:(r + 1) * H_l]
+    return o
+
+
+def gqa_decode(params, x, cache, cfg: ModelConfig, run: RunConfig,
+               mesh=None):
     """One-token decode against a KV cache.
 
     cache: {"k": (B,Smax,K,D), "v": ..., "pos": (B,) int32} — pos[b] is the
@@ -437,16 +570,30 @@ def gqa_decode(params, x, cache, cfg: ModelConfig, run: RunConfig):
     pos is at or past Smax writes nothing (its values nor its scales), as
     an out-of-range scatter does in the reference: the engine steps idle
     slots too, and their pos runs past the end.
+
+    Over a mesh the cache is this rank's block (see the module's
+    docstring) and `pos` the whole batch's; a cache split by positions
+    takes flash decoding over 'model' (``_gqa_decode_by_positions``), which
+    the int8 cache does not (it raises).
     """
     B = x.shape[0]
-    pos = cache["pos"]                       # (B,)
-    q, k, v = _project_qkv(params, x, cfg, pos[:, None])
+    pos = _batch_rows(cache["pos"], B, mesh)             # (B,)
+    out = dict(cache)
+    out["pos"] = cache["pos"] + 1
+    split = heads_split(params, cfg, mesh)
+    if kv_context_split(cfg, mesh):
+        if "k_scale" in cache:
+            raise NotImplementedError(
+                "an int8 KV cache split by positions over 'model' (the KV "
+                "heads do not divide the axis)")
+        o = _gqa_decode_by_positions(params, x, cache, pos, cfg, mesh)
+        return _project_out(params, o, x, mesh if split else None), out
+    q, k, v = _project_qkv(params, x, cfg, pos[:, None], mesh)
     smax = cache["k"].shape[1]
     rows = torch.arange(B, device=x.device)
     in_range = pos < smax
     idx = torch.where(in_range, pos, torch.zeros_like(pos)).long()
     keep = in_range[:, None, None]
-    out = dict(cache)
     if "k_scale" in cache:                   # int8 quantized cache
         for name, t in (("k", k), ("v", v)):
             values, scales = quantize_kv(t[:, 0])
@@ -458,8 +605,7 @@ def gqa_decode(params, x, cache, cfg: ModelConfig, run: RunConfig):
         _write_rows(cache["k"], rows, idx, keep, k[:, 0])
         _write_rows(cache["v"], rows, idx, keep, v[:, 0])
         o = decode_attention(q, cache["k"], cache["v"], pos + 1)
-    out["pos"] = pos + 1
-    return _project_out(params, o, x), out
+    return _project_out(params, o, x, mesh if split else None), out
 
 
 def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, *,
@@ -566,10 +712,19 @@ def _heads(a, w):
     return (a @ w.to(a.dtype).reshape(r, H * k)).view(*a.shape[:-1], H, k)
 
 
-def _mla_q(params, x, cfg: ModelConfig, positions):
+def mla_heads_split(params, cfg: ModelConfig, mesh) -> bool:
+    """Whether this rank holds a block of MLA's heads over 'model'."""
+    return mesh is not None and params["wuq"].shape[-2] != cfg.n_heads
+
+
+def _mla_q(params, x, cfg: ModelConfig, positions, mesh=None):
+    """(q_nope, q_rope) of x: the latent query whole, its heads this
+    rank's where ``wuq`` is split (the latent entering the split)."""
     m = cfg.mla
     cq = L.rms_norm(x @ params["wdq"].to(x.dtype), params["q_norm"],
                     cfg.norm_eps)
+    if mla_heads_split(params, cfg, mesh):
+        cq = C.enter_split(cq, mesh, "model")
     q = _heads(cq, params["wuq"])
     q_rope = L.rotary(q[..., m.qk_nope_dim:], positions, "full", 1.0,
                       cfg.rope_theta)
@@ -586,66 +741,108 @@ def _mla_latent(params, x, cfg: ModelConfig, positions):
 
 
 def _mla_core(params, x, cfg: ModelConfig, run: RunConfig, positions,
-              causal: bool):
+              causal: bool, mesh=None):
     """(out, (ckv, kr)): the latents are computed once, for the attention
-    and for a prefill's cache."""
+    and for a prefill's cache. Over a mesh that splits the heads, the
+    latents are whole on every rank and enter the split; the output is
+    all-reduced over 'model'."""
     m = cfg.mla
     B, S, _ = x.shape
-    H = cfg.n_heads
-    q_nope, q_rope = _mla_q(params, x, cfg, positions)
+    split = mla_heads_split(params, cfg, mesh)
+    q_nope, q_rope = _mla_q(params, x, cfg, positions, mesh)
     ckv, kr = _mla_latent(params, x, cfg, positions)
-    k_nope = _heads(ckv, params["wuk"])
-    v = _heads(ckv, params["wuv"])
+    ckv_h, kr_h = ckv, kr
+    if split:
+        ckv_h = C.enter_split(ckv, mesh, "model")
+        kr_h = C.enter_split(kr, mesh, "model")
+    H = q_nope.shape[-2]
+    k_nope = _heads(ckv_h, params["wuk"])
+    v = _heads(ckv_h, params["wuv"])
     # q, k and the padded v are contiguous: the kernel reads them by strides
     q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, kr[:, :, None, :].expand(B, S, H, m.qk_rope_dim)],
+    k = torch.cat([k_nope, kr_h[:, :, None, :].expand(B, S, H,
+                                                       m.qk_rope_dim)],
                   dim=-1)
     qk = m.qk_nope_dim + m.qk_rope_dim
     if m.v_head_dim != qk:
         v = F.pad(v, (0, qk - m.v_head_dim))
     o = _sequence_attention(q, k, v, run, causal=causal)[..., :m.v_head_dim]
-    return _project_out(params, o, x), (ckv, kr)
+    return _project_out(params, o, x, mesh if split else None), (ckv, kr)
 
 
 def mla(params, x, cfg: ModelConfig, run: RunConfig, *, positions=None,
-        causal: bool = True):
+        causal: bool = True, mesh=None):
     """MLA over a full sequence: the latents expanded to per-head k and v,
     the softmax core (`run.attn_impl`) over the combined (nope | rope) q/k
-    dim, v zero-padded to it and the output sliced back."""
+    dim, v zero-padded to it and the output sliced back (under a mesh:
+    this rank's heads)."""
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
-    return _mla_core(params, x, cfg, run, positions, causal)[0]
+    return _mla_core(params, x, cfg, run, positions, causal, mesh)[0]
 
 
 def mla_prefill(params, x, cfg: ModelConfig, run: RunConfig, *,
-                positions=None, pad_to: int = 0):
+                positions=None, pad_to: int = 0, mesh=None):
     """MLA forward that also emits the latent cache (ckv (B, max(S, pad_to),
     r), kr (B, max(S, pad_to), rope)). The reference computes the latents a
-    second time for the cache; here the attention's are kept."""
+    second time for the cache; here the attention's are kept. Over a mesh
+    with a 'model' axis above 1, this rank's block of the positions
+    (``rules.cache_specs`` splits the latents so)."""
     S = x.shape[1]
     if positions is None:
         positions = torch.arange(S, device=x.device)
-    out, (ckv, kr) = _mla_core(params, x, cfg, run, positions, True)
+    out, (ckv, kr) = _mla_core(params, x, cfg, run, positions, True, mesh)
     if pad_to > S:
         ckv = F.pad(ckv, (0, 0, 0, pad_to - S))
         kr = F.pad(kr, (0, 0, 0, pad_to - S))
+    if C.axis_size(mesh, "model") > 1:
+        ckv, kr = _position_block(ckv, mesh), _position_block(kr, mesh)
     return out, (ckv, kr)
 
 
-def mla_decode(params, x, cache, cfg: ModelConfig, run: RunConfig):
+def mla_decode(params, x, cache, cfg: ModelConfig, run: RunConfig,
+               mesh=None):
     """Absorbed-latent decode over the cache {"ckv": (B, Smax, r), "kr":
     (B, Smax, rope), "pos": (B,) int32}: only the compressed latent and the
     rotated key are cached, wuk is absorbed into q and wuv into the output.
     ckv and kr are updated IN PLACE (a row whose pos is at or past Smax
     writes nothing, as in ``gqa_decode``) and handed back beside a new
-    pos."""
+    pos.
+
+    Over a mesh with a 'model' axis above 1 the latents are this rank's
+    block of the positions: the (B, 1, H, r) latent queries of every head
+    are gathered over 'model', the partial softmaxes combined
+    (``_combine``), and this rank's heads go through wuv and wo."""
     m = cfg.mla
     B = x.shape[0]
-    pos = cache["pos"]
+    pos = _batch_rows(cache["pos"], B, mesh)
     positions = pos[:, None]
-    q_nope, q_rope = _mla_q(params, x, cfg, positions)       # (B, 1, H, *)
+    q_nope, q_rope = _mla_q(params, x, cfg, positions, mesh)  # (B, 1, H, *)
     ckv_t, kr_t = _mla_latent(params, x, cfg, positions)     # (B, 1, *)
     ckv, kr = cache["ckv"], cache["kr"]
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope,
+                         params["wuk"].to(x.dtype))
+    scale = math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    split = mla_heads_split(params, cfg, mesh)
+    new = {"ckv": ckv, "kr": kr, "pos": cache["pos"] + 1}
+    if C.axis_size(mesh, "model") > 1:
+        _write_owned(ckv, pos, mesh, ckv_t[:, 0])
+        _write_owned(kr, pos, mesh, kr_t[:, 0])
+        H_l = q_lat.shape[2]
+        if split:
+            q_lat = C.all_gather(q_lat, mesh, "model", 2)
+            q_rope = C.all_gather(q_rope, mesh, "model", 2)
+        s = torch.einsum("bshr,btr->bhst", q_lat, ckv.to(x.dtype)) + \
+            torch.einsum("bshk,btk->bhst", q_rope, kr.to(x.dtype))
+        visible = _visible(pos, ckv.shape[1], mesh)[:, None, None, :]
+        ctx = _combine(s.float() / scale, visible, lambda p: torch.einsum(
+            "bhst,btr->bhsr", p.to(x.dtype), ckv.to(x.dtype)), mesh)
+        ctx = ctx.transpose(1, 2).to(x.dtype)                # (B, 1, H, r)
+        if split:
+            r = C.axis_index(mesh, "model")
+            ctx = ctx[:, :, r * H_l:(r + 1) * H_l]
+        o = torch.einsum("bshr,rhk->bshk", ctx, params["wuv"].to(x.dtype))
+        return _project_out(params, o, x, mesh if split else None), new
     smax = ckv.shape[1]
     rows = torch.arange(B, device=x.device)
     in_range = pos < smax
@@ -653,18 +850,16 @@ def mla_decode(params, x, cache, cfg: ModelConfig, run: RunConfig):
     keep = in_range[:, None]
     ckv[rows, idx] = torch.where(keep, ckv_t[:, 0].to(ckv.dtype), ckv[rows, idx])
     kr[rows, idx] = torch.where(keep, kr_t[:, 0].to(kr.dtype), kr[rows, idx])
-    q_lat = torch.einsum("bshk,rhk->bshr", q_nope,
-                         params["wuk"].to(x.dtype))
     s = torch.einsum("bshr,btr->bhst", q_lat, ckv.to(x.dtype)) + \
         torch.einsum("bshk,btk->bhst", q_rope, kr.to(x.dtype))
-    s = s.float() / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    s = s.float() / scale
     visible = torch.arange(smax, device=x.device)[None, None, None, :] <= \
         pos[:, None, None, None]
     s = s.masked_fill(~visible, NEG_INF)
     p = torch.softmax(s, dim=-1).to(x.dtype)
     ctx = torch.einsum("bhst,btr->bshr", p, ckv.to(x.dtype))
     o = torch.einsum("bshr,rhk->bshk", ctx, params["wuv"].to(x.dtype))
-    return _project_out(params, o, x), {"ckv": ckv, "kr": kr, "pos": pos + 1}
+    return _project_out(params, o, x, mesh if split else None), new
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, *,

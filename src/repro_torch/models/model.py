@@ -52,9 +52,18 @@ every family. ``fsdp_params``' leaves split over 'data' are all-gathered
 once a forward (their gradients reduce-scattered back), ``fsdp_experts``'
 per MoE layer. ``forward`` returns this rank's block of the logits
 (split over the vocabulary where 'model' splits it); ``loss_fn`` the loss
-of the whole batch on every rank. Under a 'model' axis above 1, rwkv6-7b,
-zamba2-7b, whisper-small and MLA raise (ROADMAP.md item 7b), and prefill
-and decode raise under any mesh (sharded decode, item 7b).
+of the whole batch on every rank. Every family splits over 'model': the
+RWKV6 layer and the Mamba2 block on their heads (``rwkv``, ``ssm``),
+whisper's encoder, decoder and cross-attention on heads and its MLPs on
+their columns, MLA on its heads with the latents whole.
+
+Serving over a mesh: ``init_caches(batch, max_len)`` takes the whole
+batch and returns this rank's blocks of the caches (``cache_specs``, by
+``rules.cache_specs``: the batch over ('pod', 'data') where it divides,
+the KV or state heads over 'model' where they divide, else a KV cache's
+positions, always MLA's); ``prefill`` takes this rank's block of the
+prompts and writes those blocks, and ``decode_step`` reads and updates
+them in place. The logits are this rank's block, as ``forward``'s.
 """
 from __future__ import annotations
 
@@ -75,12 +84,6 @@ from repro_torch.sharding import collectives as C
 from repro_torch.sharding import rules
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
-# families whose layers have no tensor-parallel form in the port yet
-TP_REFUSED = {"ssm": "rwkv6's wk, wv and wr are replicated where wo, wg, u "
-                     "and w0 are split",
-              "hybrid": "Mamba2's in_proj splits across its concatenated "
-                        "z/x/B/C/dt columns",
-              "audio": "whisper's encoder-decoder has no split form yet"}
 EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 NORM_LEAVES = ("norm", "ln1", "ln2", "ln_cross", "enc_ln", "q_norm",
                "kv_norm")
@@ -107,19 +110,15 @@ class ParamTree(nn.Module):
 
 
 def refuse_tp(cfg: ModelConfig, mesh) -> None:
-    """Raise for a layout the port has no tensor-parallel form of yet."""
+    """Raise for the one layout the port has no tensor-parallel form of:
+    MoE impl "dense", which no config uses, over a 'model' axis above 1."""
     if mesh is None or C.axis_size(mesh, "model") == 1:
         return
-    why = TP_REFUSED.get(cfg.family)
-    if why is None and cfg.attention_kind == "mla":
-        why = "MLA's latent projections have no split form yet"
-    if why is None and cfg.moe is not None and \
-            cfg.moe.impl not in ("ep_tp", "ep_a2a"):
-        why = f"MoE impl {cfg.moe.impl!r} does not split the experts"
-    if why:
+    if cfg.moe is not None and cfg.moe.impl not in ("ep_tp", "ep_a2a"):
         raise NotImplementedError(
             f"{cfg.name} over a 'model' axis of {C.axis_size(mesh, 'model')}:"
-            f" {why} (ROADMAP.md, Queue 1, item 7b)")
+            f" MoE impl {cfg.moe.impl!r} does not split the experts "
+            f"(ROADMAP.md, Queue 1, item 7b)")
 
 
 class Model(nn.Module):
@@ -415,16 +414,16 @@ class Model(nn.Module):
             x, aux = T.stack(params["layers"], x, cfg, run, kind="moe",
                              positions=positions, mesh=mesh)
         elif cfg.family == "ssm":
-            x = T.rwkv_stack(params["layers"], x, cfg, run)
+            x = T.rwkv_stack(params["layers"], x, cfg, run, mesh)
         elif cfg.family == "hybrid":
             x = T.hybrid_stack(params["layers"], x, cfg, run,
-                               positions=positions)
+                               positions=positions, mesh=mesh)
         elif cfg.family == "vlm":
             x = T.vlm_stack(params["layers"], x, self._extra(batch, "media"),
                             cfg, run, positions=positions, mesh=mesh)
         else:
             x = T.encdec_apply(params["layers"], self._extra(batch, "frames"),
-                               x, cfg, run, positions=positions)
+                               x, cfg, run, positions=positions, mesh=mesh)
         return x, aux
 
     # --------------------------------------------------------------- serving
@@ -446,9 +445,40 @@ class Model(nn.Module):
                    tree with G in place of L};
           vlm:    the dense tree of the self-attention blocks, (G,
                   period - 1) in place of L (cross blocks keep no cache);
-          audio:  the dense tree of the decoder's layers."""
-        cfg, dt = self.cfg, self.compute_dtype
+          audio:  the dense tree of the decoder's layers.
+        Over a mesh, `batch` is the whole batch and the caches are this
+        rank's blocks of them (``cache_specs``)."""
         device = self.device if device is None else device
+        if self.mesh is None:
+            return self._whole_caches(batch, max_len, quant, device)
+        specs = self.cache_specs(batch, max_len, quant)
+        return rules.map_with_path(lambda path, a, spec: torch.zeros(
+            rules.local_shape(a.shape, spec, self.mesh), dtype=a.dtype,
+            device=device), self._whole_caches(batch, max_len, quant), specs)
+
+    def cache_specs(self, batch: int, max_len: int,
+                    quant: Optional[bool] = None) -> Dict:
+        """The specs of the caches of `batch` sequences (the whole batch) of
+        `max_len` positions over the model's mesh (``rules.cache_specs``).
+        Where the rules would leave a KV or latent cache whole over a
+        'model' axis above 1 (its positions, which the port then splits,
+        do not divide the axis), this raises."""
+        whole = self._whole_caches(batch, max_len, quant)
+        specs = rules.cache_specs(whole, self.mesh, self.run, batch)
+        if C.axis_size(self.mesh, "model") > 1:
+            for path, spec in _flat(specs).items():
+                if path.rsplit(".", 1)[-1] in ("k", "v", "ckv", "kr") and \
+                        "model" not in rules.spec_axes(spec):
+                    raise ValueError(
+                        f"caches of {max_len} positions over a 'model' axis "
+                        f"of {C.axis_size(self.mesh, 'model')}: {path} is "
+                        f"split by positions, which must divide over it")
+        return specs
+
+    def _whole_caches(self, batch: int, max_len: int,
+                      quant: Optional[bool] = None, device="meta") -> Dict:
+        """The caches of one device (``init_caches``), on `device`."""
+        cfg, dt = self.cfg, self.compute_dtype
         q8 = self.run.kv_cache_dtype == "int8" if quant is None else quant
 
         def stacked(n, one):
@@ -498,10 +528,12 @@ class Model(nn.Module):
         and v in the compute dtype even under ``kv_cache_dtype="int8"``
         (no scales), so decode after a prefill takes the compute-dtype
         branch."""
-        self._refuse_sharded_serving()
         tokens = self._tokens(batch)
         B, S = tokens.shape
-        cfg, run = self.cfg, self.run
+        cfg, run, mesh = self.cfg, self.run, self.mesh
+        if mesh is not None:
+            B *= mesh.size(("pod", "data"))        # the whole batch
+            self.cache_specs(B, max(S, max_len))
         params = self.params
         if cfg.family not in ("dense", "moe"):
             h, _ = self._hidden(params, batch)
@@ -512,10 +544,11 @@ class Model(nn.Module):
         positions = torch.arange(S, device=self.device)
         names = ("ckv", "kr") if cfg.attention_kind == "mla" else ("k", "v")
 
-        def run_stack(layers, kind):
+        def run_stack(layers, kind, d_ff=None):
             nonlocal x
             x, kv = T.stack_prefill(layers, x, cfg, run, kind=kind,
-                                    positions=positions, pad_to=max_len)
+                                    positions=positions, pad_to=max_len,
+                                    mesh=mesh, d_ff=d_ff)
             pos = torch.full((kv[0].shape[0], B), S, dtype=torch.int32,
                              device=self.device)
             return {**dict(zip(names, kv)), "pos": pos}
@@ -525,50 +558,45 @@ class Model(nn.Module):
         else:
             caches = {}
             if "dense_layers" in params:
-                caches["dense"] = run_stack(params["dense_layers"], "dense")
+                caches["dense"] = run_stack(params["dense_layers"], "dense",
+                                            cfg.moe.d_ff_dense)
             caches["moe"] = run_stack(params["layers"], "moe")
         return self._logits(params, x[:, -1:]), caches
 
     @torch.no_grad()
     def decode_step(self, batch, caches):
         """One token for every sequence in the batch -> (logits (B, 1, V),
-        caches). The caches are updated in place and handed back."""
-        self._refuse_sharded_serving()
+        caches). The caches are updated in place and handed back. Over a
+        mesh, `batch` and the caches are this rank's blocks."""
         params = self.params
         tokens = self._tokens(batch)                     # (B, 1)
         x = self._embed(params, tokens)
-        cfg, run = self.cfg, self.run
+        cfg, run, mesh = self.cfg, self.run, self.mesh
         if cfg.family == "dense":
             x, caches = T.stack_decode(params["layers"], x, caches, cfg, run,
-                                       kind="dense")
+                                       kind="dense", mesh=mesh)
         elif cfg.family == "moe":
             if "dense_layers" in params:
                 x, _ = T.stack_decode(params["dense_layers"], x,
-                                      caches["dense"], cfg, run, kind="dense")
+                                      caches["dense"], cfg, run, kind="dense",
+                                      mesh=mesh, d_ff=cfg.moe.d_ff_dense)
             x, _ = T.stack_decode(params["layers"], x, caches["moe"], cfg, run,
-                                  kind="moe")
+                                  kind="moe", mesh=mesh)
         elif cfg.family == "ssm":
             x, caches = T.rwkv_stack_decode(params["layers"], x, caches, cfg,
-                                            run)
+                                            run, mesh)
         elif cfg.family == "hybrid":
             x, caches = T.hybrid_stack_decode(params["layers"], x, caches,
-                                              cfg, run)
+                                              cfg, run, mesh)
         elif cfg.family == "vlm":
             x, caches = T.vlm_stack_decode(params["layers"], x,
                                            self._extra(batch, "media"),
-                                           caches, cfg, run)
+                                           caches, cfg, run, mesh)
         else:
             x, caches = T.encdec_decode(params["layers"], x,
                                         self._extra(batch, "enc_out"),
-                                        caches, cfg, run)
+                                        caches, cfg, run, mesh)
         return self._logits(params, x), caches
-
-
-    def _refuse_sharded_serving(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "prefill and decode over a mesh: sharded decode with the "
-                "caches of rules.cache_specs (ROADMAP.md, Queue 1, item 7b)")
 
 
 def _flat(tree, prefix: str = "") -> Dict:

@@ -19,9 +19,11 @@ the dense and MoE blocks, the RWKV6 layer, the Mamba2 block, the VLM's
 self-attention blocks and the decoder layer of the encoder-decoder; the
 hybrid's shared block and the VLM's cross block run unwrapped, as there.
 
-The decoder, MoE and VLM stacks take ``mesh=``: each layer's blocks are
-then this rank's (``sharding.rules``), and attention, the MLP and the MoE
-write their collectives out (``attention``, ``layers``, ``moe``).
+Every stack takes ``mesh=``: each layer's blocks are then this rank's
+(``sharding.rules``), and attention, the MLP, the MoE, the RWKV6 layer and
+the Mamba2 block write their collectives out (``attention``, ``layers``,
+``moe``, ``rwkv``, ``ssm``). Prefill and decode over a mesh read and write
+this rank's blocks of the caches (``rules.cache_specs``).
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rwkv as R
 from repro_torch.models import ssm as SSM
+from repro_torch.sharding import collectives as C
 
 
 def tree_map(fn, tree):
@@ -113,7 +116,7 @@ def block(params, x, cfg: ModelConfig, run: RunConfig, *, kind="dense",
                          mesh=mesh)
     elif _mla(cfg):
         h = A.mla(params["attn"], h, cfg, run, positions=positions,
-                  causal=causal)
+                  causal=causal, mesh=mesh)
     else:
         h = A.gqa(params["attn"], h, cfg, run, positions=positions,
                   causal=causal, mesh=mesh)
@@ -124,32 +127,36 @@ def block(params, x, cfg: ModelConfig, run: RunConfig, *, kind="dense",
 
 
 def block_decode(params, x, cache, cfg: ModelConfig, run: RunConfig, *,
-                 kind="dense", media_kv=None):
+                 kind="dense", media_kv=None, mesh=None, d_ff=None):
     """One-token decode through a block; returns (x, new_cache). The
     cache's tensors are updated in place (see attention.gqa_decode and
     attention.mla_decode). A cross block has no cache: it hands back the
     one it was given."""
     h = L.rms_norm(x, params["ln1"], cfg.norm_eps)
     if kind == "cross":
-        h, new_cache = A.cross_attn(params["attn"], h, media_kv, run), cache
+        h = A.cross_attn(params["attn"], h, media_kv, run, cfg=cfg, mesh=mesh)
+        new_cache = cache
     else:
         decode = A.mla_decode if _mla(cfg) else A.gqa_decode
-        h, new_cache = decode(params["attn"], h, cache, cfg, run)
+        h, new_cache = decode(params["attn"], h, cache, cfg, run, mesh)
     x = x + h
-    h, _ = _ffn(params, L.rms_norm(x, params["ln2"], cfg.norm_eps), cfg, kind)
+    h, _ = _ffn(params, L.rms_norm(x, params["ln2"], cfg.norm_eps), cfg, kind,
+                run, mesh, d_ff)
     return x + h, new_cache
 
 
 def block_prefill(params, x, cfg: ModelConfig, run: RunConfig, *,
-                  kind="dense", positions=None, pad_to=0):
+                  kind="dense", positions=None, pad_to=0, mesh=None,
+                  d_ff=None):
     """Block forward that also returns the cache contents: (k, v) for GQA,
-    (ckv, kr) for MLA."""
+    (ckv, kr) for MLA (over a mesh, this rank's blocks of them)."""
     h = L.rms_norm(x, params["ln1"], cfg.norm_eps)
     prefill = A.mla_prefill if _mla(cfg) else A.gqa_prefill
     h, kv = prefill(params["attn"], h, cfg, run, positions=positions,
-                    pad_to=pad_to)
+                    pad_to=pad_to, mesh=mesh)
     x = x + h
-    h, _ = _ffn(params, L.rms_norm(x, params["ln2"], cfg.norm_eps), cfg, kind)
+    h, _ = _ffn(params, L.rms_norm(x, params["ln2"], cfg.norm_eps), cfg, kind,
+                run, mesh, d_ff)
     return x + h, kv
 
 
@@ -281,7 +288,8 @@ def stack(params, x, cfg, run, *, kind="dense", positions=None, causal=True,
     return x, aux_total
 
 
-def stack_decode(params, x, caches, cfg, run, *, kind="dense"):
+def stack_decode(params, x, caches, cfg, run, *, kind="dense", mesh=None,
+                 d_ff=None):
     """One token through a stacked group, threading per-layer caches.
     caches: dict of tensors stacked on axis 0; k and v are updated in place
     and `pos` is rewritten in place, so the dict handed back holds the same
@@ -289,22 +297,24 @@ def stack_decode(params, x, caches, cfg, run, *, kind="dense"):
     for i in range(n_stacked(params)):
         cache = tree_map(lambda a: a[i], caches)
         x, new_cache = block_decode(tree_map(lambda a: a[i], params), x,
-                                    cache, cfg, run, kind=kind)
+                                    cache, cfg, run, kind=kind, mesh=mesh,
+                                    d_ff=d_ff)
         caches["pos"][i].copy_(new_cache["pos"])
     return x, caches
 
 
 def stack_prefill(params, x, cfg, run, *, kind="dense", positions=None,
-                  pad_to=0):
+                  pad_to=0, mesh=None, d_ff=None):
     """Run a stacked group, collecting per-layer caches stacked on a
     leading axis: (x, (k, v)) with k, v (L, B, max(S, pad_to), K, D), or
     for MLA (x, (ckv, kr)) with ckv (L, B, max(S, pad_to), r) and kr
-    (L, B, max(S, pad_to), rope)."""
+    (L, B, max(S, pad_to), rope); over a mesh, this rank's blocks."""
     n = n_stacked(params)
     out = None
     for i in range(n):
         x, kv = block_prefill(tree_map(lambda a: a[i], params), x, cfg, run,
-                              kind=kind, positions=positions, pad_to=pad_to)
+                              kind=kind, positions=positions, pad_to=pad_to,
+                              mesh=mesh, d_ff=d_ff)
         if out is None:
             out = tuple(torch.empty((n, *t.shape), dtype=t.dtype,
                                     device=t.device) for t in kv)
@@ -342,24 +352,45 @@ def _norms(lp):
     return {"ln1": lp["ln1"], "ln2": lp["ln2"]}
 
 
-def _rwkv_layer(lp, x, cfg, run):
-    return R.rwkv_block(lp, x, cfg, run, _norms(lp))
+def _rwkv_layer(lp, wo, x, cfg, run, mesh, like):
+    """One layer; `wo` the layer's (``rwkv.wo_rows`` takes the rows it
+    reads inside, so that a remat policy remakes them in the backward
+    instead of keeping every layer's)."""
+    lp = {**lp, "wo": R.wo_rows(wo, cfg, mesh, like)}
+    return R.rwkv_block(lp, x, cfg, run, _norms(lp), mesh)
 
 
-def rwkv_stack(params, x, cfg, run):
+def _rwkv_layers(params, mesh):
+    """[(layer's parameters but wo, its wo, like)]: wo's leading axis is the
+    layers' where the rules leave it whole; split on it, a rank holds the
+    layers of its block (and None for the others' layers), and `like` is a
+    layer of its block (``rwkv.wo_rows``)."""
+    n = params["ln1"].shape[0]
+    wo = params["wo"]
+    layers = layer_params({k: v for k, v in params.items() if k != "wo"}, n)
+    if wo.shape[0] == n:
+        return [(lp, w, None) for lp, w in zip(layers, layer_params(wo, n))]
+    per = wo.shape[0]
+    mine = C.axis_index(mesh, "model")
+    own = layer_params(wo, per)
+    return [(lp, own[i % per] if i // per == mine else None, own[0])
+            for i, lp in enumerate(layers)]
+
+
+def rwkv_stack(params, x, cfg, run, mesh=None):
     layer = layer_fn(_rwkv_layer, run)
-    for lp in layer_params(params, n_stacked(params)):
-        x = layer(lp, x, cfg, run)
+    for lp, wo, like in _rwkv_layers(params, mesh):
+        x = layer(lp, wo, x, cfg, run, mesh, like)
     return x
 
 
-def rwkv_stack_decode(params, x, caches, cfg, run):
+def rwkv_stack_decode(params, x, caches, cfg, run, mesh=None):
     """One token through the stack; caches {"wkv", "tm_last", "cm_last"}
     stacked on axis 0 are updated in place and handed back."""
-    for i in range(n_stacked(params)):
-        lp = tree_map(lambda a: a[i], params)
+    for i, (lp, wo, like) in enumerate(_rwkv_layers(params, mesh)):
+        lp = {**lp, "wo": R.wo_rows(wo, cfg, mesh, like)}
         x, _ = R.rwkv_block_decode(lp, x, tree_map(lambda a: a[i], caches),
-                                   cfg, run, _norms(lp))
+                                   cfg, run, _norms(lp), mesh)
     return x, caches
 
 
@@ -407,11 +438,12 @@ def fill_hybrid(params, generator, cfg: ModelConfig):
     return params
 
 
-def _mamba_layer(lp, x, cfg, run):
-    return x + SSM.mamba2(lp, L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg, run)
+def _mamba_layer(lp, x, cfg, run, mesh=None):
+    return x + SSM.mamba2(lp, L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg, run,
+                          mesh)
 
 
-def hybrid_stack(params, x, cfg, run, *, positions=None):
+def hybrid_stack(params, x, cfg, run, *, positions=None, mesh=None):
     """The groups' Mamba2 blocks (each under `run.remat`), each group
     followed by its shared block, unwrapped."""
     mamba, shared = params["mamba"], params["shared"]
@@ -421,13 +453,13 @@ def hybrid_stack(params, x, cfg, run, *, positions=None):
     layer = layer_fn(_mamba_layer, run)
     for g in range(G):
         for lp in blocks[g * period:(g + 1) * period]:
-            x = layer(lp, x, cfg, run)
+            x = layer(lp, x, cfg, run, mesh)
         x, _ = block(sets[g % len(sets)], x, cfg, run, kind="dense",
-                     positions=positions)
+                     positions=positions, mesh=mesh, d_ff=_shared_d_ff(cfg))
     return x
 
 
-def hybrid_stack_decode(params, x, caches, cfg, run):
+def hybrid_stack_decode(params, x, caches, cfg, run, mesh=None):
     """caches: {"mamba": (G, period, ...) Mamba2 caches, "attn": (G, ...) KV
     caches}, updated in place and handed back."""
     mamba, shared = params["mamba"], params["shared"]
@@ -438,11 +470,12 @@ def hybrid_stack_decode(params, x, caches, cfg, run):
             lp = tree_map(lambda a: a[g, i], mamba)
             y, _ = SSM.mamba2_decode(
                 lp, L.rms_norm(x, lp["ln"], cfg.norm_eps),
-                tree_map(lambda a: a[g, i], caches["mamba"]), cfg, run)
+                tree_map(lambda a: a[g, i], caches["mamba"]), cfg, run, mesh)
             x = x + y
         x, new = block_decode(tree_map(lambda a: a[g % n_sets], shared), x,
                               tree_map(lambda a: a[g], caches["attn"]), cfg,
-                              run, kind="dense")
+                              run, kind="dense", mesh=mesh,
+                              d_ff=_shared_d_ff(cfg))
         caches["attn"]["pos"][g].copy_(new["pos"])
     return x, caches
 
@@ -493,7 +526,7 @@ def vlm_stack(params, x, media, cfg, run, *, positions=None, mesh=None):
     return x
 
 
-def vlm_stack_decode(params, x, media, caches, cfg, run):
+def vlm_stack_decode(params, x, media, caches, cfg, run, mesh=None):
     """caches: the self-attention blocks' KV caches, leaves
     (G, period - 1, B, ...), updated in place and handed back."""
     selfp, crossp = params["self"], params["cross"]
@@ -502,11 +535,12 @@ def vlm_stack_decode(params, x, media, caches, cfg, run):
         for i in range(n_self):
             x, new = block_decode(tree_map(lambda a: a[g, i], selfp), x,
                                   tree_map(lambda a: a[g, i], caches), cfg,
-                                  run, kind="dense")
+                                  run, kind="dense", mesh=mesh)
             caches["pos"][g, i].copy_(new["pos"])
         cp = tree_map(lambda a: a[g], crossp)
-        x, _ = block_decode(cp, x, None, cfg, run, kind="cross",
-                            media_kv=A.cross_attn_kv(cp["attn"], media))
+        x, _ = block_decode(cp, x, None, cfg, run, kind="cross", mesh=mesh,
+                            media_kv=A.cross_attn_kv(cp["attn"], media, cfg,
+                                                     mesh))
     return x, caches
 
 
@@ -555,7 +589,7 @@ def _sinusoid(S: int, d: int, dtype, device) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)[None]
 
 
-def encdec_encode(params, frames, cfg, run):
+def encdec_encode(params, frames, cfg, run, mesh=None):
     """The encoder half of ``encdec_apply``: frames (B, enc_len, d) plus the
     sinusoid, the non-causal stack and enc_ln -> enc_out (B, enc_len, d),
     what ``encdec_decode`` attends to."""
@@ -563,42 +597,45 @@ def encdec_encode(params, frames, cfg, run):
     enc = frames + _sinusoid(S, cfg.d_model, frames.dtype, frames.device)
     enc, _ = stack(params["enc"], enc, cfg, run, kind="dense",
                    positions=torch.arange(S, device=frames.device),
-                   causal=False)
+                   causal=False, mesh=mesh)
     return L.rms_norm(enc, params["enc_ln"], cfg.norm_eps)
 
 
-def _dec_cross(lp, h, enc_out, cfg, run):
-    kv = A.cross_attn_kv(lp["cross"], enc_out)
+def _dec_cross(lp, h, enc_out, cfg, run, mesh=None):
+    kv = A.cross_attn_kv(lp["cross"], enc_out, cfg, mesh)
     c = L.rms_norm(h, lp["ln_cross"], cfg.norm_eps)
-    return A.cross_attn(lp["cross"], c, kv, run, gated=False)
+    return A.cross_attn(lp["cross"], c, kv, run, gated=False, cfg=cfg,
+                        mesh=mesh)
 
 
-def _dec_block(lp, x, enc_out, cfg, run, positions):
+def _dec_block(lp, x, enc_out, cfg, run, positions, mesh=None):
     """One decoder layer: the dense block, then the ungated cross-attention
     to enc_out added to its output."""
-    h, _ = block(lp, x, cfg, run, kind="dense", positions=positions)
-    return h + _dec_cross(lp, h, enc_out, cfg, run)
+    h, _ = block(lp, x, cfg, run, kind="dense", positions=positions,
+                 mesh=mesh)
+    return h + _dec_cross(lp, h, enc_out, cfg, run, mesh)
 
 
-def encdec_apply(params, frames, tokens_x, cfg, run, *, positions=None):
+def encdec_apply(params, frames, tokens_x, cfg, run, *, positions=None,
+                 mesh=None):
     """frames (B, enc_len, d) stub embeddings; tokens_x (B, S, d) embedded
     tokens -> the decoder's output (B, S, d). The decoder layers run under
     `run.remat`, as the encoder's blocks do (``stack``)."""
-    enc_out = encdec_encode(params, frames, cfg, run)
+    enc_out = encdec_encode(params, frames, cfg, run, mesh)
     layer = layer_fn(_dec_block, run)
     x = tokens_x
     for lp in layer_params(params["dec"], n_stacked(params["dec"])):
-        x = layer(lp, x, enc_out, cfg, run, positions)
+        x = layer(lp, x, enc_out, cfg, run, positions, mesh)
     return x
 
 
-def encdec_decode(params, x, enc_out, caches, cfg, run):
+def encdec_decode(params, x, enc_out, caches, cfg, run, mesh=None):
     """One token through the decoder; caches: the self-attention KV caches,
     leaves (n_layers, B, ...), updated in place and handed back."""
     for i in range(n_stacked(params["dec"])):
         lp = tree_map(lambda a: a[i], params["dec"])
         h, new = block_decode(lp, x, tree_map(lambda a: a[i], caches), cfg,
-                              run, kind="dense")
+                              run, kind="dense", mesh=mesh)
         caches["pos"][i].copy_(new["pos"])
-        x = h + _dec_cross(lp, h, enc_out, cfg, run)
+        x = h + _dec_cross(lp, h, enc_out, cfg, run, mesh)
     return x, caches

@@ -1069,3 +1069,73 @@ def test_a_rank_alone_steps_on_the_card(card):
                mesh=mesh)()
     torch.cuda.synchronize()
     assert rmsnorm_backward.launches > before
+
+
+# ---------------------------------------------------------------------------
+# the kernels at a rank's shapes of the sharded paths (chip_smoke.py's
+# SHARD_FLASH and SHARD_RECURRENT)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal", [
+    (4, 2048, 2048, 16, 16, 112, True),      # zamba2-7b's shared block, 1 of 2
+    (4, 1500, 1500, 6, 6, 64, False),        # whisper-small's encoder
+    (4, 448, 448, 6, 6, 64, True),           # its decoder's self-attention
+    (4, 448, 1500, 6, 6, 64, False),         # its cross-attention
+    (4, 1, 1500, 6, 6, 64, False),           # and a tick's
+    (4, 2048, 2048, 64, 64, 192, True),      # deepseek-v3-671b's MLA
+    (4, 2048, 2048, 8, 8, 128, True),        # olmoe-1b-7b
+    (2, 2048, 2048, 32, 32, 128, True),      # deepseek-7b's rows of (2, 1)
+    (4, 2048, 2048, 12, 1, 128, True)])      # mistral-large-123b of (1, 8)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_at_a_ranks_shapes(card, B, Sq, Sk, H, Hkv, D,
+                                                  causal, dtype):
+    """A rank's heads of (1, 2) (or rows of (2, 1)): the kernel against the
+    plain version; k and v are views of buffers whose rows past Sk hold
+    NaN, which the output must not see."""
+    q = randn(card, 30, (B, Sq, H, D), dtype)
+    k, v = (randn(card, seed, (B, Sk + 64, Hkv, D), dtype).index_fill_(
+        1, torch.arange(Sk, Sk + 64, device=card), float("nan"))[:, :Sk]
+        for seed in (31, 32))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    assert_close(got, flash_attention_plain(q, k, v, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("S,with_state", [(2048, False), (1, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_at_a_ranks_heads(card, S, with_state, dtype):
+    """rwkv6-7b's prefill and decode tick at a rank's 32 of its 64 heads,
+    with its decay (w0 = -0.6 plus a small data-dependent term), against
+    the plain version; the tick's state written in place."""
+    B, H, K = 4, 32, 64
+    r, k, v = (randn(card, 70 + i, (B, S, H, K), dtype) for i in range(3))
+    lw = -torch.exp(-0.6 + 0.5 * randn(card, 73, (B, S, H, K), torch.float32))
+    u = 0.1 * randn(card, 74, (H, K), torch.float32)
+    state = randn(card, 75, (B, H, K, K), torch.float32) if with_state \
+        else None
+    start = None if state is None else state.clone()
+    y, st = wkv6(r, k, v, lw, u, state=state, state_out=state)
+    want_y, want_st = wkv6_plain(r, k, v, lw, u, state=start)
+    atol, rtol = WKV_TOL[dtype]
+    torch.cuda.synchronize()
+    assert st is state if with_state else True
+    torch.testing.assert_close(y, want_y, atol=atol, rtol=rtol)
+    torch.testing.assert_close(st, want_st, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_at_a_ranks_heads(card, dtype):
+    """zamba2-7b's prefill at a rank's 56 of its 112 heads, one group of B
+    and C, mamba2's dt and A: the kernel against the plain version at its
+    tile."""
+    B, S, H, P, N = 4, 2048, 56, 64, 64
+    xs, dt, A, _, _ = ssd_inputs(card, B, S, H, P, N, dtype, seed=80)
+    bg, cg = (randn(card, 90 + i, (B, S, 1, N), dtype) for i in range(2))
+    Bx, Cx = bg.expand(B, S, H, N), cg.expand(B, S, H, N)
+    got, _ = ssd(xs, dt, A, Bx, Cx)
+    want, _ = ssd_plain(xs, dt, A, Bx, Cx, chunk=TILE)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])

@@ -3,17 +3,11 @@ processes, against the JAX package on one device: sharded train steps
 (tensor, data and expert parallelism, ZeRO-1), the replicated KV heads of
 the divisibility fallback, moe_ep and moe_ep_a2a, the GPipe pipeline, the
 elastic restore, global_norm over a mesh, the rank-alone transport and the
-layouts the port refuses.
+one layout the port refuses (MoE impl "dense" over a 'model' axis).
 
-Each world is a set of spawned processes joined by a FileStore in a
-temporary directory (no port to collide on), started once for the module
-and given several cases; every wait on a rank has a timeout, and a
-collective that waits for a peer gives up after WORLD_TIMEOUT_S, so that a
-hung world fails its test instead of stalling the suite."""
+Each world (``test_torch_parity.World``) is started once for the module
+and given several cases."""
 import dataclasses
-import multiprocessing
-import os
-import traceback
 
 import jax
 import jax.numpy as jnp
@@ -42,9 +36,8 @@ from repro_torch.sharding import rules
 from repro_torch.sharding.pipeline import pipeline_apply
 from repro_torch.train.step import (init_train_state, make_train_step,
                                     state_specs)
+from test_torch_parity import world_factory
 
-WORLD_TIMEOUT_S = 60.0          # a collective's wait for a peer
-CASE_TIMEOUT_S = 240.0          # the parent's wait for a rank's answer
 WORLDS = {"1x2": MeshConfig((1, 2), ("data", "model")),
           "2x1": MeshConfig((2, 1), ("data", "model")),
           "2x2": MeshConfig((2, 2), ("data", "model")),
@@ -69,80 +62,9 @@ TOL = 1e-4                      # tests/test_distribution.py's bound
 # ---------------------------------------------------------------------------
 
 
-def _rank_main(rank, cfg, store, conn):
-    torch.set_num_threads(1)
-    from repro_torch.launch.mesh import make_mesh, shutdown
-    mesh = make_mesh(cfg, "gloo", "cpu", init_method=f"file://{store}",
-                     rank=rank, timeout_s=WORLD_TIMEOUT_S)
-    while True:
-        msg = conn.recv()
-        if msg is None:
-            break
-        name, kw = msg
-        C.reset_stats()
-        try:
-            conn.send(("ok", CASES[name](mesh, **kw)))
-        except BaseException:           # sent to the parent, which fails
-            conn.send(("err", traceback.format_exc()))
-    shutdown(mesh)
-
-
-class World:
-    def __init__(self, cfg: MeshConfig, store: str):
-        ctx = multiprocessing.get_context("spawn")
-        self.cfg = cfg
-        self.conns, self.procs = [], []
-        for rank in range(cfg.n_devices):
-            parent, child = ctx.Pipe()
-            proc = ctx.Process(target=_rank_main,
-                               args=(rank, cfg, store, child), daemon=True)
-            proc.start()
-            self.conns.append(parent)
-            self.procs.append(proc)
-
-    def run(self, name, **kw):
-        """Case `name` on every rank -> the ranks' results, by rank."""
-        for conn in self.conns:
-            conn.send((name, kw))
-        out = []
-        for rank, conn in enumerate(self.conns):
-            if not conn.poll(CASE_TIMEOUT_S):
-                self.close()
-                pytest.fail(f"{name}: rank {rank} gave no answer in "
-                            f"{CASE_TIMEOUT_S} s")
-            status, value = conn.recv()
-            if status != "ok":
-                pytest.fail(f"{name} on rank {rank}:\n{value}")
-            out.append(value)
-        return out
-
-    def close(self):
-        for conn, proc in zip(self.conns, self.procs):
-            if proc.is_alive():
-                try:
-                    conn.send(None)
-                except OSError:
-                    pass
-        for proc in self.procs:
-            proc.join(20)
-            if proc.is_alive():
-                proc.kill()
-                proc.join(5)
-
-
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
-    started = {}
-
-    def get(name):
-        if name not in started:
-            store = tmp_path_factory.mktemp(f"store_{name}") / "store"
-            started[name] = World(WORLDS[name], str(store))
-        return started[name]
-
-    yield get
-    for world in started.values():
-        world.close()
+    yield from world_factory(tmp_path_factory, WORLDS, __name__)
 
 
 def rank_block(world_name, rank, t, spec):
@@ -252,6 +174,8 @@ TRAIN_ARCHS = {
     "olmoe-1b-7b": dict(n_layers=2),
     "llama-3.2-vision-90b": dict(),
     "chatglm3-6b": dict(n_layers=2),
+    "zamba2-7b": dict(),
+    "deepseek-v3-671b": dict(n_layers=2),
 }
 
 
@@ -543,22 +467,6 @@ def test_a_rank_alone_allocates_what_rank_0_does_among_peers(worlds):
         {k: v.shape for k, v in results[0]["params"].items()}
     assert out["collectives"]["all_reduce"]["calls"] == \
         results[0]["collectives"]["all_reduce"]["calls"]
-
-
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b", "whisper-small",
-                                  "deepseek-v3-671b"])
-def test_layouts_without_tensor_parallelism_are_refused(arch):
-    """Under a 'model' axis above 1 these raise, naming item 7b; under
-    'data' alone they build."""
-    cfg = get_arch(arch).reduced()
-    with pytest.raises(NotImplementedError, match="7b"):
-        Model(cfg, RunConfig(), "meta",
-              Mesh.alone(MeshConfig((1, 2), ("data", "model")), 0, "cpu"))
-    model = Model(cfg, RunConfig(), "meta",
-                  Mesh.alone(MeshConfig((2, 1), ("data", "model")), 0,
-                             "cpu"))
-    with pytest.raises(NotImplementedError, match="7b"):
-        model.prefill({"tokens": np.zeros((1, 4), np.int32)}, 8)
 
 
 def test_rank_alone_is_only_chosen_by_mesh_alone():

@@ -46,7 +46,8 @@ from repro_torch.optim import adamw as adamw_module
 from repro_torch.optim.adamw import leaves
 from repro_torch.train.step import (init_train_state, loss_and_grads,
                                     make_train_step)
-from test_torch_parity import as_f32, numpy_tree
+from test_torch_parity import (as_f32, assert_stepped_params_close,
+                               numpy_tree, two_train_steps)
 
 MOE_ARCHS = ("olmoe-1b-7b", "deepseek-v3-671b")
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -299,10 +300,13 @@ def test_padded_slots_read_token_0_and_add_nothing_to_its_gradient(
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_one_train_step_matches_the_reference(arch, tie_gaps):
-    """A reference MoE train state converted to the port's; one train step
-    in each package from it: the same loss, each leaf's first moment to
-    1e-4 of its largest, and the parameters where the moment is clear of
-    0 (a gradient near 0 whose sign differs moves a weight 2 lr apart)."""
+    """A reference MoE train state converted to the port's; two train steps
+    in each package from it under a warmup of 1 step. After the first (at
+    lr 0): the same loss, each leaf's first moment to 1e-4 of its largest,
+    and the parameters where the moment is clear of 0. After the second
+    (at 1e-2), which moves every parameter with a gradient: the
+    parameters where the reference's |g| is settled
+    (``test_torch_parity.assert_stepped_params_close``)."""
     jcfg = jax_get_arch(arch).reduced()
     jm = jax_build_model(jcfg, jax_run())
     acfg = JAdamWConfig(lr=1e-2)
@@ -310,26 +314,35 @@ def test_one_train_step_matches_the_reference(arch, tie_gaps):
     tm = Model(get_arch(arch).reduced(), torch_run(), device="cpu")
     ts = train_state_from_numpy(jax.tree.map(np.asarray, js), tm)
     batch = tokens_batch(tm.cfg, seed=9)
-    js, jmet = jax.jit(jax_make_train_step(jm, acfg, None))(
-        js, {k: jnp.asarray(v) for k, v in batch.items()})
-    ts, tmet = make_train_step(tm, AdamWConfig(lr=1e-2))(ts, batch)
-    assert_no_near_tie(tie_gaps, n_moe_layers(tm.cfg))
+
+    def first(js, jmet, ts, tmet):
+        assert_no_near_tie(tie_gaps, n_moe_layers(tm.cfg))
+        np.testing.assert_allclose(float(tmet["loss"]), float(jmet["loss"]),
+                                   **TOL)
+        np.testing.assert_allclose(float(tmet["grad_norm"]),
+                                   float(jmet["grad_norm"]), **TOL)
+        want_keys = {"loss", "ce", "aux", "grad_norm", "lr"} | \
+            ({"mtp"} if tm.cfg.mtp_depth else set())
+        assert set(tmet) == want_keys
+        got = flatten_tree(train_state_to_numpy(ts)["params"])
+        m = flatten_tree(train_state_to_numpy(ts)["opt"]["m"])
+        want_m = flatten_tree(numpy_tree(js.opt.m))
+        for path, w in flatten_tree(numpy_tree(js.params)).items():
+            top = max(np.abs(want_m[path]).max(), 1e-30)
+            assert np.abs(m[path] - want_m[path]).max() / top < 1e-4, path
+            clear = np.abs(want_m[path]) > 1e-5
+            np.testing.assert_allclose(got[path][clear], w[clear],
+                                       err_msg=path, atol=1e-5, rtol=1e-5)
+
+    before = js.params
+    js, jmet, ts, tmet = two_train_steps(jm, js, acfg, tm, ts,
+                                         AdamWConfig(lr=1e-2), batch, first)
+    # the second step routes as the first did (its parameters unmoved)
+    assert len(tie_gaps) == 2 * n_moe_layers(tm.cfg)
+    assert tie_gaps[len(tie_gaps) // 2:] == tie_gaps[:len(tie_gaps) // 2]
     np.testing.assert_allclose(float(tmet["loss"]), float(jmet["loss"]),
                                **TOL)
-    np.testing.assert_allclose(float(tmet["grad_norm"]),
-                               float(jmet["grad_norm"]), **TOL)
-    want_keys = {"loss", "ce", "aux", "grad_norm", "lr"} | \
-        ({"mtp"} if tm.cfg.mtp_depth else set())
-    assert set(tmet) == want_keys
-    got = flatten_tree(train_state_to_numpy(ts)["params"])
-    m = flatten_tree(train_state_to_numpy(ts)["opt"]["m"])
-    want_m = flatten_tree(numpy_tree(js.opt.m))
-    for path, w in flatten_tree(numpy_tree(js.params)).items():
-        top = max(np.abs(want_m[path]).max(), 1e-30)
-        assert np.abs(m[path] - want_m[path]).max() / top < 1e-4, path
-        clear = np.abs(want_m[path]) > 1e-5
-        np.testing.assert_allclose(got[path][clear], w[clear], err_msg=path,
-                                   atol=1e-5, rtol=1e-5)
+    assert_stepped_params_close(before, js, ts, acfg)
 
 
 def test_microbatched_step_reports_the_mean_terms():

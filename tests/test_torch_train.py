@@ -45,7 +45,8 @@ from repro_torch.optim import (AdamWConfig, OptState, adamw_update,
 from repro_torch.train.loop import LoopConfig, train_loop
 from repro_torch.train.step import (init_train_state, loss_and_grads,
                                     make_eval_step, make_train_step)
-from test_torch_parity import as_f32, numpy_tree, to_jax, to_torch
+from test_torch_parity import (as_f32, assert_stepped_params_close,
+                               numpy_tree, to_jax, to_torch, two_train_steps)
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 ADAM_TOL = dict(atol=1e-6, rtol=1e-6)
@@ -284,8 +285,12 @@ def assert_states_equal(port_state, jax_state_):
 
 
 def test_train_states_cross_and_one_step_matches():
-    """A reference train state converted to the port's and back; then one
-    train step in each package from it: the same loss, params to 1e-6."""
+    """A reference train state converted to the port's and back; then two
+    train steps in each package from it under a warmup of 1 step. After
+    the first (at lr 0): the same loss, params to 1e-6, the first moments.
+    After the second (at 1e-2), which moves every parameter with a
+    gradient: the parameters where the reference's |g| is settled
+    (``test_torch_parity.assert_stepped_params_close``)."""
     jcfg = jax_get_arch(ARCH).reduced()
     jm = jax_build_model(jcfg, jax_run())
     acfg = JAdamWConfig(lr=1e-2)
@@ -296,25 +301,29 @@ def test_train_states_cross_and_one_step_matches():
     assert ts.opt.master is None and ts.residual is None
     assert_states_equal(ts, js)
 
-    from repro.train.step import make_train_step as jax_make_train_step
+    def first(js, jmet, ts, tmet):
+        np.testing.assert_allclose(float(tmet["loss"]), float(jmet["loss"]),
+                                   **TOL)
+        # the first step runs at lr 0: each weight where it was, and the
+        # moments filled; the check is on the moments and on the params
+        # where the first moment is clear of 0
+        got = flatten_tree(train_state_to_numpy(ts)["params"])
+        m = flatten_tree(train_state_to_numpy(ts)["opt"]["m"])
+        want_m = flatten_tree(numpy_tree(js.opt.m))
+        for path, w in flatten_tree(numpy_tree(js.params)).items():
+            clear = np.abs(want_m[path]) > 1e-5
+            np.testing.assert_allclose(got[path][clear], w[clear],
+                                       err_msg=path, **ADAM_TOL)
+            np.testing.assert_allclose(m[path], want_m[path], err_msg=path,
+                                       atol=1e-8, rtol=2e-5)
+
+    before = js.params
     batch = tokens_batch(get_arch(ARCH).reduced(), seed=6)
-    js, jmet = jax.jit(jax_make_train_step(jm, acfg, None))(
-        js, {k: jnp.asarray(v) for k, v in batch.items()})
-    ts, tmet = make_train_step(tm, AdamWConfig(lr=1e-2))(ts, batch)
+    js, jmet, ts, tmet = two_train_steps(jm, js, acfg, tm, ts,
+                                         AdamWConfig(lr=1e-2), batch, first)
     np.testing.assert_allclose(float(tmet["loss"]), float(jmet["loss"]),
                                **TOL)
-    # after step 1 each weight moves by about lr * sign(g): a gradient
-    # near 0 whose sign differs moves it 2 lr apart, so the check is on the
-    # moments and on the params where the first moment is clear of 0
-    got = flatten_tree(train_state_to_numpy(ts)["params"])
-    m = flatten_tree(train_state_to_numpy(ts)["opt"]["m"])
-    want_m = flatten_tree(numpy_tree(js.opt.m))
-    for path, w in flatten_tree(numpy_tree(js.params)).items():
-        clear = np.abs(want_m[path]) > 1e-5
-        np.testing.assert_allclose(got[path][clear], w[clear], err_msg=path,
-                                   **ADAM_TOL)
-        np.testing.assert_allclose(m[path], want_m[path], err_msg=path,
-                                   atol=1e-8, rtol=2e-5)
+    assert_stepped_params_close(before, js, ts, acfg)
 
 
 @pytest.mark.parametrize("grad_compression", [False, True])

@@ -47,7 +47,8 @@ from repro_torch.optim import AdamWConfig
 from repro_torch.optim.adamw import leaves
 from repro_torch.train.step import (_microbatches, init_train_state,
                                     loss_and_grads, make_train_step)
-from test_torch_parity import as_f32, numpy_tree
+from test_torch_parity import (as_f32, assert_stepped_params_close,
+                               numpy_tree, two_train_steps)
 
 ARCHS = ("rwkv6-7b", "zamba2-7b", "llama-3.2-vision-90b", "whisper-small")
 TOL = {"rwkv6-7b": 1e-4, "zamba2-7b": 1e-4, "llama-3.2-vision-90b": 2e-5,
@@ -162,10 +163,13 @@ def test_remat_policies_give_the_gradients_of_nothing(arch, remat):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_one_adamw_step_matches_the_reference(arch):
-    """A reference train state (gates open) converted to the port's, one
-    train step in each package: the loss, the first moments, and the
-    parameters where the first moment is clear of 0 (step 1 moves a weight
-    by about lr * sign(g))."""
+    """A reference train state (gates open) converted to the port's, two
+    train steps in each package under a warmup of 1 step. After the first
+    (at lr 0): the loss, the gradient norm, the first moments, and the
+    parameters where the first moment is clear of 0. After the second (at
+    1e-2), which moves every parameter with a gradient: the parameters
+    where the reference's |g| is settled
+    (``test_torch_parity.assert_stepped_params_close``)."""
     jcfg, cfg = jax_get_arch(arch).reduced(), get_arch(arch).reduced()
     jm = jax_build_model(jcfg, jax_run())
     acfg = dict(lr=1e-2)
@@ -174,25 +178,32 @@ def test_one_adamw_step_matches_the_reference(arch):
     tm = Model(cfg, torch_run(), device="cpu")
     ts = train_state_from_numpy(jax.tree.map(np.asarray, js), tm)
     batch = make_batch(cfg, seed=6)
-    js, jmet = jax.jit(jax_make_train_step(jm, JAdamWConfig(**acfg), None))(
-        js, {k: jnp.asarray(v) for k, v in batch.items()})
-    ts, tmet = make_train_step(tm, AdamWConfig(**acfg))(ts, batch)
     tol = TOL[arch]
+
+    def first(js, jmet, ts, tmet):
+        np.testing.assert_allclose(float(tmet["loss"]), float(jmet["loss"]),
+                                   atol=tol, rtol=tol)
+        np.testing.assert_allclose(float(tmet["grad_norm"]),
+                                   float(jmet["grad_norm"]), rtol=tol)
+        port = train_state_to_numpy(ts)
+        got, m = flatten_tree(port["params"]), flatten_tree(port["opt"]["m"])
+        want_m = flatten_tree(numpy_tree(js.opt.m))
+        for path, w in flatten_tree(numpy_tree(js.params)).items():
+            clear = np.abs(want_m[path]) > 1e-5
+            np.testing.assert_allclose(got[path][clear], w[clear],
+                                       err_msg=path, **ADAM_TOL)
+            # m after one step is (1 - b1) x the clipped gradient: the
+            # gradient's tolerance, scaled alike
+            np.testing.assert_allclose(m[path], want_m[path], err_msg=path,
+                                       atol=0.1 * tol, rtol=tol)
+
+    before = js.params
+    js, jmet, ts, tmet = two_train_steps(jm, js, JAdamWConfig(**acfg), tm,
+                                         ts, AdamWConfig(**acfg), batch,
+                                         first)
     np.testing.assert_allclose(float(tmet["loss"]), float(jmet["loss"]),
                                atol=tol, rtol=tol)
-    np.testing.assert_allclose(float(tmet["grad_norm"]),
-                               float(jmet["grad_norm"]), rtol=tol)
-    port = train_state_to_numpy(ts)
-    got, m = flatten_tree(port["params"]), flatten_tree(port["opt"]["m"])
-    want_m = flatten_tree(numpy_tree(js.opt.m))
-    for path, w in flatten_tree(numpy_tree(js.params)).items():
-        clear = np.abs(want_m[path]) > 1e-5
-        np.testing.assert_allclose(got[path][clear], w[clear], err_msg=path,
-                                   **ADAM_TOL)
-        # m after one step is (1 - b1) x the clipped gradient: the
-        # gradient's tolerance, scaled alike
-        np.testing.assert_allclose(m[path], want_m[path], err_msg=path,
-                                   atol=0.1 * tol, rtol=tol)
+    assert_stepped_params_close(before, js, ts, JAdamWConfig(**acfg))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
