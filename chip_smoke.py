@@ -49,21 +49,35 @@ traceback and a non-zero exit code; no failure is caught.
 
 The multi-device machinery (``repro_torch.sharding``, ``launch.mesh``):
 two ranks share the card over gloo, on (1, 2) and (2, 1), and run
-deepseek-7b's sharded forward and train step at full width (4 layers),
+deepseek-7b's sharded forward and train step at full width (2 layers),
 olmoe-1b-7b's expert-parallel MoE layer and the GPipe pipeline, then serve
 (float32 prefill of 4 x 2048 tokens and 8 greedy ticks, on each rank's
 blocks of the weights and the caches) deepseek-7b, rwkv6-7b, zamba2-7b,
 whisper-small, deepseek-v3-671b's dense MLA layers and olmoe-1b-7b at full
 width, against the one-device path on the same weights; rank 0's train
 step and prefill run alone (``Mesh.alone``) against their peaks among the
-peers; and the planner over profile meshes, one rank of the job run alone
+peers; mistral-large-123b at full width (1 layer, float32) on (2, 1)
+under ``fsdp_params``, each layer gathered over 'data' as it is read: its
+prefill of 2 x 2048, 2 greedy ticks and one loss and backward against the
+one-device path, no all-gather larger than one layer's largest leaf; and
+the planner over profile meshes, one rank of the job run alone
 on the card: deepseek-7b's float32 train step on (1, 2) at 30 layers,
 llama-3.2-vision-90b's full AdamW step on (1, 8), and mistral-large-123b's
 bf16 prefill on (1, 8) and decode of 32 x 32768 positions on (1, 16), each
 at its 88 layers.
 
+The dry-run tooling (``launch.costs``, ``launch.roofline``,
+``launch.dryrun.run_cell``, ``launch.perf``): each kernel's FLOP and byte
+formula against the count of its plain version on the card at the
+kernels phase's shapes; run_cell on rank 0 alone of the single-pod (16,
+16) mesh at full width for deepseek-7b's train_4k, mistral-large-123b's
+train_4k (the train cells cut to 6 layers), prefill_32k and decode_32k
+and perf.py's three whisper-small variants (memory, counts, roofline
+terms); the planner's prediction of mistral-large-123b's
+prefill_32k rank at 88 layers against run_cell's measured peak.
+
 Phases, in order: env, kernels, parity, prefill, serve, train, planner,
-shard, allocate.
+shard, dryrun, allocate.
 ``--phases`` runs a subset while developing; such a run never prints the
 last line and exits 2.
 The kernels phase times each kernel on the device (CUDA events) beside its
@@ -91,6 +105,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -99,7 +114,7 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("env", "kernels", "parity", "prefill", "serve", "train",
-          "planner", "shard", "allocate")
+          "planner", "shard", "dryrun", "allocate")
 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -332,14 +347,16 @@ ALLOC_TIMEOUT_S = 600.0
 # the leaves that hold most of them), while a rank's block that was never
 # gathered is half a leaf and a step not taken all of it), a bfloat16 forward at B=4 (flash attention at
 # the 16 heads of a rank), olmoe-1b-7b's MoE layer (moe_ep on (1, 2),
-# moe_ep_a2a on (2, 1)) and, on (1, 2), the pipeline over the 4 layers as
+# moe_ep_a2a on (2, 1)) and, on (1, 2), the pipeline over the 2 layers as
 # 2 stages; each against the one-device path on the same weights. The
 # gates: logits 1e-3 (the card-vs-CPU parity's), the loss 1e-4 relative,
 # parameters 1e-3 absolute and moments 1e-3 relative a leaf (the train
 # parities'), the bf16 logits 0.25 (the prefill's), the MoE 1e-4 (the
 # reference's tests/test_distribution.py), the pipeline 1e-3 relative, the
 # rank run alone 2 % of its peak among peers
-SHARD_LAYERS, SHARD_BF16_B, SHARD_LR = 4, 4, 1e-2
+# (2 layers, not 4, since the FSDP job and the dryrun phase joined the
+# smoke: they keep it inside its time limit)
+SHARD_LAYERS, SHARD_BF16_B, SHARD_LR = 2, 4, 1e-2
 SHARD_STEPS, SHARD_WARMUP, SHARD_SETTLED = 2, 1, 10.0
 SHARD_TRAIN = {"batch": 2, "seq": 2048}
 SHARD_MOE = {"batch": 2, "seq": 64}
@@ -364,7 +381,7 @@ SERVE_ARCHS = ("deepseek-7b", "rwkv6-7b", "zamba2-7b", "olmoe-1b-7b",
 # the one-device path's greedy token, against the one-device path on the
 # same weights: logits and each rank's blocks of the caches within
 # SHARD_GATES["logits"], every tick's greedy token equal. At full width:
-# deepseek-7b cut to SHARD_LAYERS (caches split on heads; also on (2, 1),
+# deepseek-7b cut to 2 layers (caches split on heads; also on (2, 1),
 # the batch split), rwkv6-7b to 2 layers (wo split on its layer axis, one
 # layer a rank), zamba2-7b to one group of 6 Mamba2 blocks and a shared
 # block, whisper-small whole, deepseek-v3-671b cut to its 3 dense MLA
@@ -378,7 +395,7 @@ SHARD_SERVE_ARCHS = {(1, 2): ("deepseek-7b", "rwkv6-7b", "zamba2-7b",
                               "whisper-small", "deepseek-v3-671b",
                               "olmoe-1b-7b"),
                      (2, 1): ("deepseek-7b",)}
-SHARD_SERVE_LAYERS = {"deepseek-7b": SHARD_LAYERS, "rwkv6-7b": 2,
+SHARD_SERVE_LAYERS = {"deepseek-7b": 2, "rwkv6-7b": 2,
                       "zamba2-7b": 6, "olmoe-1b-7b": 2}
 # flash attention's instances on the shard phase's serving ranks and the
 # planner's mistral-large-123b rank, (use, arch, B, Sq, Skv, H, Hkv, D,
@@ -408,6 +425,8 @@ SHARD_FLASH = (
     ("shard_olmoe", "olmoe-1b-7b", 4, 2048, 2048, 8, 8, 128, True, "float32"),
     ("planner_mistral", "mistral-large-123b", 4, 2048, 2048, 12, 1, 128, True,
      "bfloat16"),
+    ("shard_mistral_fsdp", "mistral-large-123b", 1, 2048, 2048, 96, 8, 128,
+     True, "float32"),
 )
 # wkv6 and ssd at a rank's heads of (1, 2), float32 as the serving runs
 # them: rwkv6-7b's prefill (32 of 64 heads) and decode tick, zamba2-7b's
@@ -423,6 +442,39 @@ SHARD_RECURRENT = (("wkv6_shard", (4, 2048, 32, 64)),
 # predicted at 88 layers and measured there on rank 0 alone
 PLANNER_MISTRAL = {"prefill": {"mesh": (1, 8), "batch": 4, "seq": 2048},
                    "decode": {"mesh": (1, 16), "batch": 32, "seq": 32768}}
+# (d) fsdp_params a layer at a time: mistral-large-123b at full width, cut
+# to 1 layer (7.1 GB of float32 weights), on two gloo ranks of (2, 1),
+# every ruled leaf split over 'data' inside the layer (the embedding and
+# the head on their rows), against the one-device path: a prefill of 2 x
+# 2048 and 2 greedy ticks (a row a rank), and one loss_and_grads of 2 x
+# 1024 (blocked attention, remat "boundaries"); every gradient block held
+# by its norm and its projection on a seeded random block. Each forward
+# moves its weights through gloo's loopback at ~0.5 GB/s a rank (4.35 GB a
+# rank at 1 layer, ~8.5 s a tick: 2 ticks, not 8, keep the smoke inside
+# its time); 2 layers, which put 'data' on the layer axis, moved 12.6 GB a
+# forward and took 330 s (the CPU tests hold both layouts)
+SHARD_FSDP = {"arch": "mistral-large-123b", "layers": 1, "mesh": (2, 1),
+              "batch": 2, "seq": 2048, "ticks": 2, "train_seq": 1024}
+FSDP_GATES = {"logits": 1e-3, "loss": 1e-4, "grads": 1e-3}
+# the dryrun phase: run_cell on rank 0 alone of the single-pod (16, 16)
+# mesh at full width, with the whole model's presets, (arch, shape, depth):
+# the train cells cut in depth (their 16 microbatches run ~4,000 ops a
+# layer each on the host: deepseek-7b's 30 layers took 40 s, and
+# mistral-large-123b's 88 took 120 s), each to 6 layers (a count that 16
+# does not divide keeps 'data' inside each layer, as 30 and 88 do; at 4
+# the embedding, which 6 N D counts and no product computes, put
+# deepseek-7b's useful FLOPs at 1.063 of the counted ones). The
+# full-depth peaks: benchmarks/torch_rank_peak.py
+DRYRUN_CELLS = (("deepseek-7b", "train_4k", 6),
+                ("mistral-large-123b", "train_4k", 6),
+                ("mistral-large-123b", "prefill_32k", None),
+                ("mistral-large-123b", "decode_32k", None))
+# useful FLOPs over counted: perf.py's whisper baseline of (16, 16) splits
+# none of its 12 heads over 'model' (12 % 16), so each of the 16 ranks
+# computes every head of its rows (the reference's hypothesis H1 for that
+# cell, which its dp256 variant answers): its fraction is held only below
+# the dp256 variant's
+DRYRUN_GATES = {"useful": (0.3, 1.0), "planner": 0.10}
 
 
 class SmokeFailure(RuntimeError):
@@ -1140,6 +1192,11 @@ def phase_kernels(state):
           "timed": timed, "gpu": state["smi"]})
     require(not bad, f"kernels disagree with their plain versions: {bad}")
     state["timed"] = timed
+    # every (kernel, shape, causal) of the phase, for the dryrun phase's
+    # check of the kernels' FLOP and byte formulas
+    state["kernel_shapes"] = sorted({
+        (c.get("kernel", c.get("name")), tuple(c["shape"]),
+         bool(c.get("causal", True))) for c in checks + timed})
     state["worst_err"] = {
         name: max(c["max_abs_err"] for c in checks
                   if c["kernel"] == name and c["dtype"] == str(bf16))
@@ -2931,7 +2988,7 @@ def shard_rank(rank, shape, store, ref_dir, seed, conn):
     bf.load_state_dict(flatten_tree(shard_params(full.params, bf.specs, mesh)))
     stage_layers = None
     if shape == (1, 2):
-        # this stage's two layers of the four, for the pipeline
+        # this stage's half of the layers, for the pipeline
         s = C.axis_index(mesh, "model")
         per = SHARD_LAYERS // 2
         stage_layers = {k: v[s * per:(s + 1) * per].clone() for k, v in
@@ -3038,7 +3095,7 @@ def shard_rank(rank, shape, store, ref_dir, seed, conn):
                   "grad_w_gate_abs_sum": float(mp["w_gate"].grad.abs().sum()),
                   "collectives": C.stats()}
     del mp, out, want
-    # (5) the pipeline: deepseek-7b's 4 layers over the 2 ranks as stages
+    # (5) the pipeline: deepseek-7b's layers over the 2 ranks as stages
     if stage_layers is not None:
         C.reset_stats()
         layers = {k: v.requires_grad_() for k, v in stage_layers.items()}
@@ -3282,6 +3339,303 @@ def rank_alone_prefill_peak(state, shape):
     return out
 
 
+def fsdp_cfg_runs():
+    """(d)'s config at full width cut to SHARD_FSDP["layers"] layers, and
+    its serving and train RunConfigs, both under fsdp_params."""
+    from repro_torch.configs import RunConfig, cut_depth, get_arch
+    cfg = cut_depth(get_arch(SHARD_FSDP["arch"]), SHARD_FSDP["layers"])
+    serve = RunConfig(attn_impl="kernel", remat="nothing",
+                      param_dtype="float32", compute_dtype="float32",
+                      fsdp_params=True)
+    train = serve.with_(attn_impl="blocked", remat="boundaries")
+    return cfg, serve, train
+
+
+def fsdp_inputs(cfg, seed, dev):
+    """The prompts (B, S) and the train batch (B, train_seq) of (d), drawn
+    on the card from `seed`: the same in the parent and the ranks."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 31)
+    B = SHARD_FSDP["batch"]
+    prompt = torch.randint(0, cfg.vocab_size, (B, SHARD_FSDP["seq"]),
+                           generator=gen, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (B, SHARD_FSDP["train_seq"]),
+                         generator=gen, device=dev)
+    return {"tokens": prompt}, {"tokens": toks, "labels": toks}
+
+
+def grad_stats(path, block, where):
+    """(norm, projection) of a gradient block: its 2-norm, and its dot with
+    a standard normal block drawn from (path, where). Two blocks' dots
+    differ by about the 2-norm of their difference: over the reference's
+    norm, a relative error of the whole block."""
+    gen = torch.Generator(device=block.device)
+    gen.manual_seed(zlib.crc32(f"{path}:{where}".encode()))
+    r = torch.randn(block.shape, generator=gen, device=block.device)
+    g = block.detach().float()
+    return float(g.norm()), float((g * r).sum())
+
+
+def fsdp_reference(state):
+    """(d)'s one-device path on the card: the prefill's last logits and
+    SHARD_FSDP["ticks"] greedy ticks (each fed the argmax before it), the
+    train batch's loss, and each rank's blocks' gradient statistics
+    (``grad_stats``) under the (2, 1) specs; the model freed after."""
+    from repro_torch.configs import MeshConfig
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models.model import Model
+    from repro_torch.sharding import rules
+    from repro_torch.train.step import loss_and_grads
+    from repro_torch.convert import flatten_tree
+
+    dev = torch.device(SHARD_DEVICE)
+    cfg, serve, train = fsdp_cfg_runs()
+    prompt, batch = fsdp_inputs(cfg, state["seed"], dev)
+    model = Model(cfg, serve, dev).init(seed=state["seed"])
+    S, ticks = SHARD_FSDP["seq"], SHARD_FSDP["ticks"]
+    lg, caches = model.prefill(prompt, S + ticks)
+    logits, toks = [lg], [greedy(lg, cfg.vocab_size)[1]]
+    for _ in range(ticks):
+        lg, caches = model.decode_step({"tokens": toks[-1][:, None]}, caches)
+        logits.append(lg)
+        toks.append(greedy(lg, cfg.vocab_size)[1])
+    ref = {"logits": torch.stack(logits).cpu(),
+           "tokens": torch.stack(toks).cpu()}
+    del caches, lg, logits
+    model.run = train
+    model.trainable()
+    loss, _, grads = loss_and_grads(model, model.params, batch)
+    ref["loss"] = float(loss)
+    shape = MeshShape(MeshConfig(SHARD_FSDP["mesh"], ("data", "model")))
+    specs = flatten_tree(Model(cfg, train, "meta", shape).specs)
+    ref["grads"] = {}
+    for path, g in flatten_tree(grads).items():
+        for rank in range(shape.config.n_devices):
+            block = rules.shard_tensor(g, specs[path], shape,
+                                       coords=shape.coords_of(rank))
+            ref["grads"][(path, rank)] = grad_stats(path, block, rank)
+    del model, grads, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def fsdp_rank(rank, store, seed, ref, conn):
+    """One rank of (d): its blocks of the one-device weights under
+    fsdp_params, the prefill of its row and the ticks fed the reference's
+    tokens, then loss_and_grads of its rows; sends its report."""
+    from repro_torch.configs import MeshConfig
+    from repro_torch.convert import flatten_tree, shard_params
+    from repro_torch.launch.mesh import make_mesh, shutdown
+    from repro_torch.models.model import Model
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding import rules
+    from repro_torch.train import step as S
+
+    torch.cuda.set_device(0)
+    dev = torch.device(SHARD_DEVICE)
+    mesh = make_mesh(MeshConfig(SHARD_FSDP["mesh"], ("data", "model")),
+                     "gloo", dev, init_method=f"file://{store}", rank=rank,
+                     timeout_s=SHARD_TIMEOUT_S)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, serve, train = fsdp_cfg_runs()
+    prompt, batch = fsdp_inputs(cfg, seed, dev)
+    full = Model(cfg, serve, dev).init(seed=seed)
+    model = Model(cfg, serve, dev, mesh)
+    model.load_state_dict(flatten_tree(shard_params(full.params, model.specs,
+                                                    mesh)))
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep = {"rank": rank, "coords": mesh.coords}
+    counts, shapes = dict.fromkeys(KERNELS, 0), {}
+
+    def local(t):
+        return rules.shard_tensor(t, rules.batch_spec(mesh, t.dim()),
+                                  mesh).contiguous()
+
+    def counted(fn):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, n in read_counts().items():
+            counts[k] += n
+        add_shapes(shapes, read_shapes())
+        return out
+
+    ticks = SHARD_FSDP["ticks"]
+    b = SHARD_FSDP["batch"] // mesh.size(("pod", "data"))
+    r0 = mesh.index(("pod", "data")) * b
+    rows = ref["tokens"][:, r0:r0 + b].to(dev)          # (ticks + 1, b)
+    want = ref["logits"][:, r0:r0 + b].to(dev)          # (ticks + 1, b, 1, V)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    C.reset_stats()
+    t0 = time.monotonic()
+    lg, caches = counted(lambda: model.prefill(
+        {"tokens": local(prompt["tokens"])}, SHARD_FSDP["seq"] + ticks))
+    rep["prefill_s"] = time.monotonic() - t0
+    rep["prefill_gathers"] = C.stats()["all_gather"]
+    errs, agree = [float((lg - want[0]).abs().max())], []
+    t0 = time.monotonic()
+    for t in range(ticks):
+        agree.append(bool(torch.equal(greedy(lg, cfg.vocab_size)[1],
+                                      rows[t])))
+        lg, caches = counted(lambda: model.decode_step(
+            {"tokens": rows[t][:, None]}, caches))
+        errs.append(float((lg - want[t + 1]).abs().max()))
+    agree.append(bool(torch.equal(greedy(lg, cfg.vocab_size)[1],
+                                  rows[ticks])))
+    rep["ticks_s"] = time.monotonic() - t0
+    rep["serve_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    rep["logits_max_abs_err"] = errs
+    rep["greedy_equal"] = agree
+    rep["serve_collectives"] = C.stats()
+    del lg, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    model.run = train
+    model.trainable()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    C.reset_stats()
+    t0 = time.monotonic()
+    loss, _, grads = counted(lambda: S.loss_and_grads(
+        model, model.params, {k: local(v) for k, v in batch.items()}))
+    S._reduce_grads(model, grads)
+    torch.cuda.synchronize()
+    rep["train_s"] = time.monotonic() - t0
+    rep["train_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    rep["train_collectives"] = C.stats()
+    rep["loss"] = float(loss)
+    rep["grads"] = {(path, rank): grad_stats(path, g, rank)
+                    for path, g in flatten_tree(grads).items()}
+    rep["launches"], rep["launches_by_shape"] = counts, shapes
+    conn.send(rep)
+    shutdown(mesh)
+
+
+def fsdp_world(state):
+    """(d): the one-device references, then the two ranks of (2, 1); their
+    gates. Returns the records emitted."""
+    import multiprocessing
+    from repro_torch.configs import MeshConfig
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models.model import Model
+    from repro_torch.convert import flatten_tree
+
+    t0 = time.monotonic()
+    ref = fsdp_reference(state)
+    ref_s = time.monotonic() - t0
+    cfg, serve, _ = fsdp_cfg_runs()
+    ctx = multiprocessing.get_context("spawn")
+    (ROOT / "build").mkdir(exist_ok=True)
+    store_dir = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    n = SHARD_FSDP["mesh"][0] * SHARD_FSDP["mesh"][1]
+    procs, conns = [], []
+    t0 = time.monotonic()
+    for rank in range(n):
+        parent, child = ctx.Pipe()
+        proc = ctx.Process(target=fsdp_rank, args=(
+            rank, str(store_dir / "store"), state["seed"],
+            {"tokens": ref["tokens"], "logits": ref["logits"]}, child),
+            daemon=True)
+        proc.start()
+        procs.append(proc)
+        conns.append(parent)
+    deadline = time.monotonic() + SHARD_TIMEOUT_S
+    reports = []
+    for rank, conn in enumerate(conns):
+        ready = conn.poll(max(1.0, deadline - time.monotonic()))
+        if not ready:
+            for proc in procs:
+                proc.kill()
+        require(ready, f"fsdp: rank {rank} sent no report in "
+                       f"{SHARD_TIMEOUT_S} s")
+        reports.append(conn.recv())
+    for proc in procs:
+        proc.join(120)
+        if proc.is_alive():
+            proc.kill()
+        require(proc.exitcode == 0, f"fsdp: a rank exited with "
+                                    f"{proc.exitcode}")
+    shutil.rmtree(store_dir, ignore_errors=True)
+    world_s = time.monotonic() - t0
+    # the largest leaf of one layer, float32: what no gather may exceed
+    shape = MeshShape(MeshConfig(SHARD_FSDP["mesh"], ("data", "model")))
+    meta = Model(cfg, serve, "meta", shape)
+    full, specs = flatten_tree(meta.full_shapes), flatten_tree(meta.specs)
+    layer_leaves = [math.prod(full[p][1:]) * 4 for p in full
+                    if p.startswith("layers.") and "data" in specs[p]]
+    largest = max(layer_leaves)
+    per_forward = len(layer_leaves) * SHARD_FSDP["layers"] + sum(
+        1 for p in full if not p.startswith("layers.") and "data" in specs[p])
+    GiB = 1024 ** 3
+    for rep in reports:
+        add_launches(state, rep["launches"], rep["launches_by_shape"])
+        what = f"fsdp (2, 1) rank {rep['rank']}"
+        gathers = rep["prefill_gathers"]
+        g_errs = []
+        for key, (norm, proj) in rep["grads"].items():
+            rn, rp = ref["grads"][key]
+            g_errs.append((abs(norm - rn) / max(rn, 1e-30),
+                           abs(proj - rp) / max(rn, 1e-30), key[0]))
+        worst_norm = max(g_errs)
+        worst_proj = max(g_errs, key=lambda e: e[1])
+        emit({"phase": "shard", "part": "fsdp", "arch": SHARD_FSDP["arch"],
+              "layers": SHARD_FSDP["layers"], "mesh": list(SHARD_FSDP["mesh"]),
+              "rank": rep["rank"], "dtype": "float32",
+              "prefill": [SHARD_FSDP["batch"], SHARD_FSDP["seq"]],
+              "ticks": SHARD_FSDP["ticks"],
+              "train": [SHARD_FSDP["batch"], SHARD_FSDP["train_seq"]],
+              "logits_max_abs_err": max(rep["logits_max_abs_err"]),
+              "logits_max_abs_err_by_step": rep["logits_max_abs_err"],
+              "greedy_equal": all(rep["greedy_equal"]),
+              "loss": rep["loss"], "loss_ref": ref["loss"],
+              "grad_norm_max_rel_err": worst_norm[0],
+              "grad_norm_worst_leaf": worst_norm[2],
+              "grad_projection_max_rel_err": worst_proj[1],
+              "grad_projection_worst_leaf": worst_proj[2],
+              "prefill_all_gather_calls": gathers["calls"],
+              "prefill_all_gather_expected": per_forward,
+              "largest_all_gather_bytes": gathers["max_bytes"],
+              "largest_layer_leaf_bytes": largest,
+              "prefill_s": rep["prefill_s"], "ticks_s": rep["ticks_s"],
+              "train_s": rep["train_s"],
+              "serve_peak_gib": rep["serve_peak_bytes"] / GiB,
+              "train_peak_gib": rep["train_peak_bytes"] / GiB,
+              "serve_collectives": rep["serve_collectives"],
+              "train_collectives": rep["train_collectives"],
+              "launches": rep["launches"],
+              "launches_by_shape": shapes_text(rep["launches_by_shape"]),
+              "references_seconds": ref_s, "world_seconds": world_s,
+              "collective_times": "gloo between two ranks of one card: "
+                                  "loopback, not NVLink; no yardstick",
+              "gpu": state["smi"]})
+        require(max(rep["logits_max_abs_err"]) < FSDP_GATES["logits"],
+                f"{what}: logits {rep['logits_max_abs_err']}")
+        require(all(rep["greedy_equal"]), f"{what}: greedy tokens differ: "
+                                          f"{rep['greedy_equal']}")
+        require(abs(rep["loss"] - ref["loss"]) / abs(ref["loss"]) <
+                FSDP_GATES["loss"], f"{what}: loss {rep['loss']} vs "
+                                    f"{ref['loss']}")
+        require(worst_norm[0] < FSDP_GATES["grads"] and
+                worst_proj[1] < FSDP_GATES["grads"],
+                f"{what}: gradients {worst_norm} {worst_proj}")
+        require(gathers["calls"] == per_forward,
+                f"{what}: {gathers['calls']} all-gathers in the prefill, "
+                f"{per_forward} leaves to gather")
+        require(0 < gathers["max_bytes"] <= largest,
+                f"{what}: an all-gather of {gathers['max_bytes']} bytes, "
+                f"one layer's largest leaf {largest}")
+        require(rep["launches"]["rmsnorm"] > 0 and
+                rep["launches"]["flash_attention"] > 0,
+                f"{what}: a kernel of the path was not launched: "
+                f"{rep['launches']}")
+        check_shard_flash(SHARD_FSDP["arch"], rep["launches_by_shape"])
+    return reports
+
+
 def phase_shard(state):
     """The multi-device machinery on the one card: (a) two ranks (gloo) on
     (1, 2) and (2, 1) against the one-device path on the same weights,
@@ -3461,7 +3815,175 @@ def phase_shard(state):
               "selection": rep.selection.config.name,
               "feasible": rep.selection.feasible_count,
               "fell_back": rep.selection.fell_back, "gpu": state["smi"]})
+    # (d) fsdp_params a layer at a time
+    t0 = time.monotonic()
+    fsdp_world(state)
+    emit({"phase": "shard", "part": "fsdp_seconds",
+          "seconds": time.monotonic() - t0})
     emit({"phase": "shard", "seconds": time.monotonic() - t_start,
+          "gpu": state["smi"]})
+
+
+def kernel_formulas(state):
+    """Each kernel's FLOP and byte formula (``costs`` of its module) against
+    ``launch.costs``' count of its plain version on the card, at every
+    (kernel, shape) of the kernels phase. Returns the number of shapes."""
+    from repro_torch.launch import costs as K
+    mods = {n: importlib.import_module(f"repro_torch.kernels.{n}")
+            for n in ("flash_attention", "rmsnorm", "wkv6", "ssd")}
+    require("kernel_shapes" in state,
+            "dryrun: the kernels phase gives the shapes; run it first")
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    bad = []
+    for kernel, shape, causal in state["kernel_shapes"]:
+        if kernel == "flash_attention":
+            B, Sq, Skv, H, Hkv, D = shape
+            q = torch.zeros((B, Sq, H, D), device=dev)
+            k = torch.zeros((B, Skv, Hkv, D), device=dev)
+            fn = lambda: mods[kernel].flash_attention_plain(  # noqa: E731
+                q, k, k, causal=causal)
+            want = mods[kernel].costs(B, Sq, Skv, H, Hkv, D, 4)
+        elif kernel in ("rmsnorm", "rmsnorm_backward"):
+            x = torch.zeros(shape, device=dev)
+            sc = torch.ones(shape[-1], device=dev)
+            m = mods["rmsnorm"]
+            fn = (lambda: m.rmsnorm_plain(x, sc)) if kernel == "rmsnorm" \
+                else (lambda: m.rmsnorm_backward_plain(x, sc, x))
+            rows = math.prod(shape[:-1])
+            want = m.costs(rows, shape[-1], 4,
+                           backward=kernel == "rmsnorm_backward")
+        elif kernel == "wkv6":
+            B, S, H, Kd = shape
+            r = torch.zeros((B, S, H, Kd), device=dev)
+            fn = lambda: mods[kernel].wkv6_plain(  # noqa: E731
+                r, r, r, r, torch.zeros((H, Kd), device=dev), chunk=16)
+            want = mods[kernel].costs(B, S, H, Kd, 4, 16)
+        else:
+            B, S, H, P, N = shape
+            xs = torch.zeros((B, S, H, P), device=dev)
+            bm = torch.zeros((B, S, H, N), device=dev)
+            fn = lambda: mods[kernel].ssd_plain(  # noqa: E731
+                xs, torch.zeros((B, S, H), device=dev),
+                torch.zeros(H, device=dev), bm, bm, chunk=128)
+            want = mods[kernel].costs(B, S, H, P, N, 4, 128)
+        _, got = K.count(fn)
+        if (got.dot_flops, got.dot_bytes) != tuple(want[:2]):
+            bad.append({"kernel": kernel, "shape": list(shape),
+                        "counted": [got.dot_flops, got.dot_bytes],
+                        "formula": list(want[:2])})
+        torch.cuda.empty_cache()
+    require(not bad, f"dryrun: kernel formulas disagree with the counts of "
+                     f"their plain versions: {bad}")
+    return len(state["kernel_shapes"])
+
+
+DRYRUN_FIELDS = {
+    "memory": ("argument_bytes", "output_bytes", "temp_bytes", "alias_bytes",
+               "peak_bytes", "per_device_bytes", "per_device_gib"),
+    "hlo_costs": ("dot_flops_per_dev", "dot_bytes_per_dev", "n_while",
+                  "max_trip_multiplier"),
+    "collectives": ("wire_bytes_per_dev", "by_kind", "counts"),
+    "roofline": ("compute_s", "memory_s", "collective_s", "dominant",
+                 "model_flops_total", "model_flops_per_dev",
+                 "hlo_flops_per_dev", "useful_flops_fraction", "mfu_bound"),
+    "params": ("total", "active")}
+
+
+def check_record(rec, what, useful=None):
+    """The dryrun phase's gates on one run_cell record; `useful` the
+    bounds of its useful FLOPs fraction (DRYRUN_GATES' by default)."""
+    for key in ("cell", "arch", "shape", "mesh", "axes", "n_devices"):
+        require(key in rec, f"{what}: no {key}")
+    for section, keys in DRYRUN_FIELDS.items():
+        for key in keys:
+            require(rec.get(section, {}).get(key) is not None,
+                    f"{what}: no {section}.{key}")
+    r = rec["roofline"]
+    require(r["dominant"] in ("compute", "memory", "collective"),
+            f"{what}: dominant {r['dominant']}")
+    lo, hi = useful or DRYRUN_GATES["useful"]
+    require(lo < r["useful_flops_fraction"] <= hi,
+            f"{what}: useful FLOPs fraction {r['useful_flops_fraction']}")
+
+
+def phase_dryrun(state):
+    """The dry-run tooling on the card: each kernel's FLOP and byte formula
+    against the count of its plain version at the kernels phase's shapes;
+    run_cell on rank 0 alone of the single-pod (16, 16) mesh at full width
+    for DRYRUN_CELLS and perf.py's whisper variants, each
+    record's memory, counts and roofline; the planner over the (16, 16)
+    profile mesh against run_cell's measured peak of mistral-large-123b's
+    prefill_32k."""
+    from dataclasses import replace
+    from repro_torch.configs import SHAPES, SINGLE_POD, get_arch
+    from repro_torch.core.hbm_planner import HBMPlanner
+    from repro_torch.launch.dryrun import run_cell, summary
+    from repro_torch.launch.mesh import mesh_of
+    from repro_torch.launch.perf import variants
+    from repro_torch.launch.presets import preset_run
+
+    GiB = 1024 ** 3
+    t0 = time.monotonic()
+    n_shapes = kernel_formulas(state)
+    emit({"phase": "dryrun", "part": "kernel_formulas", "shapes": n_shapes,
+          "seconds": time.monotonic() - t0})
+    records = {}
+    for arch, shape, layers in DRYRUN_CELLS:
+        cfg = get_arch(arch)
+        run = preset_run(cfg, SHAPES[shape], SINGLE_POD)
+        if layers:
+            cfg = replace(cfg, n_layers=layers)
+        reset_counts()
+        rec = run_cell(cfg, SHAPES[shape], SINGLE_POD, run)
+        made, by = read_counts(), read_shapes()
+        add_launches(state, made, by)
+        rec["launches"] = made
+        emit({"phase": "dryrun", "part": "cell", "summary": summary(rec),
+              "layers": cfg.n_layers, **rec, "gpu": state["smi"]})
+        check_record(rec, f"dryrun {arch} {shape}")
+        records[(arch, shape)] = rec
+    shape, rows = variants("whisper")
+    useful = {}
+    for name, mshape, run, cfg in rows:
+        reset_counts()
+        rec = run_cell(cfg, shape, mesh_of(mshape), run)
+        made, by = read_counts(), read_shapes()
+        add_launches(state, made, by)
+        rec.update(variant=name, launches=made)
+        emit({"phase": "dryrun", "part": "perf", "summary": summary(rec),
+              **rec, "gpu": state["smi"]})
+        useful[name] = rec["roofline"]["useful_flops_fraction"]
+        check_record(rec, f"dryrun whisper/{name}",
+                     (0.0, 1.0) if name == "baseline" else None)
+    require(useful["baseline"] < useful["dp256"],
+            f"dryrun whisper: useful FLOPs {useful}")
+    # the planner's prediction of the prefill_32k rank at 88 layers, each
+    # depth of its ladder with the whole model's presets, as run_cell's
+    cfg, shape = get_arch("mistral-large-123b"), SHAPES["prefill_32k"]
+    t1 = time.monotonic()
+    planner = HBMPlanner()
+    rep = planner.plan(cfg, shape, run=preset_run(cfg, shape, SINGLE_POD),
+                       profile_mesh=SINGLE_POD)
+    pred = rep.model.predict(cfg.n_layers)
+    truth = records[("mistral-large-123b", "prefill_32k")]["memory"][
+        "peak_bytes"]
+    err = (pred - truth) / truth
+    emit({"phase": "dryrun", "part": "planner", "arch": cfg.name,
+          "shape": shape.name, "profile_mesh": list(SINGLE_POD.shape),
+          "ladder": rep.ladder,
+          "ladder_gib": [m / GiB for m in rep.per_dev_bytes],
+          "slope_gib": rep.model.slope / GiB,
+          "intercept_gib": rep.model.intercept / GiB, "r2": rep.model.r2,
+          "predicted_gib": pred / GiB, "run_cell_peak_gib": truth / GiB,
+          "error": err, "gate": DRYRUN_GATES["planner"],
+          "selection": rep.selection.config.name,
+          "requirement_gib": rep.requirement_gib,
+          "seconds": time.monotonic() - t1, "gpu": state["smi"]})
+    require(abs(err) < DRYRUN_GATES["planner"],
+            f"dryrun: the planner's {pred / GiB:.3f} GiB against run_cell's "
+            f"{truth / GiB:.3f} GiB at 88 layers")
+    emit({"phase": "dryrun", "seconds": time.monotonic() - t0,
           "gpu": state["smi"]})
 
 
@@ -3978,7 +4500,7 @@ def main(argv=None) -> int:
     run = {"env": phase_env, "kernels": phase_kernels, "parity": phase_parity,
            "prefill": phase_prefill, "serve": phase_serve, "train": phase_train,
            "planner": phase_planner, "shard": phase_shard,
-           "allocate": phase_allocate}
+           "dryrun": phase_dryrun, "allocate": phase_allocate}
     t0 = time.monotonic()
     for name in PHASES:
         if name in phases:

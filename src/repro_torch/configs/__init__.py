@@ -37,6 +37,13 @@ def get_arch(name: str) -> ModelConfig:
     return ARCHS[name]
 
 
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> bool:
+    """The reference's grid skips: long_500k only for sub-quadratic archs."""
+    if shape.name == "long_500k":
+        return cfg.sub_quadratic
+    return True
+
+
 def cut_depth(cfg: ModelConfig, layers: int) -> ModelConfig:
     """`cfg` cut to `layers` layers at full width. An MoE model keeps one
     MoE layer at least; a VLM's depth is rounded down to whole groups of

@@ -15,6 +15,10 @@ process, all started together, and the objects are linked into the library.
 of the current stream, switches the device only when the tensors are not on
 the current one, and raises on an error code. It does as little as it can,
 since at a decode step a call costs more on the host than on the card.
+
+``launched`` tells the observers added by ``observe`` (a cost count, for
+one) that a wrapper launched its kernel, and what its launch costs: the
+kernels know nothing of who listens.
 """
 from __future__ import annotations
 
@@ -211,6 +215,27 @@ def launch_packed(name: str, device: torch.device, layout: struct.Struct,
         _packed.addr = (ctypes.addressof(buf),)
     layout.pack_into(buf, 0, *values)
     _call(name, device, _packed.addr)
+
+
+_observers: List[Callable] = []     # observe(fn): fn(name, flops, bytes, io)
+
+
+def observe(fn: Callable) -> Callable[[], None]:
+    """Call ``fn(name, flops, nbytes, io_bytes)`` at every launch a wrapper
+    reports through ``launched``, until the function returned is called."""
+    _observers.append(fn)
+    return lambda: _observers.remove(fn)
+
+
+def launched(name: str, costs: Callable, *args, **kwargs) -> None:
+    """A wrapper launched the kernel `name`: each observer gets the launch's
+    ``costs(*args, **kwargs)`` (its module's formula: FLOPs and bytes of
+    its plain version in the dot set, and the bytes the kernel moves),
+    computed only where one listens."""
+    if _observers:
+        counts = costs(*args, **kwargs)
+        for fn in tuple(_observers):
+            fn(name, *counts)
 
 
 def refuse_gradients(name: str, *tensors) -> None:

@@ -49,6 +49,23 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(B, Sq, H, D).to(q.dtype)
 
 
+def costs(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int,
+          itemsize: int):
+    """(FLOPs, bytes, io bytes) of a launch (``build.launched``): the two
+    products of the plain version, float32 (B Hkv batches of (H/Hkv) Sq x D
+    by D x Skv, then of Sq x Skv by Skv x D; each's operands and output),
+    and the kernel's own traffic, q, k, v read once and the output written
+    once in the inputs' dtype. The causal mask does not cut the plain
+    version's products, so it does not cut these; over one key the second
+    sums one row, which ``einsum`` makes a product of elements."""
+    q, kv, s = B * H * Sq * D, B * Hkv * Skv * D, B * H * Sq * Skv
+    flops = 2 * B * H * Sq * Skv * D
+    nbytes = 4 * (q + kv + s)
+    if Skv > 1:
+        flops, nbytes = 2 * flops, 2 * nbytes
+    return flops, nbytes, itemsize * (2 * q + 2 * kv)
+
+
 def _check_strides(name: str, t: torch.Tensor) -> None:
     per16 = 16 // t.element_size()
     # the stride of a dimension of size 1 is never used
@@ -117,6 +134,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  *kernel_strides(q), *kernel_strides(k), *kernel_strides(v),
                  int(bool(causal)), 1.0 / math.sqrt(D), code)
     flash_attention.launches += 1
+    build.launched("flash_attention", costs, B, Sq, Skv, H, Hkv, D,
+                   q.element_size())
     key = (B, Sq, Skv, H, Hkv, D, bool(causal))
     flash_attention.launches_by_shape[key] = \
         flash_attention.launches_by_shape.get(key, 0) + 1

@@ -54,6 +54,19 @@ def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5,
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
+def costs(rows: int, d: int, itemsize: int, residual: bool = False,
+          backward: bool = False):
+    """(FLOPs, bytes, io bytes) of a launch (``build.launched``): none in
+    the dot set (the plain version, and its backward, hold no product),
+    and the kernel's own traffic: x (and the residual) read and the output
+    written, the scale read; the backward reads g as well and writes dx
+    and dscale."""
+    n = rows * d * itemsize
+    io = (3 if backward else 2) * n + (n if residual else 0) + \
+        (2 if backward else 1) * d * itemsize
+    return 0, 0, io
+
+
 def launch_shape(d: int, itemsize: int) -> Optional[Tuple[int, int, int]]:
     """(threads per row, 16-byte vectors per thread, rows per block) of the
     register kernel for rows of `d` elements of `itemsize` bytes: the fewest
@@ -153,6 +166,8 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5,
                         out_ptr, rows, d, eps, codes, mode)
     rmsnorm.launches += 1
     rmsnorm.launches_by_width[d] = rmsnorm.launches_by_width.get(d, 0) + 1
+    build.launched("rmsnorm", costs, rows, d, x.element_size(),
+                   residual is not None)
     return out
 
 
@@ -257,6 +272,8 @@ def rmsnorm_backward(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     rmsnorm_backward.launches += 1
     rmsnorm_backward.launches_by_width[d] = \
         rmsnorm_backward.launches_by_width.get(d, 0) + 1
+    build.launched("rmsnorm_backward", costs, rows, d, x.element_size(),
+                   residual is not None, backward=True)
     return dx, dscale
 
 

@@ -102,6 +102,31 @@ def ssd_plain(xs, dt, A, Bm, Cm, *, chunk: int = 128):
     return ssd_chunked(xs, dt, A, Bm, Cm, chunk)[0], None
 
 
+def costs(B: int, S: int, H: int, P: int, N: int, itemsize: int,
+          chunk: int = 128):
+    """(FLOPs, bytes, io bytes) of a launch (``build.launched``): the four
+    products a chunk of Q = min(chunk, S) rows of ``ssd_chunked`` runs, in
+    float32, over ceil(S / Q) chunks (C B^T, M x, C times the state, the
+    state's update; each's operands and output), and the kernel's own
+    traffic: xs, and B and C's one group, in the inputs' dtype, dt and y in
+    float32. `chunk` is the plain version's: the kernel's tile (64) does
+    not change y. At one row a chunk M x and the update sum over one row:
+    ``einsum`` makes them products of elements, no dot."""
+    Q = min(chunk, S)
+    n = -(-S // Q)
+    bh = B * H
+    flops = 2 * bh * Q * Q * N + 2 * bh * Q * N * P
+    nbytes = 4 * ((2 * bh * Q * N + bh * Q * Q) +
+                  (bh * Q * N + bh * N * P + bh * Q * P))
+    if Q > 1:
+        flops += 2 * bh * Q * Q * P + 2 * bh * N * Q * P
+        nbytes += 4 * ((bh * Q * Q + 2 * bh * Q * P) +
+                       (bh * N * Q + bh * Q * P + bh * N * P))
+    io = B * S * H * P * itemsize + 2 * B * S * N * itemsize + \
+        B * S * H * 4 + B * S * H * P * 4
+    return n * flops, n * nbytes, io
+
+
 def ssd(xs: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 128
         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -156,6 +181,7 @@ def ssd(xs: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  *xs.stride()[:3], *dt.stride(), *Bm.stride()[:3],
                  *Cm.stride()[:3], code, p_block(P))
     ssd.launches += 1
+    build.launched("ssd", costs, B, S, H, P, N, xs.element_size(), chunk)
     return y, None
 
 

@@ -87,6 +87,32 @@ def wkv6_plain(r, k, v, lw, u, *, state=None, chunk: int = 16):
     return wkv_chunked(r, k, v, lw, u, chunk, state=state)
 
 
+def costs(B: int, S: int, H: int, K: int, itemsize: int, chunk: int = 16):
+    """(FLOPs, bytes, io bytes) of a launch (``build.launched``): the five
+    products a chunk of Q = min(chunk, S) rows of ``wkv_chunked`` runs, in
+    float32, over ceil(S / Q) chunks (the decayed r.k sums A, the bonus
+    term, A v, r~ times the state, the state's update; each's operands and
+    output), and the kernel's own traffic: r, k, v in the inputs' dtype,
+    lw and y in float32, the state read and written in float32. `chunk`
+    is the plain version's: the kernel's own (16) does not change y. At
+    one row a chunk (a decode step) A v and the update sum over one row:
+    ``einsum`` makes them products of elements, no dot."""
+    Q = min(chunk, S)
+    n = -(-S // Q)
+    bh = B * H
+    a = B * Q * Q * H
+    flops = 2 * a * K + 2 * B * Q * H * K + 2 * bh * Q * K * K
+    nbytes = 4 * ((2 * a * K + a) + (2 * B * Q * H * K + B * Q * H) +
+                  (2 * bh * Q * K + bh * K * K))
+    if Q > 1:
+        flops += 2 * bh * Q * Q * K + 2 * bh * K * Q * K
+        nbytes += 4 * ((bh * Q * Q + 2 * bh * Q * K) +
+                       (2 * bh * Q * K + bh * K * K))
+    io = 3 * B * S * H * K * itemsize + 2 * B * S * H * K * 4 + \
+        2 * B * H * K * K * 4 + H * K * 4
+    return n * flops, n * nbytes, io
+
+
 def _check(r, k, v, lw, u, state, state_out):
     if r.dim() != 4 or k.shape != r.shape or v.shape != r.shape or \
             lw.shape != r.shape:
@@ -171,6 +197,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
                  *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *lw.stride()[:3], code)
     wkv6.launches += 1
+    build.launched("wkv6", costs, B, S, H, K, r.element_size(), chunk)
     return y, state_out
 
 

@@ -17,8 +17,8 @@ A ``MeshShape`` holds the axes alone, and gives any rank's coordinates
 (``coords_of``); the rules read it, and no collective
 runs over it.
 
-``make_production_mesh`` and ``mesh_config`` give shapes only and start no
-process group. The reference's ``compat_shard_map`` and
+``make_production_mesh``, ``mesh_of`` and ``mesh_config`` give shapes only
+and start no process group. The reference's ``compat_shard_map`` and
 ``compat_axis_size`` have no counterpart here: the port writes its
 collectives out (``collectives.axis_size``, ``collectives.axis_index``).
 """
@@ -199,6 +199,15 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
     """The reference's production shapes, (16, 16) or (2, 16, 16): shapes
     only, no process group."""
     return MeshShape(MULTI_POD if multi_pod else SINGLE_POD)
+
+
+def mesh_of(shape) -> MeshConfig:
+    """The MeshConfig of a shape or of its text ("16x16"): two axes are
+    (data, model), three (pod, data, model)."""
+    if isinstance(shape, str):
+        shape = tuple(int(n) for n in shape.split("x"))
+    axes = ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+    return MeshConfig(tuple(shape), axes)
 
 
 def mesh_config(mesh) -> MeshConfig:

@@ -10,10 +10,13 @@ GiB a chip:
   axes);
 * decode/prefill run microbatches=1 and keep ZeRO off (no optimizer).
 
-The port runs on one card and shards nothing yet, so of these only the
-dtypes, the remat policy, the attention implementation and the
-microbatches take effect. Its attention default is "blocked", as the
-reference's.
+Every field takes effect in the port: over a mesh (``launch.mesh``) the
+rules split the weights by ``fsdp_params`` and ``fsdp_experts``
+(gathered a layer at a time), ZeRO-1 splits the optimizer state, and a
+rank runs its microbatches; on one card the mesh flags lay out nothing.
+The sizes stay the reference's, tuned for 16 GiB a chip: the planner and
+``run_cell`` measure what they cost on an H100. The attention default is
+"blocked", as the reference's.
 """
 from __future__ import annotations
 

@@ -49,8 +49,13 @@ axes, ``rules.batch_spec``) and write their collectives out: tensor
 parallelism over 'model' (heads, ff, experts, vocabulary) for the dense,
 MoE (GQA) and VLM families; data parallelism over 'pod' and 'data' for
 every family. ``fsdp_params``' leaves split over 'data' are all-gathered
-once a forward (their gradients reduce-scattered back), ``fsdp_experts``'
-per MoE layer. ``forward`` returns this rank's block of the logits
+where they are read, in every entry point (``forward``, ``loss_fn``,
+``prefill``, ``decode_step``): a stack's a layer at a time, inside the
+function that a remat policy checkpoints (``transformer.layer_slices``),
+the top-level leaves (the embedding, the head, the MTP block) where the
+model reads them; their gradients are reduce-scattered back as each
+layer's backward ends. ``fsdp_experts``' expert leaves are gathered by the
+MoE a layer at a time. ``forward`` returns this rank's block of the logits
 (split over the vocabulary where 'model' splits it); ``loss_fn`` the loss
 of the whole batch on every rank. Every family splits over 'model': the
 RWKV6 layer and the Mamba2 block on their heads (``rwkv``, ``ssm``),
@@ -84,7 +89,6 @@ from repro_torch.sharding import collectives as C
 from repro_torch.sharding import rules
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
-EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 NORM_LEAVES = ("norm", "ln1", "ln2", "ln_cross", "enc_ln", "q_norm",
                "kv_norm")
 
@@ -244,8 +248,8 @@ class Model(nn.Module):
         draw is the one-device init's (truncated normal at 1/sqrt of the
         whole leaf's fan-in, ones for the norms, zeros for the VLM's gates),
         not its values. A family with leaves outside that table (FSDP of the
-        ssm, hybrid and audio families) draws the whole model once and keeps
-        its blocks."""
+        ssm and hybrid families) draws the whole model once and keeps its
+        blocks."""
         flat, specs = _flat(self.params), _flat(self.specs)
         full = _flat(self.full_shapes)
         kinds = {path: _leaf_init(path, full[path]) for path in flat}
@@ -304,13 +308,29 @@ class Model(nn.Module):
         """The mesh where 'model' splits the vocabulary, else None."""
         return self.mesh if self.vocab_split else None
 
+    def _fsdp(self, name: str) -> Optional[T.Fsdp]:
+        """The ``Fsdp`` of the top-level entry `name` (a stack, the MTP
+        block, a leaf), or None where 'data' splits nothing."""
+        if name not in self.specs:
+            return None
+        return T.fsdp_of(self.specs[name], self.mesh, self.run.fsdp_experts)
+
+    def _leaf(self, params, name: str) -> torch.Tensor:
+        """The top-level leaf `name`, gathered over 'data' where
+        ``fsdp_params`` split it: each read gathers it (a tied embedding
+        twice a forward)."""
+        return T.gather_tree({name: params[name]},
+                             T.fsdp_of({name: self.specs[name]}, self.mesh)
+                             )[name]
+
     def _embed(self, params, tokens):
-        return L.embed(params["embed"], tokens, self.compute_dtype,
-                       self._vocab_mesh())
+        return L.embed(self._leaf(params, "embed"), tokens,
+                       self.compute_dtype, self._vocab_mesh())
 
     def _logits(self, params, x):
         x = L.rms_norm(x, params["norm"], self.cfg.norm_eps)
-        head = params["embed"] if self.cfg.tie_embeddings else params["head"]
+        head = self._leaf(params, "embed" if self.cfg.tie_embeddings
+                          else "head")
         lg = L.logits(head, x, self._vocab_mesh())
         # the padded columns, in this rank's block of the vocabulary
         start = C.axis_index(self._vocab_mesh(), "model") * lg.shape[-1]
@@ -322,24 +342,6 @@ class Model(nn.Module):
     def _cross_entropy(self, lg, labels):
         return L.cross_entropy(lg, labels, mesh=self.mesh,
                                vocab_split=self.vocab_split)
-
-    def _gathered(self, params):
-        """`params` with the leaves ``fsdp_params`` split over 'data'
-        all-gathered (differentiably: the backward reduce-scatters their
-        gradients); ``fsdp_experts``' expert leaves stay split, gathered
-        per layer by the MoE."""
-        if self.mesh is None or C.axis_size(self.mesh, "data") == 1:
-            return params
-
-        def one(path, t, spec):
-            if path[-1] in EXPERT_LEAVES and self.run.fsdp_experts:
-                return t
-            for dim, entry in enumerate(spec):
-                if entry == "data":
-                    return C.all_gather(t, self.mesh, "data", dim)
-            return t
-
-        return rules.map_with_path(one, params, self.specs)
 
     @torch.no_grad()
     def forward(self, batch) -> torch.Tensor:
@@ -361,7 +363,7 @@ class Model(nn.Module):
         for an MTP block also "mtp", which the reference computes and does
         not report. aux is 0 for the dense, ssm and hybrid families."""
         cfg = self.cfg
-        params = self._gathered(self.params if params is None else params)
+        params = self.params if params is None else params
         h, aux = self._hidden(params, batch)
         labels = torch.as_tensor(batch["labels"]).to(self.device).long()
         ce = self._cross_entropy(self._logits(params, h), labels)
@@ -380,7 +382,7 @@ class Model(nn.Module):
         more moe block predicts token t + 2 from (norm(h_t), embed(token
         t + 1)); h is the stack's output before the final norm."""
         cfg, run = self.cfg, self.run
-        mp = params["mtp"]
+        mp = T.gather_tree(params["mtp"], self._fsdp("mtp"))
         tokens = self._tokens(batch)
         hn = L.rms_norm(h[:, :-1], mp["norm"], cfg.norm_eps)
         nxt = self._embed(params, tokens[:, 1:])
@@ -392,7 +394,6 @@ class Model(nn.Module):
         return self._cross_entropy(lg[:, :-1], labels[:, 2:])
 
     def _forward(self, params, batch) -> torch.Tensor:
-        params = self._gathered(params)
         return self._logits(params, self._hidden(params, batch)[0])
 
     def _hidden(self, params, batch):
@@ -402,28 +403,32 @@ class Model(nn.Module):
         x = self._embed(params, tokens)
         positions = torch.arange(tokens.shape[1], device=self.device)
         cfg, run, mesh = self.cfg, self.run, self.mesh
+        fsdp = self._fsdp("layers")
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         if cfg.family == "dense":
             x, aux = T.stack(params["layers"], x, cfg, run, kind="dense",
-                             positions=positions, mesh=mesh)
+                             positions=positions, mesh=mesh, fsdp=fsdp)
         elif cfg.family == "moe":
             if "dense_layers" in params:
                 x, _ = T.stack(params["dense_layers"], x, cfg, run,
                                kind="dense", positions=positions, mesh=mesh,
-                               d_ff=cfg.moe.d_ff_dense)
+                               d_ff=cfg.moe.d_ff_dense,
+                               fsdp=self._fsdp("dense_layers"))
             x, aux = T.stack(params["layers"], x, cfg, run, kind="moe",
-                             positions=positions, mesh=mesh)
+                             positions=positions, mesh=mesh, fsdp=fsdp)
         elif cfg.family == "ssm":
-            x = T.rwkv_stack(params["layers"], x, cfg, run, mesh)
+            x = T.rwkv_stack(params["layers"], x, cfg, run, mesh, fsdp)
         elif cfg.family == "hybrid":
             x = T.hybrid_stack(params["layers"], x, cfg, run,
-                               positions=positions, mesh=mesh)
+                               positions=positions, mesh=mesh, fsdp=fsdp)
         elif cfg.family == "vlm":
             x = T.vlm_stack(params["layers"], x, self._extra(batch, "media"),
-                            cfg, run, positions=positions, mesh=mesh)
+                            cfg, run, positions=positions, mesh=mesh,
+                            fsdp=fsdp)
         else:
             x = T.encdec_apply(params["layers"], self._extra(batch, "frames"),
-                               x, cfg, run, positions=positions, mesh=mesh)
+                               x, cfg, run, positions=positions, mesh=mesh,
+                               fsdp=fsdp)
         return x, aux
 
     # --------------------------------------------------------------- serving
@@ -544,23 +549,24 @@ class Model(nn.Module):
         positions = torch.arange(S, device=self.device)
         names = ("ckv", "kr") if cfg.attention_kind == "mla" else ("k", "v")
 
-        def run_stack(layers, kind, d_ff=None):
+        def run_stack(name, kind, d_ff=None):
             nonlocal x
-            x, kv = T.stack_prefill(layers, x, cfg, run, kind=kind,
+            x, kv = T.stack_prefill(params[name], x, cfg, run, kind=kind,
                                     positions=positions, pad_to=max_len,
-                                    mesh=mesh, d_ff=d_ff)
+                                    mesh=mesh, d_ff=d_ff,
+                                    fsdp=self._fsdp(name))
             pos = torch.full((kv[0].shape[0], B), S, dtype=torch.int32,
                              device=self.device)
             return {**dict(zip(names, kv)), "pos": pos}
 
         if cfg.family == "dense":
-            caches = run_stack(params["layers"], "dense")
+            caches = run_stack("layers", "dense")
         else:
             caches = {}
             if "dense_layers" in params:
-                caches["dense"] = run_stack(params["dense_layers"], "dense",
+                caches["dense"] = run_stack("dense_layers", "dense",
                                             cfg.moe.d_ff_dense)
-            caches["moe"] = run_stack(params["layers"], "moe")
+            caches["moe"] = run_stack("layers", "moe")
         return self._logits(params, x[:, -1:]), caches
 
     @torch.no_grad()
@@ -572,30 +578,32 @@ class Model(nn.Module):
         tokens = self._tokens(batch)                     # (B, 1)
         x = self._embed(params, tokens)
         cfg, run, mesh = self.cfg, self.run, self.mesh
+        fsdp = self._fsdp("layers")
         if cfg.family == "dense":
             x, caches = T.stack_decode(params["layers"], x, caches, cfg, run,
-                                       kind="dense", mesh=mesh)
+                                       kind="dense", mesh=mesh, fsdp=fsdp)
         elif cfg.family == "moe":
             if "dense_layers" in params:
                 x, _ = T.stack_decode(params["dense_layers"], x,
                                       caches["dense"], cfg, run, kind="dense",
-                                      mesh=mesh, d_ff=cfg.moe.d_ff_dense)
+                                      mesh=mesh, d_ff=cfg.moe.d_ff_dense,
+                                      fsdp=self._fsdp("dense_layers"))
             x, _ = T.stack_decode(params["layers"], x, caches["moe"], cfg, run,
-                                  kind="moe", mesh=mesh)
+                                  kind="moe", mesh=mesh, fsdp=fsdp)
         elif cfg.family == "ssm":
             x, caches = T.rwkv_stack_decode(params["layers"], x, caches, cfg,
-                                            run, mesh)
+                                            run, mesh, fsdp)
         elif cfg.family == "hybrid":
             x, caches = T.hybrid_stack_decode(params["layers"], x, caches,
-                                              cfg, run, mesh)
+                                              cfg, run, mesh, fsdp)
         elif cfg.family == "vlm":
             x, caches = T.vlm_stack_decode(params["layers"], x,
                                            self._extra(batch, "media"),
-                                           caches, cfg, run, mesh)
+                                           caches, cfg, run, mesh, fsdp)
         else:
             x, caches = T.encdec_decode(params["layers"], x,
                                         self._extra(batch, "enc_out"),
-                                        caches, cfg, run, mesh)
+                                        caches, cfg, run, mesh, fsdp)
         return self._logits(params, x), caches
 
 
@@ -616,15 +624,16 @@ def _leaf_init(path: str, shape) -> object:
     *parents, name = path.split(".")
     if name in NORM_LEAVES:
         return "ones"
-    if name == "gate" and parents and parents[-1] == "attn":
-        return "zeros"                   # the VLM's tanh gate
+    if name == "gate" and len(shape) <= 1:
+        return "zeros"      # the cross-attention's tanh gates, one a layer
     if name in ("embed", "head"):
         return shape[-1]
-    if name in ("wq", "wk", "wv", "w_gate", "w_up"):
-        return shape[-3]                 # d, or the expert count
+    if name in ("wq", "wk", "wv", "w_gate", "w_up", "wuq", "wuk", "wuv"):
+        return shape[-3]        # d, the expert count, or MLA's lora rank
     if name == "wo" and len(shape) >= 3:
         return shape[-3] * shape[-2]
-    if name in ("gate", "up", "down", "router", "w_down", "proj"):
+    if name in ("gate", "up", "down", "router", "w_down", "proj", "wdq",
+                "wdkv", "wkr"):
         return shape[-2]
     return None
 
@@ -647,7 +656,7 @@ def analytic_param_count(cfg: ModelConfig, active_only: bool = False) -> int:
     total = expert = 0
     for name, p in model.tree.named_parameters():
         total += p.numel()
-        if name.rsplit(".", 1)[-1] in EXPERT_LEAVES:
+        if name.rsplit(".", 1)[-1] in T.EXPERT_LEAVES:
             expert += p.numel()
     if not active_only or cfg.moe is None:
         return total

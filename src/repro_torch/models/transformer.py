@@ -11,7 +11,7 @@ loop over that axis. Serving (no grad) reads each layer's slice as a view.
 Decode caches are updated in place.
 
 Under autograd every stack takes its layers out with one ``torch.unbind``
-of each leaf (``layer_params``), whose backward stacks the layers'
+of each leaf (``layer_slices``), whose backward stacks the layers'
 gradients once; indexing a[i] for every layer would give each layer's
 backward a zero tensor the size of the whole leaf. ``RunConfig.remat`` then
 wraps the bodies that the reference wraps in ``remat_wrap`` (``layer_fn``):
@@ -24,11 +24,22 @@ Every stack takes ``mesh=``: each layer's blocks are then this rank's
 the Mamba2 block write their collectives out (``attention``, ``layers``,
 ``moe``, ``rwkv``, ``ssm``). Prefill and decode over a mesh read and write
 this rank's blocks of the caches (``rules.cache_specs``).
+
+Under ``fsdp_params`` every stack takes ``fsdp=``, an ``Fsdp`` of the
+stacked tree's specs (``Model`` builds it where 'data' is above 1), and
+gathers each layer's leaves over 'data' as it reads that layer
+(``layer_slices``, ``gather_layer``), never the whole stack. Under grad
+mode the gather runs inside the function that ``layer_fn`` checkpoints, so
+that a remat policy keeps no gathered weight for the backward and the
+recompute gathers again; the all-gather's backward reduce-scatters the
+layer's gradient when that layer's backward ends.
 """
 from __future__ import annotations
 
+import math
+from dataclasses import dataclass
 from functools import partial
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -41,6 +52,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import rwkv as R
 from repro_torch.models import ssm as SSM
 from repro_torch.sharding import collectives as C
+from repro_torch.sharding.rules import map_with_path
 
 
 def tree_map(fn, tree):
@@ -251,16 +263,6 @@ def remat_wrap(fn, policy: str):
     raise ValueError(f"unknown remat policy {policy!r}")
 
 
-def layer_params(params, n: int):
-    """The n layers of a tree stacked on a leading axis: with grad mode on,
-    each leaf taken apart by one ``torch.unbind``; with no grad (serving),
-    each layer's slices as views."""
-    if torch.is_grad_enabled():
-        parts = tree_map(lambda a: a.unbind(0), params)
-        return [tree_map(lambda t: t[i], parts) for i in range(n)]
-    return [tree_map(lambda a: a[i], params) for i in range(n)]
-
-
 def flat_groups(params):
     """A tree stacked on (groups, layers in a group) as one stacked on
     groups x layers: views of the same storage."""
@@ -276,43 +278,209 @@ def layer_fn(fn, run: RunConfig):
     return remat_wrap(fn, run.remat if run.scan_layers else "nothing")
 
 
+# ---------------------------------------------------------------------------
+# fsdp_params: a stack's leaves gathered over 'data' a layer at a time
+# ---------------------------------------------------------------------------
+
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+@dataclass(frozen=True)
+class Fsdp:
+    """The specs of a (stacked) parameter tree whose leaves ``fsdp_params``
+    split over 'data', the mesh, and whether ``fsdp_experts`` split the
+    experts' ff over 'data' (the MoE gathers those itself): what
+    ``layer_slices`` reads to gather a layer."""
+    specs: Dict
+    mesh: object
+    experts: bool = False
+
+    def sub(self, name: str) -> "Fsdp":
+        return Fsdp(self.specs[name], self.mesh, self.experts)
+
+
+def fsdp_of(specs, mesh, experts: bool = False) -> Optional[Fsdp]:
+    """An ``Fsdp`` over `specs` where the mesh's 'data' axis is above 1,
+    else None (nothing to gather). `experts`: ``RunConfig.fsdp_experts``."""
+    if mesh is None or C.axis_size(mesh, "data") == 1:
+        return None
+    return Fsdp(specs, mesh, experts)
+
+
+def _data_dim(name: str, spec, ndim: int, experts: bool) -> Optional[int]:
+    """The dimension of a leaf that its spec splits over 'data', or None
+    where none is, or where it is the experts' ff and `experts` (then
+    ``fsdp_experts`` put 'data' there, and ``moe._experts`` gathers it
+    inside the MoE). Without ``fsdp_experts``, 'data' on an expert leaf is
+    ``fsdp_params``' (the first replicated dimension it divides, the ff of
+    w_down too) and the layer's gather takes it."""
+    for dim, entry in enumerate(spec):
+        if entry == "data":
+            if experts and name in EXPERT_LEAVES and \
+                    dim == (ndim - 2 if name == "w_down" else ndim - 1):
+                return None
+            return dim
+    return None
+
+
+def _locate(t, d: Optional[int], idx, lead: int):
+    """(the index of layer `idx` among `t`'s local layers, its gather step)
+    for a leaf whose spec puts 'data' on dimension `d` (``layer_slices``)."""
+    local_idx = list(idx)
+    step = None
+    if d is not None and d < lead:
+        per = t.shape[d]
+        step = ("owner", idx[d] // per)
+        local_idx[d] = idx[d] % per
+    elif d is not None:
+        step = ("gather", d - lead)
+    j = 0
+    for k in range(lead):
+        j = j * t.shape[k] + local_idx[k]
+    return j, step
+
+
+def layer_slices(params, fsdp: Optional[Fsdp] = None, lead: int = 1
+                 ) -> list:
+    """[(layer's local tree, its plan)] for every layer of a tree stacked on
+    `lead` leading axes (lead 2: groups, then layers in a group, in that
+    order), as this rank holds them; ``gather_layer(lp, plan)`` makes the
+    layer whole over 'data'. With grad mode on each leaf is taken apart by
+    one ``torch.unbind``, whose backward stacks the layers' gradients once
+    (indexing a[i] for every layer would give each layer's backward a zero
+    tensor the size of the whole leaf); with no grad each layer's slice is
+    a view. lead 0 is one layer (a block outside a stack).
+
+    Where ``fsdp_params`` puts 'data' on a leaf, a layer is gathered one of
+    two ways, by the dimension the spec puts 'data' on:
+
+    * inside the layer (d_model, heads, ff, ...): every rank holds a block
+      of every layer, and the layer's blocks are all-gathered over 'data'
+      on that dimension (``C.all_gather``; backward: the reduce-scatter of
+      the layer's gradient);
+    * on a LAYER axis (the layer count divides 'data' and the spec took
+      it, as a reduced model's two layers on two data ranks): a layer
+      lives whole on the rank that owns its block of layers. Every rank
+      all-gathers its own slice at the layer's place in its block, and
+      keeps the owner's, so that the owner's slice is handed to every rank;
+      the backward's reduce-scatter sums the ranks' gradients of the layer
+      onto the owner's slice (and exact zeros onto the others'). The
+      gather holds one layer from every data rank for that moment; at the
+      production meshes no layer count of a model that ``fsdp_params``
+      (``launch.presets``) splits divides 16, so 'data' never lands
+      there."""
+    if fsdp is None:
+        dims = tree_map(lambda t: None, params)
+    else:
+        dims = map_with_path(lambda path, t, spec: _data_dim(
+            path[-1], spec, t.dim(), fsdp.experts), params, fsdp.specs)
+    # the stacked axes' whole sizes
+    lead_shape = list(first_leaf(params).shape[:lead])
+    d = first_leaf(dims)
+    if d is not None and d < lead:
+        lead_shape[d] *= C.axis_size(fsdp.mesh, "data")
+    grad = torch.is_grad_enabled()
+
+    def split(t):
+        if not lead:
+            return t
+        local = t.reshape(-1, *t.shape[lead:])
+        return local.unbind(0) if grad else local
+
+    parts = tree_map(split, params)
+    out = []
+    for i in range(math.prod(lead_shape)):
+        idx, rest = [], i
+        for n in reversed(lead_shape):
+            idx.append(rest % n)
+            rest //= n
+        idx = idx[::-1]
+        where = map_with_path(lambda _, t, dim: _locate(t, dim, idx, lead),
+                              params, dims)
+        lp = map_with_path(lambda _, t, part, w: part[w[0]] if lead else t,
+                           params, parts, where)
+        plan = None if fsdp is None else (
+            fsdp.mesh, map_with_path(lambda _, t, w: w[1], params, where))
+        out.append((lp, plan))
+    return out
+
+
+def _gather_leaf(t, step, mesh):
+    if step is None:
+        return t
+    kind, arg = step
+    if kind == "gather":
+        return C.all_gather(t, mesh, "data", arg)
+    # the owner's slice: this rank's slice of the same place gathered from
+    # every data rank, the owner's kept; with no grad the others' are
+    # dropped with the view, under grad a copy lets them go at once
+    whole = C.all_gather(t.unsqueeze(0), mesh, "data", 0)[arg]
+    return whole.clone() if torch.is_grad_enabled() else whole
+
+
+def gather_layer(lp, plan):
+    """`lp`, a layer's local tree from ``layer_slices``, with its leaves
+    that 'data' splits all-gathered (``plan`` None: `lp` as it is)."""
+    if plan is None:
+        return lp
+    mesh, steps = plan
+    return map_with_path(lambda _, t, step: _gather_leaf(t, step, mesh),
+                         lp, steps)
+
+
+def gather_tree(tree, fsdp: Optional[Fsdp]):
+    """A tree that is no stack (the MTP block, a top-level leaf's dict)
+    gathered whole over 'data' where its leaves are read."""
+    if fsdp is None:
+        return tree
+    return gather_layer(*layer_slices(tree, fsdp, lead=0)[0])
+
+
+def _gathering(fn):
+    """`fn(lp, ...)`, a layer function, taking (lp, plan, ...): the layer is
+    gathered first, inside whatever wraps the result (``layer_fn``)."""
+    def call(lp, plan, *args, **kwargs):
+        return fn(gather_layer(lp, plan), *args, **kwargs)
+    return call
+
+
 def stack(params, x, cfg, run, *, kind="dense", positions=None, causal=True,
-          mesh=None, d_ff=None):
+          mesh=None, d_ff=None, fsdp: Optional[Fsdp] = None):
     """Run x through a stacked block group -> (x, summed aux)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    layer = layer_fn(block, run)
-    for lp in layer_params(params, n_stacked(params)):
-        x, aux = layer(lp, x, cfg, run, kind=kind, positions=positions,
+    layer = layer_fn(_gathering(block), run)
+    for lp, plan in layer_slices(params, fsdp):
+        x, aux = layer(lp, plan, x, cfg, run, kind=kind, positions=positions,
                        causal=causal, mesh=mesh, d_ff=d_ff)
         aux_total = aux_total + aux
     return x, aux_total
 
 
 def stack_decode(params, x, caches, cfg, run, *, kind="dense", mesh=None,
-                 d_ff=None):
+                 d_ff=None, fsdp: Optional[Fsdp] = None):
     """One token through a stacked group, threading per-layer caches.
     caches: dict of tensors stacked on axis 0; k and v are updated in place
     and `pos` is rewritten in place, so the dict handed back holds the same
     tensors."""
-    for i in range(n_stacked(params)):
+    for i, (lp, plan) in enumerate(layer_slices(params, fsdp)):
         cache = tree_map(lambda a: a[i], caches)
-        x, new_cache = block_decode(tree_map(lambda a: a[i], params), x,
-                                    cache, cfg, run, kind=kind, mesh=mesh,
-                                    d_ff=d_ff)
+        x, new_cache = block_decode(gather_layer(lp, plan), x, cache, cfg,
+                                    run, kind=kind, mesh=mesh, d_ff=d_ff)
         caches["pos"][i].copy_(new_cache["pos"])
     return x, caches
 
 
 def stack_prefill(params, x, cfg, run, *, kind="dense", positions=None,
-                  pad_to=0, mesh=None, d_ff=None):
+                  pad_to=0, mesh=None, d_ff=None, fsdp: Optional[Fsdp] = None):
     """Run a stacked group, collecting per-layer caches stacked on a
     leading axis: (x, (k, v)) with k, v (L, B, max(S, pad_to), K, D), or
     for MLA (x, (ckv, kr)) with ckv (L, B, max(S, pad_to), r) and kr
     (L, B, max(S, pad_to), rope); over a mesh, this rank's blocks."""
-    n = n_stacked(params)
+    slices = layer_slices(params, fsdp)
+    n = len(slices)
     out = None
-    for i in range(n):
-        x, kv = block_prefill(tree_map(lambda a: a[i], params), x, cfg, run,
+    for i, (lp, plan) in enumerate(slices):
+        x, kv = block_prefill(gather_layer(lp, plan), x, cfg, run,
                               kind=kind, positions=positions, pad_to=pad_to,
                               mesh=mesh, d_ff=d_ff)
         if out is None:
@@ -352,43 +520,73 @@ def _norms(lp):
     return {"ln1": lp["ln1"], "ln2": lp["ln2"]}
 
 
-def _rwkv_layer(lp, wo, x, cfg, run, mesh, like):
-    """One layer; `wo` the layer's (``rwkv.wo_rows`` takes the rows it
-    reads inside, so that a remat policy remakes them in the backward
-    instead of keeping every layer's)."""
-    lp = {**lp, "wo": R.wo_rows(wo, cfg, mesh, like)}
+def _rwkv_params(lp, plan, wo, cfg, mesh):
+    """A layer's parameters, gathered over 'data' (``gather_layer``), with
+    the rows of its ``wo`` that this rank reads (``rwkv.wo_rows``, inside
+    the layer function so that a remat policy remakes them in the backward
+    instead of keeping every layer's). `wo` is None where wo is a leaf of
+    the layer's tree, else (the layer's wo or None, like, its 'data'
+    step)."""
+    lp = gather_layer(lp, plan)
+    if wo is None:
+        return {**lp, "wo": R.wo_rows(lp["wo"], cfg, mesh)}
+    w, like, step = wo
+    if step is not None:
+        if w is not None:
+            w = _gather_leaf(w, step, mesh)
+        else:
+            # a layer this 'model' rank does not own: its data peers own
+            # none either; like (zeros in wo_rows) at the gathered shape
+            like = torch.cat([like] * C.axis_size(mesh, "data"), step[1])
+    return {**lp, "wo": R.wo_rows(w, cfg, mesh, like)}
+
+
+def _rwkv_layer(lp, plan, wo, x, cfg, run, mesh):
+    lp = _rwkv_params(lp, plan, wo, cfg, mesh)
     return R.rwkv_block(lp, x, cfg, run, _norms(lp), mesh)
 
 
-def _rwkv_layers(params, mesh):
-    """[(layer's parameters but wo, its wo, like)]: wo's leading axis is the
-    layers' where the rules leave it whole; split on it, a rank holds the
-    layers of its block (and None for the others' layers), and `like` is a
-    layer of its block (``rwkv.wo_rows``)."""
+def _rwkv_layers(params, mesh, fsdp=None):
+    """[(layer's local tree, its plan, wo)] (``_rwkv_params``). wo's
+    leading axis is the layers': where 'model' leaves it whole (read from
+    the spec under FSDP, else from the shape), wo is one more leaf of the
+    layer (``layer_slices``: 'data' may split it on any axis, the layer
+    axis too). Split on it over 'model', a rank holds the layers of its
+    block (and None for the others' layers), `like` is a layer of its block
+    (``rwkv.wo_rows``), and 'data' can only split it inside a layer: its
+    step gathers the owner's slice."""
     n = params["ln1"].shape[0]
     wo = params["wo"]
-    layers = layer_params({k: v for k, v in params.items() if k != "wo"}, n)
-    if wo.shape[0] == n:
-        return [(lp, w, None) for lp, w in zip(layers, layer_params(wo, n))]
+    spec = fsdp.specs["wo"] if fsdp is not None else None
+    by_model = spec[0] == "model" if spec else wo.shape[0] != n
+    if not by_model:
+        return [(lp, plan, None) for lp, plan in layer_slices(params, fsdp)]
+    rest = {k: v for k, v in params.items() if k != "wo"}
+    rest_fsdp = None if fsdp is None else Fsdp(
+        {k: v for k, v in fsdp.specs.items() if k != "wo"}, fsdp.mesh)
+    dim = None if spec is None else _data_dim("wo", spec, wo.dim(), False)
+    step = None if dim is None else ("gather", dim - 1)
     per = wo.shape[0]
     mine = C.axis_index(mesh, "model")
-    own = layer_params(wo, per)
-    return [(lp, own[i % per] if i // per == mine else None, own[0])
-            for i, lp in enumerate(layers)]
+    own = [lp["wo"] for lp, _ in layer_slices({"wo": wo})]
+    return [(lp, plan, (own[i % per] if i // per == mine else None, own[0],
+                        step))
+            for i, (lp, plan) in enumerate(layer_slices(rest, rest_fsdp))]
 
 
-def rwkv_stack(params, x, cfg, run, mesh=None):
+def rwkv_stack(params, x, cfg, run, mesh=None, fsdp: Optional[Fsdp] = None):
     layer = layer_fn(_rwkv_layer, run)
-    for lp, wo, like in _rwkv_layers(params, mesh):
-        x = layer(lp, wo, x, cfg, run, mesh, like)
+    for lp, plan, wo in _rwkv_layers(params, mesh, fsdp):
+        x = layer(lp, plan, wo, x, cfg, run, mesh)
     return x
 
 
-def rwkv_stack_decode(params, x, caches, cfg, run, mesh=None):
+def rwkv_stack_decode(params, x, caches, cfg, run, mesh=None,
+                      fsdp: Optional[Fsdp] = None):
     """One token through the stack; caches {"wkv", "tm_last", "cm_last"}
     stacked on axis 0 are updated in place and handed back."""
-    for i, (lp, wo, like) in enumerate(_rwkv_layers(params, mesh)):
-        lp = {**lp, "wo": R.wo_rows(wo, cfg, mesh, like)}
+    for i, (lp, plan, wo) in enumerate(_rwkv_layers(params, mesh, fsdp)):
+        lp = _rwkv_params(lp, plan, wo, cfg, mesh)
         x, _ = R.rwkv_block_decode(lp, x, tree_map(lambda a: a[i], caches),
                                    cfg, run, _norms(lp), mesh)
     return x, caches
@@ -443,36 +641,44 @@ def _mamba_layer(lp, x, cfg, run, mesh=None):
                           mesh)
 
 
-def hybrid_stack(params, x, cfg, run, *, positions=None, mesh=None):
+def _sub(fsdp: Optional[Fsdp], name: str) -> Optional[Fsdp]:
+    return None if fsdp is None else fsdp.sub(name)
+
+
+def hybrid_stack(params, x, cfg, run, *, positions=None, mesh=None,
+                 fsdp: Optional[Fsdp] = None):
     """The groups' Mamba2 blocks (each under `run.remat`), each group
-    followed by its shared block, unwrapped."""
+    followed by its shared block, unwrapped (gathered at each use)."""
     mamba, shared = params["mamba"], params["shared"]
-    G, period = first_leaf(mamba).shape[:2]
-    blocks = layer_params(flat_groups(mamba), G * period)
-    sets = layer_params(shared, n_stacked(shared))
-    layer = layer_fn(_mamba_layer, run)
+    G, period = mamba["ln"].shape[:2]
+    blocks = layer_slices(mamba, _sub(fsdp, "mamba"), lead=2)
+    sets = layer_slices(shared, _sub(fsdp, "shared"))
+    layer = layer_fn(_gathering(_mamba_layer), run)
     for g in range(G):
-        for lp in blocks[g * period:(g + 1) * period]:
-            x = layer(lp, x, cfg, run, mesh)
-        x, _ = block(sets[g % len(sets)], x, cfg, run, kind="dense",
-                     positions=positions, mesh=mesh, d_ff=_shared_d_ff(cfg))
+        for lp, plan in blocks[g * period:(g + 1) * period]:
+            x = layer(lp, plan, x, cfg, run, mesh)
+        x, _ = block(gather_layer(*sets[g % len(sets)]), x, cfg, run,
+                     kind="dense", positions=positions, mesh=mesh,
+                     d_ff=_shared_d_ff(cfg))
     return x
 
 
-def hybrid_stack_decode(params, x, caches, cfg, run, mesh=None):
+def hybrid_stack_decode(params, x, caches, cfg, run, mesh=None,
+                        fsdp: Optional[Fsdp] = None):
     """caches: {"mamba": (G, period, ...) Mamba2 caches, "attn": (G, ...) KV
     caches}, updated in place and handed back."""
     mamba, shared = params["mamba"], params["shared"]
-    G, period = first_leaf(mamba).shape[:2]
-    n_sets = n_stacked(shared)
+    G, period = mamba["ln"].shape[:2]
+    blocks = layer_slices(mamba, _sub(fsdp, "mamba"), lead=2)
+    sets = layer_slices(shared, _sub(fsdp, "shared"))
     for g in range(G):
         for i in range(period):
-            lp = tree_map(lambda a: a[g, i], mamba)
+            lp = gather_layer(*blocks[g * period + i])
             y, _ = SSM.mamba2_decode(
                 lp, L.rms_norm(x, lp["ln"], cfg.norm_eps),
                 tree_map(lambda a: a[g, i], caches["mamba"]), cfg, run, mesh)
             x = x + y
-        x, new = block_decode(tree_map(lambda a: a[g % n_sets], shared), x,
+        x, new = block_decode(gather_layer(*sets[g % len(sets)]), x,
                               tree_map(lambda a: a[g], caches["attn"]), cfg,
                               run, kind="dense", mesh=mesh,
                               d_ff=_shared_d_ff(cfg))
@@ -509,35 +715,39 @@ def fill_vlm(params, generator, cfg: ModelConfig):
     return params
 
 
-def vlm_stack(params, x, media, cfg, run, *, positions=None, mesh=None):
+def vlm_stack(params, x, media, cfg, run, *, positions=None, mesh=None,
+              fsdp: Optional[Fsdp] = None):
     """x (B, S, d) through the groups; media (B, M, d) in x's dtype. The
     self-attention blocks run under `run.remat`, the cross block
     unwrapped."""
     selfp, crossp = params["self"], params["cross"]
-    G, n_self = first_leaf(selfp).shape[:2]
-    selfs = layer_params(flat_groups(selfp), G * n_self)
-    layer = layer_fn(block, run)
-    for g, cp in enumerate(layer_params(crossp, G)):
-        for lp in selfs[g * n_self:(g + 1) * n_self]:
-            x, _ = layer(lp, x, cfg, run, kind="dense", positions=positions,
-                         mesh=mesh)
+    n_self = selfp["ln1"].shape[1]
+    selfs = layer_slices(selfp, _sub(fsdp, "self"), lead=2)
+    layer = layer_fn(_gathering(block), run)
+    for g, cross in enumerate(layer_slices(crossp, _sub(fsdp, "cross"))):
+        for lp, plan in selfs[g * n_self:(g + 1) * n_self]:
+            x, _ = layer(lp, plan, x, cfg, run, kind="dense",
+                         positions=positions, mesh=mesh)
+        cp = gather_layer(*cross)
         x, _ = block(cp, x, cfg, run, kind="cross", mesh=mesh,
                      media_kv=A.cross_attn_kv(cp["attn"], media, cfg, mesh))
     return x
 
 
-def vlm_stack_decode(params, x, media, caches, cfg, run, mesh=None):
+def vlm_stack_decode(params, x, media, caches, cfg, run, mesh=None,
+                     fsdp: Optional[Fsdp] = None):
     """caches: the self-attention blocks' KV caches, leaves
     (G, period - 1, B, ...), updated in place and handed back."""
     selfp, crossp = params["self"], params["cross"]
-    n_self = first_leaf(selfp).shape[1]
-    for g in range(n_stacked(crossp)):
+    n_self = selfp["ln1"].shape[1]
+    selfs = layer_slices(selfp, _sub(fsdp, "self"), lead=2)
+    for g, cross in enumerate(layer_slices(crossp, _sub(fsdp, "cross"))):
         for i in range(n_self):
-            x, new = block_decode(tree_map(lambda a: a[g, i], selfp), x,
+            x, new = block_decode(gather_layer(*selfs[g * n_self + i]), x,
                                   tree_map(lambda a: a[g, i], caches), cfg,
                                   run, kind="dense", mesh=mesh)
             caches["pos"][g, i].copy_(new["pos"])
-        cp = tree_map(lambda a: a[g], crossp)
+        cp = gather_layer(*cross)
         x, _ = block_decode(cp, x, None, cfg, run, kind="cross", mesh=mesh,
                             media_kv=A.cross_attn_kv(cp["attn"], media, cfg,
                                                      mesh))
@@ -589,7 +799,8 @@ def _sinusoid(S: int, d: int, dtype, device) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)[None]
 
 
-def encdec_encode(params, frames, cfg, run, mesh=None):
+def encdec_encode(params, frames, cfg, run, mesh=None,
+                  fsdp: Optional[Fsdp] = None):
     """The encoder half of ``encdec_apply``: frames (B, enc_len, d) plus the
     sinusoid, the non-causal stack and enc_ln -> enc_out (B, enc_len, d),
     what ``encdec_decode`` attends to."""
@@ -597,7 +808,7 @@ def encdec_encode(params, frames, cfg, run, mesh=None):
     enc = frames + _sinusoid(S, cfg.d_model, frames.dtype, frames.device)
     enc, _ = stack(params["enc"], enc, cfg, run, kind="dense",
                    positions=torch.arange(S, device=frames.device),
-                   causal=False, mesh=mesh)
+                   causal=False, mesh=mesh, fsdp=_sub(fsdp, "enc"))
     return L.rms_norm(enc, params["enc_ln"], cfg.norm_eps)
 
 
@@ -617,23 +828,25 @@ def _dec_block(lp, x, enc_out, cfg, run, positions, mesh=None):
 
 
 def encdec_apply(params, frames, tokens_x, cfg, run, *, positions=None,
-                 mesh=None):
+                 mesh=None, fsdp: Optional[Fsdp] = None):
     """frames (B, enc_len, d) stub embeddings; tokens_x (B, S, d) embedded
     tokens -> the decoder's output (B, S, d). The decoder layers run under
     `run.remat`, as the encoder's blocks do (``stack``)."""
-    enc_out = encdec_encode(params, frames, cfg, run, mesh)
-    layer = layer_fn(_dec_block, run)
+    enc_out = encdec_encode(params, frames, cfg, run, mesh, fsdp)
+    layer = layer_fn(_gathering(_dec_block), run)
     x = tokens_x
-    for lp in layer_params(params["dec"], n_stacked(params["dec"])):
-        x = layer(lp, x, enc_out, cfg, run, positions, mesh)
+    for lp, plan in layer_slices(params["dec"], _sub(fsdp, "dec")):
+        x = layer(lp, plan, x, enc_out, cfg, run, positions, mesh)
     return x
 
 
-def encdec_decode(params, x, enc_out, caches, cfg, run, mesh=None):
+def encdec_decode(params, x, enc_out, caches, cfg, run, mesh=None,
+                  fsdp: Optional[Fsdp] = None):
     """One token through the decoder; caches: the self-attention KV caches,
     leaves (n_layers, B, ...), updated in place and handed back."""
-    for i in range(n_stacked(params["dec"])):
-        lp = tree_map(lambda a: a[i], params["dec"])
+    for i, slices in enumerate(layer_slices(params["dec"],
+                                            _sub(fsdp, "dec"))):
+        lp = gather_layer(*slices)
         h, new = block_decode(lp, x, tree_map(lambda a: a[i], caches), cfg,
                               run, kind="dense", mesh=mesh)
         caches["pos"][i].copy_(new["pos"])

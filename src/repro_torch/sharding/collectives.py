@@ -38,7 +38,11 @@ Two transports:
   in neither mode.
 
 ``stats()`` counts the calls and bytes of each kind (the bytes of the
-input a rank sends), and the bytes staged through host memory.
+input a rank sends), and the bytes staged through host memory; each kind
+also keeps its largest call's bytes (``max_bytes``) and its calls and
+bytes by the size of the group they span (``groups``), from which
+``launch.costs`` charges each call its ring wire bytes. A rank alone
+counts what it would send among its peers.
 """
 from __future__ import annotations
 
@@ -67,22 +71,36 @@ _STATS: Dict[str, Dict[str, int]] = {}
 def reset_stats() -> None:
     _STATS.clear()
     for kind in KINDS:
-        _STATS[kind] = {"calls": 0, "bytes": 0}
+        _STATS[kind] = {"calls": 0, "bytes": 0, "max_bytes": 0, "groups": {}}
     _STATS["host_staged"] = {"calls": 0, "bytes": 0}
 
 
-def stats() -> Dict[str, Dict[str, int]]:
-    """{kind: {"calls", "bytes"}} since the last ``reset_stats``; kind
-    "host_staged" counts the bytes copied to and from host memory."""
-    return {k: dict(v) for k, v in _STATS.items()}
+def stats() -> Dict[str, Dict]:
+    """{kind: {"calls", "bytes", "max_bytes", "groups": {n: {"calls",
+    "bytes"}}}} since the last ``reset_stats``, n the ranks a call spans;
+    kind "host_staged" ({"calls", "bytes"}) counts the bytes copied to and
+    from host memory."""
+    out = {}
+    for k, v in _STATS.items():
+        out[k] = dict(v)
+        if "groups" in v:
+            out[k]["groups"] = {n: dict(g) for n, g in v["groups"].items()}
+    return out
 
 
 reset_stats()
 
 
-def _count(kind: str, t: torch.Tensor) -> None:
-    _STATS[kind]["calls"] += 1
-    _STATS[kind]["bytes"] += t.numel() * t.element_size()
+def _count(kind: str, t: torch.Tensor, n: int) -> None:
+    """One call of `kind` sending `t` over a group of `n` ranks."""
+    size = t.numel() * t.element_size()
+    entry = _STATS[kind]
+    entry["calls"] += 1
+    entry["bytes"] += size
+    entry["max_bytes"] = max(entry["max_bytes"], size)
+    group = entry["groups"].setdefault(n, {"calls": 0, "bytes": 0})
+    group["calls"] += 1
+    group["bytes"] += size
 
 
 # ---------------------------------------------------------------------------
@@ -167,7 +185,7 @@ def _to_device(mesh, kind: str, t: torch.Tensor, device) -> torch.Tensor:
 
 def _reduce_(mesh, axes, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
     """All-reduce `t` IN PLACE over `axes` (already normalised)."""
-    _count("all_reduce", t)
+    _count("all_reduce", t, mesh.size(axes))
     if _alone(mesh):
         return t.zero_()
     host = _to_host(mesh, "all_reduce", t)
@@ -180,7 +198,7 @@ def _reduce_(mesh, axes, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
 
 def _gather0(mesh, axes, t: torch.Tensor) -> torch.Tensor:
     """(n, *t.shape): every rank's t, in the axis's order."""
-    _count("all_gather", t)
+    _count("all_gather", t, mesh.size(axes))
     n = mesh.size(axes)
     if _alone(mesh):
         return t.new_zeros((n, *t.shape))
@@ -194,7 +212,7 @@ def _gather0(mesh, axes, t: torch.Tensor) -> torch.Tensor:
 
 def _scatter0(mesh, axes, t: torch.Tensor) -> torch.Tensor:
     """t (n, *rest): the sum over the ranks of their t[i], at rank i."""
-    _count("reduce_scatter", t)
+    _count("reduce_scatter", t, mesh.size(axes))
     if _alone(mesh):
         return t.new_zeros(t.shape[1:])
     n = t.shape[0]
@@ -210,7 +228,7 @@ def _scatter0(mesh, axes, t: torch.Tensor) -> torch.Tensor:
 def _exchange0(mesh, axes, t: torch.Tensor) -> torch.Tensor:
     """t (n, *rest): chunk j goes to rank j; chunk j of the result came
     from rank j."""
-    _count("all_to_all", t)
+    _count("all_to_all", t, mesh.size(axes))
     if _alone(mesh):
         return torch.zeros_like(t)
     n = t.shape[0]
@@ -223,7 +241,7 @@ def _exchange0(mesh, axes, t: torch.Tensor) -> torch.Tensor:
 def _shift(mesh, axes, t: torch.Tensor, shift: int) -> torch.Tensor:
     """Send t to the rank `shift` places on along the axis (cyclic), and
     return what the rank `shift` places back sent."""
-    _count("ppermute", t)
+    _count("ppermute", t, mesh.size(axes))
     if _alone(mesh):
         return torch.zeros_like(t)
     n, i = mesh.size(axes), mesh.index(axes)

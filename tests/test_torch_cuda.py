@@ -1139,3 +1139,74 @@ def test_ssd_kernel_at_a_ranks_heads(card, dtype):
     want, _ = ssd_plain(xs, dt, A, Bx, Cx, chunk=TILE)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# the dry-run tooling on the card
+# ---------------------------------------------------------------------------
+
+
+def test_a_kernel_launch_counts_what_its_plain_version_counts(card):
+    """Under launch.costs a flash attention, wkv6 and ssd launch on the card
+    add what their plain versions' products count: a step that runs the
+    kernels counts what the plain path counts."""
+    from repro_torch.launch import costs as K
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    q = randn(card, 100, (2, 128, 8, 64), torch.bfloat16)
+    k = randn(card, 101, (2, 128, 2, 64), torch.bfloat16)
+    _, got = K.count(lambda: flash_attention(q, k, k, causal=True))
+    _, want = K.count(lambda: flash_attention_plain(q, k, k, causal=True))
+    assert (got.dot_flops, got.dot_bytes) == (want.dot_flops, want.dot_bytes)
+    assert got.kernels["flash_attention"]["launches"] == 1
+    r = randn(card, 102, (2, 40, 4, 64), torch.bfloat16)
+    lw = -torch.exp(randn(card, 103, (2, 40, 4, 64), torch.float32))
+    u = randn(card, 104, (4, 64), torch.float32)
+    _, got = K.count(lambda: wkv6(r, r, r, lw, u))
+    _, want = K.count(lambda: wkv6_plain(r, r, r, lw, u))
+    assert (got.dot_flops, got.dot_bytes) == (want.dot_flops, want.dot_bytes)
+    xs, dt, A, Bm, Cm = ssd_inputs(card, 2, 100, 4, 64, 64, torch.bfloat16,
+                                   seed=105)
+    _, got = K.count(lambda: ssd(xs, dt, A, Bm, Cm))
+    _, want = K.count(lambda: ssd_plain(xs, dt, A, Bm, Cm))
+    assert (got.dot_flops, got.dot_bytes) == (want.dot_flops, want.dot_bytes)
+
+
+def test_run_cell_on_a_rank_of_the_production_mesh(card):
+    """run_cell of mistral-large-123b cut to 2 layers at full width,
+    prefill_32k, on rank 0 alone of (16, 16): the reference's fields, the
+    peak measured over the arguments, the roofline's terms."""
+    from dataclasses import replace
+    from repro_torch.configs import SHAPES, SINGLE_POD
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.presets import preset_run
+    cfg = get_arch("mistral-large-123b")
+    run = preset_run(cfg, SHAPES["prefill_32k"], SINGLE_POD)  # fsdp_params
+    rec = run_cell(replace(cfg, n_layers=2), SHAPES["prefill_32k"],
+                   SINGLE_POD, run, device=card)
+    m, r = rec["memory"], rec["roofline"]
+    print(rec)
+    assert rec["n_devices"] == 256 and rec["device"].startswith("NVIDIA")
+    assert m["peak_bytes"] > m["argument_bytes"] > 0
+    assert m["temp_bytes"] == m["peak_bytes"] - m["argument_bytes"]
+    assert r["dominant"] in ("compute", "memory", "collective")
+    assert 0 < r["useful_flops_fraction"] <= 1.0
+    assert rec["collectives"]["counts"]["all-gather"] > 0     # fsdp_params
+
+
+def test_mesh_advisor_plans_a_rank_and_checks_it_at_full_depth(card):
+    """examples/mesh_advisor_torch.py: mistral-large-123b's decode_32k over
+    the (16, 16) profile mesh, the ladder profiled, the fit extrapolated to
+    88 layers, a selection, and rank 0 measured there within 10 %."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "examples" / \
+        "mesh_advisor_torch.py"
+    spec = importlib.util.spec_from_file_location("mesh_advisor_torch", path)
+    advisor = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(advisor)
+    rep, truth = advisor.main(["--arch", "mistral-large-123b", "--shape",
+                               "decode_32k", "--mesh", "16x16"])
+    assert rep.model.confident and rep.selection is not None
+    assert truth is not None
+    pred = rep.model.predict(88)
+    assert abs(pred - truth) / truth < 0.10
