@@ -63,8 +63,18 @@ one-device path, no all-gather larger than one layer's largest leaf; and
 the planner over profile meshes, one rank of the job run alone
 on the card: deepseek-7b's float32 train step on (1, 2) at 30 layers,
 llama-3.2-vision-90b's full AdamW step on (1, 8), and mistral-large-123b's
-bf16 prefill on (1, 8) and decode of 32 x 32768 positions on (1, 16), each
-at its 88 layers.
+bf16 prefill on (1, 8) and decode of 32 x 32768 positions on (1, 16) over
+a bf16 and an int8 cache, each at its 88 layers; and the layouts whose
+KV heads or experts 'model' does not split as the others: chatglm3-6b at
+full width (2 KV heads, 2 layers, float32) on four gloo ranks of (1, 4),
+its prefill of 4 x 2048 and 8 greedy ticks over an int8 cache split by
+positions (2056, 514 a rank) and over a float32 cache of 2057 positions,
+whole on every rank, and olmoe-1b-7b with MoE impl "dense" on (1, 2),
+each against the one-device path.
+
+The train phase's CPU references (one float32 step of each model on the
+CPU, from the card's weights) run on a thread beside the card's work, and
+are joined, gated and printed at the phase's end.
 
 The dry-run tooling (``launch.costs``, ``launch.roofline``,
 ``launch.dryrun.run_cell``, ``launch.perf``): each kernel's FLOP and byte
@@ -76,8 +86,14 @@ and perf.py's three whisper-small variants (memory, counts, roofline
 terms); the planner's prediction of mistral-large-123b's
 prefill_32k rank at 88 layers against run_cell's measured peak.
 
+The examples: ``examples/quickstart_torch.py``,
+``serve_demo_torch.py`` (all four demos) and
+``profile_and_select_torch.py``, each run as a user runs it, in a
+subprocess, side by side.
+
 Phases, in order: env, kernels, parity, prefill, serve, train, planner,
-shard, dryrun, allocate.
+shard, dryrun, allocate, examples. Each ``phase_done`` line carries the
+host seconds of its parts where the phase keeps them (``split``).
 ``--phases`` runs a subset while developing; such a run never prints the
 last line and exits 2.
 The kernels phase times each kernel on the device (CUDA events) beside its
@@ -106,6 +122,7 @@ import sys
 import tempfile
 import time
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -114,7 +131,7 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("env", "kernels", "parity", "prefill", "serve", "train",
-          "planner", "shard", "dryrun", "allocate")
+          "planner", "shard", "dryrun", "allocate", "examples")
 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -330,6 +347,14 @@ ALLOC_SERVE = {"slots": 8, "requests": 8, "prompt": 16, "max_new": 16,
 ALLOC_THREADS = 8
 ALLOC_REQUIREMENT_GATE = 0.005
 ALLOC_TIMEOUT_S = 600.0
+# the examples phase: the port's three examples, each run as a user runs it
+# (a subprocess of `python examples/<name>_torch.py`, side by side; the
+# engines and the quickstart on the card), each within
+EXAMPLES_TIMEOUT_S = 400.0
+# profile_and_select profiles jobs on the host only (~1 min of RSS
+# profiling): it starts as the first of these phases starts, and the
+# examples phase takes its result
+EXAMPLES_EARLY = {"profile_and_select": ("dryrun", "allocate", "examples")}
 # the shard phase: deepseek-7b at full width cut to SHARD_LAYERS layers,
 # float32, on two ranks of the one card (gloo) over (1, 2) (tensor
 # parallelism) and (2, 1) (data parallelism with ZeRO-1): the forward's
@@ -427,6 +452,8 @@ SHARD_FLASH = (
      "bfloat16"),
     ("shard_mistral_fsdp", "mistral-large-123b", 1, 2048, 2048, 96, 8, 128,
      True, "float32"),
+    ("shard_chatglm", "chatglm3-6b", 4, 2048, 2048, 8, 1, 128, True,
+     "float32"),
 )
 # wkv6 and ssd at a rank's heads of (1, 2), float32 as the serving runs
 # them: rwkv6-7b's prefill (32 of 64 heads) and decode tick, zamba2-7b's
@@ -456,6 +483,25 @@ PLANNER_MISTRAL = {"prefill": {"mesh": (1, 8), "batch": 4, "seq": 2048},
 SHARD_FSDP = {"arch": "mistral-large-123b", "layers": 1, "mesh": (2, 1),
               "batch": 2, "seq": 2048, "ticks": 2, "train_seq": 1024}
 FSDP_GATES = {"logits": 1e-3, "loss": 1e-4, "grads": 1e-3}
+# (e) the layouts of a 'model' axis that the KV heads or the experts do not
+# split as (a)'s do: chatglm3-6b at full width (32 query heads over 2 KV
+# heads, d_ff 13696, vocabulary 65024), cut 28 -> 2 layers, float32, on
+# four gloo ranks of (1, 4): a prefill of 4 x 2048 and 8 greedy ticks over
+# an int8 cache of 2056 positions (its 2 KV heads do not divide 4: split by
+# positions, 514 a rank; the prefill's k and v quantized by quantize_kv on
+# both paths), then over a float32 cache of 2057 positions, which divides
+# neither and stays whole on every rank; olmoe-1b-7b at full width, 2
+# layers, MoE impl "dense" (each rank's block of the experts, dropless,
+# the combine all-reduced) on (1, 2): a prefill and 2 ticks. Each against
+# the one-device path on the card at SHARD_GATES["logits"], every greedy
+# token equal. (name, arch, layers, mesh, MoE impl, ((positions, int8),
+# ...), ticks)
+SHARD_LAYOUTS = (
+    ("chatglm3-6b (1, 4)", "chatglm3-6b", 2, (1, 4), None,
+     ((2056, True), (2057, False)), 8),
+    ("olmoe-1b-7b dense (1, 2)", "olmoe-1b-7b", 2, (1, 2), "dense",
+     ((2050, False),), 2),
+)
 # the dryrun phase: run_cell on rank 0 alone of the single-pod (16, 16)
 # mesh at full width, with the whole model's presets, (arch, shape, depth):
 # the train cells cut in depth (their 16 microbatches run ~4,000 ops a
@@ -1311,6 +1357,7 @@ def phase_parity(state):
              "depth 100 -> 5: one group of 4 self-attention layers and the "
              "gated cross-attention layer (25.5 GB in float32), over all "
              "1601 media tokens; width and vocabulary full")):
+        mark = stopwatch(state, f"{arch}:")
         cpu = Model(cfg, run, device="cpu")
         if arch == "deepseek-7b":
             tree = numpy_weights(cpu, state["seed"])
@@ -1326,13 +1373,16 @@ def phase_parity(state):
             0, cfg.vocab_size, size=(B, S))
         batch = {"tokens": tokens,
                  **media_batch(cfg, B, state["seed"] + 4, "cpu")}
+        mark("weights")
         t0 = time.monotonic()
         want = cpu.forward(batch)
         cpu_s = time.monotonic() - t0
+        mark("cpu forward")
         reset_counts()
         got_gpu = gpu.forward(batch)
         got = got_gpu.cpu()
         counts = read_counts()
+        mark("card forward")
         err = float((got - want).abs().max())
         decode_errs = []
         if cfg.family != "dense":
@@ -1371,7 +1421,10 @@ def phase_parity(state):
         del cpu, gpu, got, got_gpu, want, batch
         gc.collect()
         torch.cuda.empty_cache()
+        mark("decode and free")
+    mark = stopwatch(state, "int8:")
     parity_int8(state)
+    mark("parity")
 
 
 def int8_functions(state):
@@ -1570,6 +1623,21 @@ def timed_call(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, (time.monotonic() - t0) * 1e3
+
+
+def stopwatch(state, prefix):
+    """mark(label) adds the host seconds since the last mark (or since the
+    stopwatch started) to state["split"]["<prefix> <label>"], which the
+    phase's ``phase_done`` line prints."""
+    last = [time.monotonic()]
+
+    def mark(label):
+        now = time.monotonic()
+        split = state.setdefault("split", {})
+        key = f"{prefix} {label}"
+        split[key] = split.get(key, 0.0) + now - last[0]
+        last[0] = now
+    return mark
 
 
 def leaves(tree):
@@ -2002,140 +2070,184 @@ def loss_terms(metrics):
     return {k: float(metrics[k]) for k in ("ce", "aux", "mtp") if k in metrics}
 
 
-def train_parity(state, cfg, P, cut, weights, gate=None):
-    """One train step of `cfg`, float32, on the card and on the CPU (the
-    plain path) from one converted state: the loss, the gradients' norm and
-    every leaf's first moment, which after one step is (1 - b1) x the
-    clipped gradient. Parameters are not compared: step 1 moves each weight
-    by about lr * sign(g), so a gradient near 0 whose sign differs between
-    the two moves it 2 lr apart, which says nothing of the kernels.
-    `weights`: "numpy" (``numpy_weights``) or "init" (the model's own init
-    on the card, from the seed); `gate`, the vlm's tanh gates (they start
-    at 0, which hides the cross path). The vlm's media and whisper's frames
-    are random."""
+# the CPU's side of the train parities runs on a thread while the card
+# takes the rest of the train phase; the phase waits for it at most
+PARITY_TIMEOUT_S = 900.0
+
+
+def parity_specs():
+    """The train parities, card against CPU, each from the model's own init
+    on the card from the seed: deepseek-7b at full width, 2 layers;
+    olmoe-1b-7b at full width, 2 layers; deepseek-v3-671b reduced with its
+    MTP block; rwkv6-7b at full width, 2 layers; zamba2-7b at full width,
+    one group; whisper-small whole; the vlm reduced, its gates at 0.7
+    (`gate`: they start at 0, which hides the cross path)."""
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+
+    def spec(cfg, P, cut, gate=None):
+        return {"cfg": cfg, "P": P, "cut": cut, "gate": gate}
+    return [
+        spec(replace(get_arch("deepseek-7b"), n_layers=PARITY_TRAIN["layers"]),
+             PARITY_TRAIN, "depth 30 -> 2; width and vocabulary full"),
+        spec(replace(get_arch("olmoe-1b-7b"),
+                     n_layers=PARITY_TRAIN_MOE["layers"]),
+             PARITY_TRAIN_MOE, "depth 16 -> 2; width, 64 experts top-8 and "
+             "vocabulary full"),
+        spec(get_arch("deepseek-v3-671b").reduced(), PARITY_TRAIN_DSV3,
+             "the reduced config (d_model 64, 4 layers: 1 dense + 3 MoE of 8 "
+             "experts top-2 and a shared expert, MLA ranks 32/16, the MTP "
+             "block), the CPU tests' own"),
+        spec(replace(get_arch("rwkv6-7b"), n_layers=PARITY_TRAIN["layers"]),
+             PARITY_TRAIN, "depth 32 -> 2; width and vocabulary full"),
+        spec(replace(get_arch("zamba2-7b"), n_layers=6), PARITY_TRAIN,
+             "depth 81 -> 6: one group of 6 Mamba2 blocks and a shared "
+             "attention block; width and vocabulary full"),
+        spec(get_arch("whisper-small"), PARITY_TRAIN_WHISPER,
+             "none: 12 encoder layers over 1500 random frames, 12 decoder "
+             "layers"),
+        spec(get_arch("llama-3.2-vision-90b").reduced(), PARITY_TRAIN_VLM,
+             "the reduced config (d_model 64, 4 layers: two groups of a "
+             "self-attention and a gated cross-attention layer over 16 random "
+             "media tokens), the CPU tests' own; a full-width group is 51 GB "
+             "of host memory for weights and gradients", gate=0.7)]
+
+
+def parity_run(P):
     from repro_torch.configs import RunConfig
-    from repro_torch.convert import (flatten_tree, params_to_numpy,
-                                     train_state_from_numpy, unflatten_tree)
+    return RunConfig(param_dtype="float32", compute_dtype="float32",
+                     attn_impl="blocked", remat="nothing",
+                     attn_block_q=P["block"], attn_block_kv=P["block"])
+
+
+def parity_batch(cfg, P, seed):
+    """The parity's batch: tokens from `seed`, the vlm's media and
+    whisper's frames random (on the CPU, the same for both sides)."""
+    toks = np.random.default_rng(seed + 3).integers(
+        0, cfg.vocab_size, size=(P["batch"], P["seq"] + 1)).astype(np.int32)
+    return {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy(),
+            **media_batch(cfg, P["batch"], seed + 4, "cpu")}
+
+
+def cpu_parity_step(sp, seed, cpu, m_card):
+    """The CPU's side of a parity, on a thread beside the card's work: one
+    float32 train step of `cpu` (the plain path, on the card's weights)
+    held against the card's first moments `m_card` (host copies, by path)
+    -> the numbers ``finish_parity`` gates."""
+    from repro_torch.convert import flatten_tree
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    acfg = AdamWConfig(lr=1e-3)
+    cpu_state = init_train_state(cpu, None, acfg)
+    batch = parity_batch(sp["cfg"], sp["P"], seed)
+    t0 = time.monotonic()
+    cpu_state, met = make_train_step(cpu, acfg)(cpu_state, batch)
+    cpu_s = time.monotonic() - t0
+    per_leaf = {}
+    for name, b in flatten_tree(cpu_state.opt.m).items():
+        a = m_card.pop(name)
+        per_leaf[name] = float((a - b).abs().max()) / \
+            max(float(b.abs().max()), 1e-30)
+    return {"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+            "terms": loss_terms(met), "per_leaf": per_leaf, "cpu_s": cpu_s}
+
+
+def card_parity_step(state, pool, sp):
+    """The card's side of a parity: the model's init on the card from the
+    seed (the vlm's gates set), copied into a model on the CPU, one float32
+    train step and its launches (gated here), the first moments copied to
+    the host, and the CPU's step handed to `pool` (``cpu_parity_step``)
+    -> what ``finish_parity`` needs."""
+    from repro_torch.convert import flatten_tree
     from repro_torch.models.model import Model
     from repro_torch.optim import AdamWConfig
-    from repro_torch.optim.adamw import leaves
-    from repro_torch.train.step import make_train_step
+    from repro_torch.train.step import init_train_state, make_train_step
 
-    run = RunConfig(param_dtype="float32", compute_dtype="float32",
-                    attn_impl="blocked", remat="nothing",
-                    attn_block_q=P["block"], attn_block_kv=P["block"])
+    cfg, P = sp["cfg"], sp["P"]
+    run = parity_run(P)
+    gpu = Model(cfg, run).init(seed=state["seed"])
+    if sp["gate"] is not None:
+        gpu.params["layers"]["cross"]["attn"]["gate"].fill_(sp["gate"])
     cpu = Model(cfg, run, device="cpu")
-    if weights == "numpy":
-        params = numpy_weights(cpu, state["seed"])
-        gpu = Model(cfg, run)
-    else:
-        gpu = Model(cfg, run).init(seed=state["seed"])
-        if gate is not None:
-            gpu.params["layers"]["cross"]["attn"]["gate"].fill_(gate)
-        params = params_to_numpy(gpu)
-
-    def zeros():
-        return unflatten_tree({k: np.zeros_like(v)
-                               for k, v in flatten_tree(params).items()})
-
-    tree = {"params": params, "residual": None,
-            "opt": {"step": np.zeros((), np.int32), "m": zeros(), "v": zeros(),
-                    "master": None}}
-    cpu_state = train_state_from_numpy(tree, cpu)
-    gpu_state = train_state_from_numpy(tree, gpu)
-    del tree, params
-    toks = np.random.default_rng(state["seed"] + 3).integers(
-        0, cfg.vocab_size, size=(P["batch"], P["seq"] + 1)).astype(np.int32)
-    batch = {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy(),
-             **media_batch(cfg, P["batch"], state["seed"] + 4, "cpu")}
+    cpu.load_state_dict(gpu.state_dict())
     acfg = AdamWConfig(lr=1e-3)
-    t0 = time.monotonic()
-    cpu_state, cpu_met = make_train_step(cpu, acfg)(cpu_state, batch)
-    cpu_s = time.monotonic() - t0
+    gpu_state = init_train_state(gpu, None, acfg)
+    batch = parity_batch(cfg, P, state["seed"])
     reset_counts()
-    (gpu_state, gpu_met), gpu_ms = timed_call(
+    (gpu_state, met), gpu_ms = timed_call(
         lambda: make_train_step(gpu, acfg)(gpu_state, batch))
     counts = read_counts()
     per_step = train_norms(cfg)
     want = {"rmsnorm": per_step, "rmsnorm_backward": per_step,
             "flash_attention": 0, "wkv6": 0, "ssd": 0}
-    loss_cpu, loss_gpu = float(cpu_met["loss"]), float(gpu_met["loss"])
+    require(counts == want,
+            f"train parity {cfg.name}: launches {counts}, expected {want}")
+    m_card = {k: t.cpu() for k, t in flatten_tree(gpu_state.opt.m).items()}
+    out = {"sp": sp, "counts": counts, "gpu_ms": gpu_ms,
+           "loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+           "terms": loss_terms(met),
+           "random_inputs": sorted(k for k in batch
+                                   if k not in ("tokens", "labels")),
+           "cpu": pool.submit(cpu_parity_step, sp, state["seed"], cpu,
+                              m_card)}
+    del gpu, gpu_state, met, batch, cpu, m_card
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def finish_parity(state, card):
+    """The CPU's step of a parity against the card's: the loss, the
+    gradients' norm and every leaf's first moment, which after one step is
+    (1 - b1) x the clipped gradient. Parameters are not compared: step 1
+    moves each weight by about lr * sign(g), so a gradient near 0 whose
+    sign differs between the two moves it 2 lr apart, which says nothing
+    of the kernels."""
+    sp = card["sp"]
+    cfg, P = sp["cfg"], sp["P"]
+    cpu = card["cpu"].result(timeout=PARITY_TIMEOUT_S)
+    loss_cpu, loss_gpu = cpu["loss"], card["loss"]
     loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-    gn_rel = abs(float(gpu_met["grad_norm"]) - float(cpu_met["grad_norm"])) / \
-        float(cpu_met["grad_norm"])
-    names = sorted(flatten_tree(cpu_state.opt.m))
-    per_leaf = {}
-    for name, a, b in zip(names, leaves(gpu_state.opt.m), leaves(cpu_state.opt.m)):
-        per_leaf[name] = float((a.cpu() - b).abs().max()) / \
-            max(float(b.abs().max()), 1e-30)
+    gn_rel = abs(card["grad_norm"] - cpu["grad_norm"]) / cpu["grad_norm"]
+    per_leaf = cpu["per_leaf"]
     grad_gate, loss_gate = 1e-3, 1e-4
     emit({"phase": "train", "part": "parity", "arch": cfg.name,
-          "n_layers": cfg.n_layers, "cut": cut,
+          "n_layers": cfg.n_layers, "cut": sp["cut"],
           "dtype": "float32", "allow_tf32": False, "batch": P["batch"],
           "seq": P["seq"], "attn_impl": "blocked", "attn_block": P["block"],
-          "random_inputs": sorted(k for k in batch
-                                  if k not in ("tokens", "labels")),
-          "tanh_gate": gate, "loss_cpu": loss_cpu, "loss_gpu": loss_gpu, "loss_rel_err": loss_rel,
-          "loss_terms_cpu": loss_terms(cpu_met),
-          "loss_terms_gpu": loss_terms(gpu_met),
+          "weights": "the model's init on the card",
+          "random_inputs": card["random_inputs"],
+          "tanh_gate": sp["gate"], "loss_cpu": loss_cpu, "loss_gpu": loss_gpu,
+          "loss_rel_err": loss_rel, "loss_terms_cpu": cpu["terms"],
+          "loss_terms_gpu": card["terms"],
           "loss_gate": loss_gate, "grad_norm_rel_err": gn_rel,
           "grad_rel_err_by_leaf": per_leaf, "grad_gate": grad_gate,
           "grad_gate_reason": "max |m_gpu - m_cpu| / max |m_cpu| a leaf; m after "
                               "one step is (1 - b1) x the clipped gradient; the same "
                               "float32 arithmetic, sums over the width, the tokens "
                               "and the vocabulary taken in another order",
-          "launches": counts, "gpu_step_ms": gpu_ms, "cpu_step_seconds": cpu_s,
+          "launches": card["counts"], "gpu_step_ms": card["gpu_ms"],
+          "cpu_step_seconds": cpu["cpu_s"],
+          "cpu_step_where": "a thread, beside the card's train phase",
           "gpu": state["smi"]})
-    require(counts == want,
-            f"train parity {cfg.name}: launches {counts}, expected {want}")
     require(math.isfinite(loss_gpu) and math.isfinite(gn_rel),
             f"train parity {cfg.name}: loss or gradient norm not finite")
     require(loss_rel < loss_gate,
             f"train parity {cfg.name}: loss {loss_gpu} vs {loss_cpu}")
     require(max(per_leaf.values()) < grad_gate,
             f"train parity {cfg.name}: gradients differ: {per_leaf}")
-    del cpu, gpu, cpu_state, gpu_state
-    gc.collect()
-    torch.cuda.empty_cache()
 
 
-def train_parities(state):
-    """deepseek-7b at full width, 2 layers (numpy weights); olmoe-1b-7b at
-    full width, 2 layers; deepseek-v3-671b reduced with its MTP block;
-    rwkv6-7b at full width, 2 layers; zamba2-7b at full width, one group;
-    whisper-small whole; the vlm reduced, its gates at 0.7."""
-    from dataclasses import replace
-    from repro_torch.configs import get_arch
-
-    train_parity(state, replace(get_arch("deepseek-7b"),
-                                n_layers=PARITY_TRAIN["layers"]),
-                 PARITY_TRAIN, "depth 30 -> 2; width and vocabulary full",
-                 "numpy")
-    train_parity(state, replace(get_arch("olmoe-1b-7b"),
-                                n_layers=PARITY_TRAIN_MOE["layers"]),
-                 PARITY_TRAIN_MOE, "depth 16 -> 2; width, 64 experts top-8 "
-                 "and vocabulary full", "init")
-    train_parity(state, get_arch("deepseek-v3-671b").reduced(),
-                 PARITY_TRAIN_DSV3, "the reduced config (d_model 64, 4 layers: "
-                 "1 dense + 3 MoE of 8 experts top-2 and a shared expert, MLA "
-                 "ranks 32/16, the MTP block), the CPU tests' own", "init")
-    train_parity(state, replace(get_arch("rwkv6-7b"),
-                                n_layers=PARITY_TRAIN["layers"]),
-                 PARITY_TRAIN, "depth 32 -> 2; width and vocabulary full",
-                 "init")
-    train_parity(state, replace(get_arch("zamba2-7b"), n_layers=6),
-                 PARITY_TRAIN, "depth 81 -> 6: one group of 6 Mamba2 blocks "
-                 "and a shared attention block; width and vocabulary full",
-                 "init")
-    train_parity(state, get_arch("whisper-small"), PARITY_TRAIN_WHISPER,
-                 "none: 12 encoder layers over 1500 random frames, 12 decoder "
-                 "layers", "init")
-    train_parity(state, get_arch("llama-3.2-vision-90b").reduced(),
-                 PARITY_TRAIN_VLM, "the reduced config (d_model 64, 4 layers: "
-                 "two groups of a self-attention and a gated cross-attention "
-                 "layer over 16 random media tokens), the CPU tests' own; a "
-                 "full-width group is 51 GB of host memory for weights and "
-                 "gradients", "init", gate=0.7)
+def train_parities(state, pool):
+    """The card's side of every parity (``parity_specs``), each CPU step
+    handed to `pool` -> what ``finish_parity`` needs, one a parity."""
+    mark = stopwatch(state, "train:")
+    cards = []
+    for sp in parity_specs():
+        cards.append(card_parity_step(state, pool, sp))
+        mark(f"parity {sp['cfg'].name} (the card's side)")
+    return cards
 
 
 def width_backward_dsv3(state):
@@ -2300,6 +2412,9 @@ def train_full_width(state, arch, layers, cut, S=TRAIN_S):
     from repro_torch.optim.adamw import leaves
     from repro_torch.train.step import init_train_state, make_train_step
 
+    from repro_torch.checkpoint import ckpt as ckpt_mod
+
+    mark = stopwatch(state, f"full width {arch}:")
     L, B, N = layers, TRAIN_B, TRAIN_STEPS
     lr = 3e-4
     ck = ROOT / "build" / "chip_smoke_ckpt"
@@ -2313,8 +2428,21 @@ def train_full_width(state, arch, layers, cut, S=TRAIN_S):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     text = io.StringIO()
+    write, wrote = ckpt_mod._write, []
+
+    def timed_write(*args, **kwargs):
+        t0 = time.monotonic()
+        out = write(*args, **kwargs)
+        wrote.append(time.monotonic() - t0)
+        return out
+
+    ckpt_mod._write = timed_write           # the write's seconds, for the split
     with contextlib.redirect_stdout(text):
         (train_state, report), wall_ms = timed_call(lambda: train_cli.main(argv))
+    ckpt_mod._write = write
+    mark("launcher")
+    state["split"][f"full width {arch}: launcher"] -= sum(wrote)
+    state["split"][f"full width {arch}: checkpoint write"] = sum(wrote)
     counts, shapes = read_counts(), read_shapes()
     peak = torch.cuda.max_memory_allocated()
     cfg = replace(get_arch(arch), n_layers=L)
@@ -2336,20 +2464,23 @@ def train_full_width(state, arch, layers, cut, S=TRAIN_S):
              **train_cli.family_inputs(cfg, B)}
     state_a, met_a = step_fn(train_state, batch)
     loss_a = float(met_a["loss"])
-    want_params = [t.detach().cpu() for t in leaves(state_a.params)]
+    want_params = [t.detach().clone() for t in leaves(state_a.params)]
     del train_state, state_a, met_a
     gc.collect()
     torch.cuda.empty_cache()
+    mark("step in memory")
     state_b = init_train_state(model, None, acfg)
     (_, extra), restore_ms = timed_call(
         lambda: restore_checkpoint(str(ck), latest_step(str(ck)), state_b))
     restored_step = int(state_b.opt.step)
+    mark("restore")
     reset_counts()
     (state_b, met_b), resume_step_ms = timed_call(lambda: step_fn(state_b, batch))
     one_step = read_counts()
     loss_b = float(met_b["loss"])
     bit_exact = loss_a == loss_b and all(
-        torch.equal(a.cpu(), b) for a, b in zip(leaves(state_b.params), want_params))
+        torch.equal(a, b) for a, b in zip(leaves(state_b.params), want_params))
+    mark("resume step")
     ckpt_bytes = sum(f.stat().st_size for f in ck.rglob("*") if f.is_file())
     emit({"phase": "train", "part": "full_width", "arch": cfg.name,
           "argv": argv, "n_layers": L,
@@ -2391,13 +2522,15 @@ def train_full_width(state, arch, layers, cut, S=TRAIN_S):
     del model, state_b, want_params
     gc.collect()
     torch.cuda.empty_cache()
+    mark("free")
 
 
 def phase_train(state):
     # full float32 products on the card, said and set
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    train_parities(state)
+    pool = ThreadPoolExecutor(1)
+    cards = train_parities(state, pool)
     train_full_width(state, "deepseek-7b", TRAIN_LAYERS,
                      "depth 30 -> 2: the float32 state (16 bytes a parameter: "
                      "weights, gradients, m, v) of 30 layers is 110 GB; width, "
@@ -2406,7 +2539,9 @@ def phase_train(state):
                      "depth 16 -> 2: the float32 state (16 bytes a parameter) "
                      "of 16 layers is 110 GB; width, 64 experts top-8, heads "
                      "and vocabulary full")
+    mark = stopwatch(state, "train:")
     width_backward_dsv3(state)
+    mark("width backward deepseek-v3-671b")
     cuts = {"rwkv6-7b": "depth 32 -> 2: the float32 state (16 bytes a "
                         "parameter) of 32 layers is 120 GB; width, heads and "
                         "vocabulary full",
@@ -2417,7 +2552,13 @@ def phase_train(state):
                              "launcher's zeros), 12 decoder layers, S = 448"}
     for arch, layers, S in FAMILY_TRAIN:
         train_full_width(state, arch, layers, cuts[arch], S=S)
+    mark = stopwatch(state, "train:")
     width_backward_vlm(state)
+    mark("width backward llama-3.2-vision-90b")
+    for card in cards:
+        finish_parity(state, card)
+    pool.shutdown()
+    mark("parities (waiting for the CPU's side)")
 
 
 def planner_job(state, arch, mode, run, kernels, n_layers=None,
@@ -2459,6 +2600,7 @@ def planner_job(state, arch, mode, run, kernels, n_layers=None,
     sel = rep.selection
     line = {"phase": "planner", "arch": arch, "mode": mode, "batch": B,
             "seq": seq, "dtype": run.compute_dtype,
+            "kv_cache_dtype": run.kv_cache_dtype,
             "attn_impl": run.attn_impl, "remat": run.remat,
             "n_layers": cfg.n_layers,
             "ladder": planner.depth_ladder(cfg, anchor),
@@ -3126,9 +3268,11 @@ def shard_rank(rank, shape, store, ref_dir, seed, conn):
     shutdown(mesh)
 
 
-def run_world(shape, ref_dir, seed):
-    """Spawn the two ranks of `shape` (gloo, the one card, a FileStore in
-    build/), wait for their reports under SHARD_TIMEOUT_S and join them."""
+def run_world(shape, ref_dir, seed, target=None, job=None):
+    """Spawn the ranks of `shape` (gloo, the one card, a FileStore in
+    build/), each ``target(rank, shape or job, store, ref_dir, seed,
+    conn)`` (``shard_rank`` by default), wait for their reports under
+    SHARD_TIMEOUT_S and join them."""
     import multiprocessing
     ctx = multiprocessing.get_context("spawn")
     (ROOT / "build").mkdir(exist_ok=True)
@@ -3136,9 +3280,9 @@ def run_world(shape, ref_dir, seed):
     procs, conns = [], []
     for rank in range(shape[0] * shape[1]):
         parent, child = ctx.Pipe()
-        proc = ctx.Process(target=shard_rank, args=(
-            rank, shape, str(store_dir / "store"), str(ref_dir), seed, child),
-            daemon=True)
+        proc = ctx.Process(target=target or shard_rank, args=(
+            rank, job or shape, str(store_dir / "store"), str(ref_dir), seed,
+            child), daemon=True)
         proc.start()
         procs.append(proc)
         conns.append(parent)
@@ -3214,17 +3358,17 @@ def check_shard_flash(arch, shapes, also=()):
                        f" not among SHARD_FLASH's")
 
 
-def merged_greedy(reps, arch, shape, n_rows):
-    """The greedy tokens (ticks + 1, B) of `arch`'s sharded run: each row's
-    largest logit over the ranks that hold a block of its vocabulary."""
+def merged_greedy(greedies, shape, n_rows):
+    """The greedy tokens (ticks + 1, B) of a sharded run from each rank's
+    `greedy` record (by rank): each row's largest logit over the ranks that
+    hold a block of its vocabulary."""
     from repro_torch.configs import MeshConfig
     from repro_torch.launch.mesh import MeshShape
     ms = MeshShape(MeshConfig(shape, ("data", "model")))
     B_l = n_rows // ms.size(("pod", "data"))
     best = None
-    for rank, rep in enumerate(reps):
+    for rank, g in enumerate(greedies):
         b0 = ms.index_of(("pod", "data"), rank) * B_l
-        g = rep["serve"][arch]["greedy"]
         if best is None:
             best = [[(-math.inf, -1)] * n_rows for _ in g]
         for t, (vals, idx) in enumerate(g):
@@ -3248,7 +3392,8 @@ def shard_serving(state, reports, serve_tokens, serve_ref_s, tp_key):
             arch, _, kind = key.partition(":")
             recs = [r["serve"][key] for r in reps]
             want = serve_tokens[(arch, kind or "f32")]
-            got = merged_greedy(reps, key, shape, want.shape[1])
+            got = merged_greedy([r["serve"][key]["greedy"] for r in reps],
+                                shape, want.shape[1])
             agree = float((got == want).float().mean())
             worst = {"prefill": max(r["prefill_max_abs_err"] for r in recs),
                      "caches": max(max(r["caches_max_abs_err"].values())
@@ -3636,6 +3781,211 @@ def fsdp_world(state):
     return reports
 
 
+def layout_cfg(job):
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    _, arch, layers, _, impl, _, _ = job
+    cfg = replace(get_arch(arch), n_layers=layers)
+    if impl is not None:
+        cfg = replace(cfg, moe=replace(cfg.moe, impl=impl))
+    return cfg
+
+
+def layout_prompt(cfg, seed, dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 31)
+    return {"tokens": torch.randint(0, cfg.vocab_size, (
+        SHARD_SERVE["batch"], SHARD_SERVE["seq"]), generator=gen,
+        device=dev)}
+
+
+def layout_references(state, job, ref_dir):
+    """The one-device path of each of `job`'s caches on the card: the
+    prefill's logits (its caches quantized for an int8 one), the ticks'
+    logits, fed the greedy token of the logits before them, written as
+    checkpoint step i of case i -> [the greedy tokens (ticks + 1, B)]."""
+    from repro_torch.checkpoint.ckpt import save_checkpoint
+    from repro_torch.models.attention import quantize_caches
+    from repro_torch.models.model import Model
+
+    dev = torch.device(SHARD_DEVICE)
+    cfg, ticks = layout_cfg(job), job[6]
+    model = Model(cfg, shard_runs()["forward"], dev).init(seed=state["seed"])
+    prompt = layout_prompt(cfg, state["seed"], dev)
+    tokens = []
+    for i, (max_len, quant) in enumerate(job[5]):
+        lg, caches = model.prefill(prompt, max_len)
+        if quant:
+            caches = quantize_caches(caches)
+        out = {"prefill": lg}
+        toks, logits = [greedy(lg, cfg.vocab_size)[1]], []
+        for _ in range(ticks):
+            lg, caches = model.decode_step({"tokens": toks[-1][:, None]},
+                                           caches)
+            logits.append(lg)
+            toks.append(greedy(lg, cfg.vocab_size)[1])
+        out.update({"decode": torch.stack(logits),
+                    "tokens": torch.stack(toks)[:, :, None]})
+        save_checkpoint(ref_dir, i, out)
+        tokens.append(torch.stack(toks).cpu())
+        del out, caches, lg, logits
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tokens
+
+
+def layout_rank(rank, job, store, ref_dir, seed, conn):
+    """One rank of `job`'s world on the card (gloo): for each of its
+    caches, the prefill on this rank's blocks of the weights (its cache
+    blocks quantized for an int8 one), then the ticks fed the reference's
+    greedy tokens, each against this rank's block of the reference's
+    logits; sends its report."""
+    from repro_torch.configs import MeshConfig
+    from repro_torch.convert import shard_params
+    from repro_torch.launch.mesh import make_mesh, shutdown
+    from repro_torch.models.attention import quantize_caches
+    from repro_torch.models.model import Model
+    from repro_torch.sharding import collectives as C
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(SHARD_DEVICE)
+    shape, ticks = job[3], job[6]
+    mesh = make_mesh(MeshConfig(shape, ("data", "model")), "gloo", dev,
+                     init_method=f"file://{store}", rank=rank,
+                     timeout_s=SHARD_TIMEOUT_S)
+    cfg, run = layout_cfg(job), shard_runs()["forward"]
+    full = Model(cfg, run, dev).init(seed=seed)
+    model = Model(cfg, run, dev, mesh)
+    model.load_state_dict(flatten(shard_params(full.params, model.specs,
+                                               mesh)))
+    del full
+    prompt = layout_prompt(cfg, seed, dev)        # (1, n): every row
+    B, S = prompt["tokens"].shape
+    vocab = "model" if model.vocab_split else None
+    counts, shapes = dict.fromkeys(KERNELS, 0), {}
+
+    def counted(fn):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        made, by = read_counts(), read_shapes()
+        for k, n in made.items():
+            counts[k] += n
+        add_shapes(shapes, by)
+        return out, made
+
+    rep = {"rank": rank, "mesh": list(shape), "cases": []}
+    for i, (max_len, quant) in enumerate(job[5]):
+        specs = flatten(model.cache_specs(B, max_len, quant))
+        C.reset_stats()
+        t0 = time.monotonic()
+        (lg, caches), made_p = counted(lambda: model.prefill(prompt, max_len))
+        rec = {"max_len": max_len, "int8": quant,
+               "cache_specs": {k: str(v) for k, v in specs.items()},
+               "prefill_s": time.monotonic() - t0,
+               "prefill_collectives": C.stats(), "launches_prefill": made_p}
+        offset = C.axis_index(mesh, "model") * lg.shape[-1] if vocab else 0
+        want, _ = ref_block(ref_dir, i, "prefill", (None, None, vocab), mesh,
+                            lg)
+        rec["prefill_max_abs_err"] = float((lg - want).abs().max())
+        if quant:
+            caches = quantize_caches(caches)
+        rec["cache_blocks"] = {k: [list(t.shape), str(t.dtype)]
+                               for k, t in flatten(caches).items()}
+        toks, _ = ref_block(ref_dir, i, "tokens", (None, None, None), mesh,
+                            torch.empty((ticks + 1, B, 1), dtype=torch.int64))
+        wants, _ = ref_block(ref_dir, i, "decode", (None, None, None, vocab),
+                             mesh, torch.empty((ticks, *lg.shape),
+                                               dtype=lg.dtype))
+        rows, errs, tick_ms = [greedy(lg, cfg.vocab_size - offset)], [], []
+        C.reset_stats()
+        made_d = dict.fromkeys(KERNELS, 0)
+        for t in range(ticks):
+            t0 = time.monotonic()
+            (lg, caches), made = counted(lambda: model.decode_step(
+                {"tokens": toks[t].to(dev)}, caches))
+            tick_ms.append(1e3 * (time.monotonic() - t0))
+            made_d = {k: made_d[k] + n for k, n in made.items()}
+            errs.append(float((lg - wants[t].to(dev)).abs().max()))
+            rows.append(greedy(lg, cfg.vocab_size - offset))
+        rec.update({"decode_max_abs_err": errs, "tick_ms": tick_ms,
+                    "decode_collectives": C.stats(),
+                    "launches_decode": made_d,
+                    "greedy": [(v.cpu().tolist(), (j + offset).cpu().tolist())
+                               for v, j in rows]})
+        rep["cases"].append(rec)
+        del caches, lg, wants
+        gc.collect()
+        torch.cuda.empty_cache()
+    rep["launches"], rep["launches_by_shape"] = counts, shapes
+    conn.send(rep)
+    shutdown(mesh)
+
+
+def shard_layouts(state):
+    """(e): each of SHARD_LAYOUTS' worlds against the one-device path on
+    the card; gated on the logits, the greedy tokens, each cache's layout
+    (an int8 one split by positions, a whole one of every position on
+    every rank), the kernels of the path and flash attention's shapes."""
+    gate = SHARD_GATES["logits"]
+    for job in SHARD_LAYOUTS:
+        name, arch, _, shape, _, cases, ticks = job
+        n = shape[0] * shape[1]
+        ref_dir = ROOT / "build" / "shard_layout_ref"
+        shutil.rmtree(ref_dir, ignore_errors=True)
+        t0 = time.monotonic()
+        tokens = layout_references(state, job, str(ref_dir))
+        ref_s = time.monotonic() - t0
+        reps = run_world(shape, ref_dir, state["seed"], layout_rank, job)
+        world_s = time.monotonic() - t0 - ref_s
+        shutil.rmtree(ref_dir, ignore_errors=True)
+        for rep in reps:
+            add_launches(state, rep["launches"], rep["launches_by_shape"])
+            check_shard_flash(arch, rep["launches_by_shape"])
+        for i, (max_len, quant) in enumerate(cases):
+            recs = [r["cases"][i] for r in reps]
+            got = merged_greedy([r["greedy"] for r in recs], shape,
+                                tokens[i].shape[1])
+            agree = float((got == tokens[i]).float().mean())
+            worst = {"prefill": max(r["prefill_max_abs_err"] for r in recs),
+                     "decode": max(max(r["decode_max_abs_err"])
+                                   for r in recs)}
+            k_block, k_dtype = recs[0]["cache_blocks"][
+                next(p for p in recs[0]["cache_blocks"]
+                     if p.rsplit(".", 1)[-1] == "k")]
+            layout = ("whole" if max_len % n else "positions") \
+                if job[4] is None else "heads"
+            emit({"phase": "shard", "part": "layout", "name": name,
+                  "arch": arch, "mesh": list(shape), "moe_impl": job[4],
+                  "batch": SHARD_SERVE["batch"], "prompt": SHARD_SERVE["seq"],
+                  "ticks": ticks, "max_len": max_len, "int8": quant,
+                  "cache_layout": layout, "k_block": k_block,
+                  "k_dtype": k_dtype, "max_abs_err": worst, "gate": gate,
+                  "greedy_agree": agree, "references_seconds": ref_s,
+                  "world_seconds": world_s,
+                  "ranks": [{k: v for k, v in r.items() if k != "greedy"}
+                            for r in recs], "gpu": state["smi"]})
+            what = f"shard layout {name}, {max_len} positions"
+            require(all(v < gate for v in worst.values()),
+                    f"{what}: {worst} against {gate}")
+            require(agree == 1.0, f"{what}: greedy tokens agree at {agree}")
+            require(k_dtype == str(torch.int8 if quant else torch.float32),
+                    f"{what}: the cache's k is {k_dtype}")
+            if layout != "heads":
+                local = max_len if layout == "whole" else max_len // n
+                require(k_block[-3] == local,
+                        f"{what}: a rank holds {k_block[-3]} positions, not "
+                        f"{local} ({layout})")
+            for r in recs:
+                path = {k: r["launches_prefill"][k] + r["launches_decode"][k]
+                        for k in KERNELS}
+                require(path["rmsnorm"] > 0 and path["flash_attention"] > 0,
+                        f"{what}: a kernel of the path was not launched: "
+                        f"{path}")
+
+
 def phase_shard(state):
     """The multi-device machinery on the one card: (a) two ranks (gloo) on
     (1, 2) and (2, 1) against the one-device path on the same weights,
@@ -3648,18 +3998,21 @@ def phase_shard(state):
     from repro_torch.kernels import build
 
     t_start = time.monotonic()
+    mark = stopwatch(state, "shard:")
     build.build()
     build.library()
     ref_dir = ROOT / "build" / "shard_ref"
     shutil.rmtree(ref_dir, ignore_errors=True)
     ref_s = shard_references(state, str(ref_dir))
     serve_tokens, serve_ref_s = serve_references(state, str(ref_dir))
+    mark("(a) references")
     GiB = 1024 ** 3
     reports, world_s = {}, {}
     for shape in SHARD_WORLDS:
         t0 = time.monotonic()
         reports[shape] = run_world(shape, ref_dir, state["seed"])
         world_s[shape] = time.monotonic() - t0
+        mark(f"(a) world {shape}")
     shutil.rmtree(ref_dir, ignore_errors=True)
     for shape, reps in reports.items():
         for rep in reps:
@@ -3716,6 +4069,7 @@ def phase_shard(state):
     require(state["shard_tp_launches"] > 0,
             f"shard: flash attention never ran at the local shape {tp_key}")
     # (b) rank alone against rank among peers
+    mark("(a) gates")
     alone = rank_alone_peak(state, (1, 2))
     r0 = reports[(1, 2)][0]
     peer = r0["train_peak_bytes"] + r0["train_state_bytes"]
@@ -3757,6 +4111,7 @@ def phase_shard(state):
             f"shard: prefill rank alone {alone['peak_bytes']} vs among peers "
             f"{peer}")
     # (c) the planner over profile meshes
+    mark("(b) ranks alone")
     f32 = RunConfig(attn_impl="blocked", remat="boundaries",
                     param_dtype="float32", compute_dtype="float32")
     kernels = ("rmsnorm", "rmsnorm_backward")
@@ -3794,13 +4149,21 @@ def phase_shard(state):
     # measured there alone
     bf16 = RunConfig(attn_impl="kernel", remat="nothing",
                      param_dtype="bfloat16", compute_dtype="bfloat16")
-    for mode, job in PLANNER_MISTRAL.items():
+    measured = {}
+    # the decode a second time over an int8 cache (split by positions too,
+    # its scales beside it), its bytes beside the bf16 cache's
+    jobs = [(mode, job, bf16) for mode, job in PLANNER_MISTRAL.items()] + \
+        [("decode", PLANNER_MISTRAL["decode"],
+          bf16.with_(kv_cache_dtype="int8"))]
+    for mode, job, run in jobs:
         mesh = MeshConfig(job["mesh"], ("data", "model"))
         kernels = ("rmsnorm", "flash_attention") if mode == "prefill" \
             else ("rmsnorm",)
         rep, truth, planner = planner_job(
-            state, "mistral-large-123b", mode, bf16, kernels,
+            state, "mistral-large-123b", mode, run, kernels,
             seq=job["seq"], profile_mesh=mesh, batch=job["batch"])
+        key = f"{mode} {run.kv_cache_dtype}"
+        measured[key] = truth.job_mem_bytes / GiB
         if mode == "prefill":
             check_shard_flash("mistral-large-123b",
                               {"flash_attention":
@@ -3809,17 +4172,28 @@ def phase_shard(state):
               "arch": "mistral-large-123b", "mode": mode,
               "profile_mesh": list(job["mesh"]), "batch": job["batch"],
               "seq": job["seq"], "n_layers": 88,
+              "kv_cache_dtype": run.kv_cache_dtype,
               "per_rank_predicted_gib": rep.model.predict(88) / GiB,
               "per_rank_measured_gib": truth.job_mem_bytes / GiB,
+              "per_rank_measured_gib_by_job": dict(measured),
               "requirement_gib": rep.requirement_gib,
               "selection": rep.selection.config.name,
               "feasible": rep.selection.feasible_count,
               "fell_back": rep.selection.fell_back, "gpu": state["smi"]})
     # (d) fsdp_params a layer at a time
+    mark("(c) planner")
     t0 = time.monotonic()
     fsdp_world(state)
     emit({"phase": "shard", "part": "fsdp_seconds",
           "seconds": time.monotonic() - t0})
+    # (e) the int8 cache split by positions, the whole cache and the dense
+    # MoE over 'model'
+    mark("(d) fsdp")
+    t0 = time.monotonic()
+    shard_layouts(state)
+    emit({"phase": "shard", "part": "layouts_seconds",
+          "seconds": time.monotonic() - t0})
+    mark("(e) layouts")
     emit({"phase": "shard", "seconds": time.monotonic() - t_start,
           "gpu": state["smi"]})
 
@@ -4356,6 +4730,93 @@ def shared_state(state, cfg, engine, sizes, points, point_walls, wire_b,
           "seconds": time.monotonic() - t_start, "gpu": state["smi"]})
 
 
+def run_example(name, *args):
+    """examples/<name>_torch.py run as a user runs it, from the checkout's
+    root with its src/ on PYTHONPATH -> (exit code, standard output,
+    standard error); killed past EXAMPLES_TIMEOUT_S."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [env.get("PYTHONPATH")] if p])
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, str(ROOT / "examples" /
+                                               f"{name}_torch.py"), *args],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=EXAMPLES_TIMEOUT_S)
+    return proc.returncode, proc.stdout, proc.stderr, time.monotonic() - t0
+
+
+def start_examples(state, phase, pool):
+    """Start each example of EXAMPLES_EARLY whose first phase is `phase`
+    (if not started yet) on `pool`; the examples phase reads its future
+    from state["examples"]."""
+    started = state.setdefault("examples", {})
+    for name, phases in EXAMPLES_EARLY.items():
+        if phase in phases and name not in started:
+            started[name] = pool.submit(run_example, name)
+
+
+def phase_examples(state):
+    """The port's examples as a user runs them, the three side by side:
+    the quickstart (a reduced deepseek-7b trained for 300 steps with
+    checkpoints, then serving four requests) and the serving demos (the
+    allocation endpoint under concurrent requests, two services over one
+    crispy-daemon, the reduced deepseek-7b's and rwkv6-7b's engines) on
+    the card; profile_and_select on the host (RSS profiling, no device),
+    started with an earlier phase (EXAMPLES_EARLY). Gated on the quickstart's loss falling and its four requests answered
+    with 12 tokens each, every allocation request answered, service B
+    re-profiling nothing (its exit code), each engine serving its 12
+    requests 16 tokens each, and the three passes of profile_and_select
+    selecting for all seven jobs and the three objectives."""
+    import re
+
+    ck = ROOT / "build" / "quickstart_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    runs = {"quickstart": ("--ckpt-dir", str(ck)), "serve_demo": ()}
+    with ThreadPoolExecutor(len(runs)) as pool:
+        futures = {name: pool.submit(run_example, name, *args)
+                   for name, args in runs.items()}
+        futures.update(state["examples"])
+        out = {name: f.result() for name, f in futures.items()}
+    shutil.rmtree(ck, ignore_errors=True)
+    for name, (rc, stdout, stderr, seconds) in out.items():
+        emit({"phase": "examples", "example": f"examples/{name}_torch.py",
+              "exit_code": rc, "seconds": seconds,
+              "stdout": stdout.strip().splitlines()[-40:],
+              "stderr_tail": stderr.strip().splitlines()[-10:],
+              "gpu": state["smi"]})
+        require(rc == 0, f"examples/{name}_torch.py exited {rc}: "
+                         f"{stderr[-2000:]}")
+    text = out["quickstart"][1]
+    loss = re.search(r"loss: ([0-9.]+) -> ([0-9.]+) over (\d+) steps", text)
+    require(loss is not None and float(loss.group(2)) < float(loss.group(1))
+            and int(loss.group(3)) == 300,
+            f"quickstart: the loss did not fall over 300 steps: {loss}")
+    answers = re.findall(r"request (\d+): \[[0-9, ]*\] -> \[([0-9, ]*)\]",
+                         text)
+    require(sorted(int(r) for r, _ in answers) == [0, 1, 2, 3] and
+            all(len(t.split(",")) == 12 for _, t in answers),
+            f"quickstart: requests answered {answers}")
+    text = out["serve_demo"][1]
+    alloc = re.search(r"allocation: (\d+) requests .*; sources (\{.*?\})",
+                      text)
+    require(alloc is not None and int(alloc.group(1)) == 16 and
+            sum(int(n) for n in re.findall(r": (\d+)", alloc.group(2))) == 16,
+            f"serve_demo: allocation answers {alloc}")
+    served = re.findall(r"^(\S+) \((cuda\S*)\): served (\d+) requests / "
+                        r"(\d+) tokens", text, re.M)
+    require(sorted(a for a, *_ in served) == ["deepseek-7b", "rwkv6-7b"] and
+            all(int(n) == 12 and int(t) == 12 * 16 for _, _, n, t in served),
+            f"serve_demo: the engines served {served}")
+    text = out["profile_and_select"][1]
+    for job in ("kmeans", "pagerank", "linregression", "logregression",
+                "naivebayes", "join", "sort"):
+        require(len(re.findall(rf"^{job} ", text, re.M)) == 3,
+                f"profile_and_select: {job} not in all three passes")
+    require(len(re.findall(r"^(cheapest_fit|min_cost|min_runtime) ", text,
+                           re.M)) == 3,
+            "profile_and_select: an objective selected nothing")
+
+
 def kernels_line(state):
     """One entry for each kernel at the prefill shape of the model that
     carries it (the rmsnorm backward: at the train phase's, in its float32,
@@ -4500,13 +4961,19 @@ def main(argv=None) -> int:
     run = {"env": phase_env, "kernels": phase_kernels, "parity": phase_parity,
            "prefill": phase_prefill, "serve": phase_serve, "train": phase_train,
            "planner": phase_planner, "shard": phase_shard,
-           "dryrun": phase_dryrun, "allocate": phase_allocate}
+           "dryrun": phase_dryrun, "allocate": phase_allocate,
+           "examples": phase_examples}
     t0 = time.monotonic()
+    early = ThreadPoolExecutor(len(EXAMPLES_EARLY))
     for name in PHASES:
         if name in phases:
             t1 = time.monotonic()
+            if "examples" in phases:
+                start_examples(state, name, early)
             run[name](state)
-            emit({"phase_done": name, "seconds": time.monotonic() - t1})
+            emit({"phase_done": name, "seconds": time.monotonic() - t1,
+                  "split": state.pop("split", {})})
+    early.shutdown(wait=True)
     if phases != list(PHASES):
         emit({"ok": False, "partial": phases,
               "seconds": time.monotonic() - t0})

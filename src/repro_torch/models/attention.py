@@ -36,15 +36,20 @@ heads.
 
 Serving over a mesh reads and writes this rank's blocks of the caches, as
 ``rules.cache_specs`` lays them out: the batch split over the batch axes,
-the KV heads over 'model' where they divide it, else the positions
-(``kv_context_split``; MLA's latents always by positions). A decode step
-over a cache split by positions is flash decoding over the mesh: the
-queries of every head are gathered over 'model', each rank takes the
-softmax's partial maximum, sum and output over its own positions, the
-partials are combined by a max and a sum over 'model' (``_combine``), and
-each rank keeps its own heads for ``wo``; the new position's key and value
-go to the rank that holds that position. ``pos`` is whole on every rank
-(the rules replicate it) and a rank reads its batch rows of it
+the KV heads over 'model' where they divide it, else the positions where
+they divide it (``kv_context_split``, ``positions_split``; MLA's latents
+by positions where they divide), else the cache whole on every rank. A
+decode step over a cache split by positions is flash decoding over the
+mesh: the queries of every head are gathered over 'model', each rank
+takes the softmax's partial maximum, sum and output over its own
+positions (an int8 cache's block dequantized whole), the partials are
+combined by a max and a sum over 'model' (``_combine``), and each rank
+keeps its own heads for ``wo``; the new position's key and value (an int8
+cache's values and scales) go to the rank that holds that position. Over a
+whole cache (``whole=True``) every rank writes every KV head at every
+position and decodes its own query heads against the KV heads they read
+(``_kv_range``), with no collective in the attention. ``pos`` is whole on
+every rank (the rules replicate it) and a rank reads its batch rows of it
 (``_batch_rows``).
 """
 from __future__ import annotations
@@ -137,6 +142,21 @@ def quantize_kv(x):
     s = (amax / torch.full_like(amax, 127.0)).clamp(min=1e-8)
     q = torch.round(xf / s).clamp(-127, 127).to(torch.int8)
     return q, s.to(torch.bfloat16)
+
+
+def quantize_caches(caches):
+    """A cache tree with each GQA k and v in the compute dtype quantized to
+    int8 beside its bfloat16 scales (``quantize_kv``), as an int8 cache
+    holds them: what a prefill's caches become for an int8 decode (the
+    prefill hands them back unquantized, as the reference's does). Over a
+    mesh, a rank's blocks quantize to its blocks of the whole's."""
+    if "k" not in caches:
+        return {name: quantize_caches(t) if isinstance(t, dict) else t
+                for name, t in caches.items()}
+    out = dict(caches)
+    for name in ("k", "v"):
+        out[name], out[name + "_scale"] = quantize_kv(caches[name])
+    return out
 
 
 def decode_attention_q8(q, kq, ks, vq, vs, kv_len, block: int = 4096):
@@ -359,10 +379,21 @@ def heads_split(params, cfg: ModelConfig, mesh) -> bool:
 
 
 def kv_context_split(cfg: ModelConfig, mesh) -> bool:
-    """Whether ``rules.cache_specs`` splits a GQA cache over 'model' by its
-    positions: the axis is above 1 and the KV heads do not divide it."""
+    """Whether ``rules.cache_specs`` leaves a GQA cache's KV heads whole
+    over 'model': the axis is above 1 and the KV heads do not divide it.
+    The cache is then split by its positions where they divide the axis
+    (``positions_split``), else whole on every rank."""
     n = C.axis_size(mesh, "model")
     return n > 1 and cfg.n_kv_heads % n != 0
+
+
+def positions_split(n_positions: int, mesh) -> bool:
+    """Whether a cache of `n_positions` positions divides over a 'model'
+    axis above 1: the rules split a GQA cache whose KV heads do not divide
+    the axis (and MLA's latents) by positions then, and leave it whole
+    otherwise."""
+    n = C.axis_size(mesh, "model")
+    return n > 1 and n_positions % n == 0
 
 
 def _kv_range(params, cfg: ModelConfig, mesh):
@@ -435,13 +466,10 @@ def gqa(params, x, cfg: ModelConfig, run: RunConfig, *, positions=None,
 
 
 def _position_block(t, mesh, dim: int = 1):
-    """This rank's block of `t`'s positions (dim `dim`) over 'model'."""
-    n, r = C.axis_size(mesh, "model"), C.axis_index(mesh, "model")
-    if t.shape[dim] % n:
-        raise ValueError(f"a cache of {t.shape[dim]} positions does not "
-                         f"divide over a 'model' axis of {n}")
-    size = t.shape[dim] // n
-    return t.narrow(dim, r * size, size)
+    """This rank's block of `t`'s positions (dim `dim`, which
+    ``positions_split``) over 'model'."""
+    size = t.shape[dim] // C.axis_size(mesh, "model")
+    return t.narrow(dim, C.axis_index(mesh, "model") * size, size)
 
 
 def gqa_prefill(params, x, cfg: ModelConfig, run: RunConfig, *,
@@ -450,15 +478,17 @@ def gqa_prefill(params, x, cfg: ModelConfig, run: RunConfig, *,
     `pad_to` positions (the serve-time max length). Over a mesh the cache
     content is this rank's block (``rules.cache_specs``): its KV heads, or,
     where the KV heads do not divide 'model', every KV head at this rank's
-    block of the padded positions."""
+    block of the padded positions, or at all of them where those do not
+    divide 'model' either."""
     S = x.shape[1]
     if positions is None:
         positions = torch.arange(S, device=x.device)
     split = heads_split(params, cfg, mesh)
-    by_pos = kv_context_split(cfg, mesh)
-    q, k, v = _project_qkv(params, x, cfg, positions, mesh, all_kv=by_pos)
+    all_kv = kv_context_split(cfg, mesh)
+    by_pos = all_kv and positions_split(max(S, pad_to), mesh)
+    q, k, v = _project_qkv(params, x, cfg, positions, mesh, all_kv=all_kv)
     ka, va = k, v
-    if by_pos and split:
+    if all_kv and split:
         k0, k1 = _kv_range(params, cfg, mesh)
         ka, va = k[:, :, k0:k1].contiguous(), v[:, :, k0:k1].contiguous()
     o = _sequence_attention(q, ka, va, run, causal=True)
@@ -533,15 +563,28 @@ def _gqa_decode_by_positions(params, x, cache, pos, cfg: ModelConfig, mesh):
     """The decode attention of x over a cache split by positions over
     'model' -> this rank's heads' output (B, 1, H_l, D): every head's query
     gathered, the new key and value (every KV head) written where this rank
-    holds pos, the partial softmaxes combined (``_combine``)."""
+    holds pos, the partial softmaxes combined (``_combine``). An int8
+    cache's new rows are quantized as on one device (``quantize_kv``) and
+    written with their scales; its block is dequantized to float32, where
+    the scores and the sums are taken, as ``decode_attention_q8`` takes
+    them."""
     split = heads_split(params, cfg, mesh)
     q, k, v = _project_qkv(params, x, cfg, pos[:, None], mesh, all_kv=True)
-    H_l = q.shape[2]
+    H_l, dtype = q.shape[2], q.dtype
     if split:
         q = C.all_gather(q, mesh, "model", 2)
-    kc, vc = cache["k"], cache["v"]
-    _write_owned(kc, pos, mesh, k[:, 0])
-    _write_owned(vc, pos, mesh, v[:, 0])
+    if "k_scale" in cache:                   # int8 quantized cache
+        for name, t in (("k", k), ("v", v)):
+            values, scales = quantize_kv(t[:, 0])
+            _write_owned(cache[name], pos, mesh, values)
+            _write_owned(cache[name + "_scale"], pos, mesh, scales)
+        kc = cache["k"].float() * cache["k_scale"].float()
+        vc = cache["v"].float() * cache["v_scale"].float()
+        q = q.float()
+    else:
+        kc, vc = cache["k"], cache["v"]
+        _write_owned(kc, pos, mesh, k[:, 0])
+        _write_owned(vc, pos, mesh, v[:, 0])
     B, _, H, D = q.shape
     K = kc.shape[2]
     G = H // K
@@ -551,7 +594,7 @@ def _gqa_decode_by_positions(params, x, cache, pos, cfg: ModelConfig, mesh):
     o = _combine(s.float(), visible,
                  lambda p: torch.einsum("bkgqs,bskd->bkgqd", p.to(vc.dtype),
                                         vc), mesh)
-    o = o.permute(0, 3, 1, 2, 4).reshape(B, 1, H, D).to(q.dtype)
+    o = o.permute(0, 3, 1, 2, 4).reshape(B, 1, H, D).to(dtype)
     if split:
         r = C.axis_index(mesh, "model")
         o = o[:, :, r * H_l:(r + 1) * H_l]
@@ -559,7 +602,7 @@ def _gqa_decode_by_positions(params, x, cache, pos, cfg: ModelConfig, mesh):
 
 
 def gqa_decode(params, x, cache, cfg: ModelConfig, run: RunConfig,
-               mesh=None):
+               mesh=None, whole: bool = False):
     """One-token decode against a KV cache.
 
     cache: {"k": (B,Smax,K,D), "v": ..., "pos": (B,) int32} — pos[b] is the
@@ -573,38 +616,43 @@ def gqa_decode(params, x, cache, cfg: ModelConfig, run: RunConfig,
 
     Over a mesh the cache is this rank's block (see the module's
     docstring) and `pos` the whole batch's; a cache split by positions
-    takes flash decoding over 'model' (``_gqa_decode_by_positions``), which
-    the int8 cache does not (it raises).
+    takes flash decoding over 'model' (``_gqa_decode_by_positions``). A
+    cache whose KV heads do not divide 'model' is whole on every rank where
+    its positions do not divide it either (`whole`, which the model tells
+    from the cache's length): every rank writes every KV head, and its
+    query heads attend to the KV heads they read.
     """
     B = x.shape[0]
     pos = _batch_rows(cache["pos"], B, mesh)             # (B,)
     out = dict(cache)
     out["pos"] = cache["pos"] + 1
     split = heads_split(params, cfg, mesh)
-    if kv_context_split(cfg, mesh):
-        if "k_scale" in cache:
-            raise NotImplementedError(
-                "an int8 KV cache split by positions over 'model' (the KV "
-                "heads do not divide the axis)")
+    all_kv = kv_context_split(cfg, mesh)
+    if all_kv and not whole:
         o = _gqa_decode_by_positions(params, x, cache, pos, cfg, mesh)
         return _project_out(params, o, x, mesh if split else None), out
-    q, k, v = _project_qkv(params, x, cfg, pos[:, None], mesh)
+    q, k, v = _project_qkv(params, x, cfg, pos[:, None], mesh, all_kv=all_kv)
     smax = cache["k"].shape[1]
     rows = torch.arange(B, device=x.device)
     in_range = pos < smax
     idx = torch.where(in_range, pos, torch.zeros_like(pos)).long()
     keep = in_range[:, None, None]
+    # the KV heads this rank's query heads read: all of its cache's, but
+    # for a whole cache under split query heads
+    k0, k1 = _kv_range(params, cfg, mesh) if all_kv and split else (0, None)
     if "k_scale" in cache:                   # int8 quantized cache
         for name, t in (("k", k), ("v", v)):
             values, scales = quantize_kv(t[:, 0])
             _write_rows(cache[name], rows, idx, keep, values)
             _write_rows(cache[name + "_scale"], rows, idx, keep, scales)
-        o = decode_attention_q8(q, cache["k"], cache["k_scale"], cache["v"],
-                                cache["v_scale"], pos + 1)
+        o = decode_attention_q8(q, *(cache[name][:, :, k0:k1] for name in
+                                     ("k", "k_scale", "v", "v_scale")),
+                                pos + 1)
     else:
         _write_rows(cache["k"], rows, idx, keep, k[:, 0])
         _write_rows(cache["v"], rows, idx, keep, v[:, 0])
-        o = decode_attention(q, cache["k"], cache["v"], pos + 1)
+        o = decode_attention(q, cache["k"][:, :, k0:k1],
+                             cache["v"][:, :, k0:k1], pos + 1)
     return _project_out(params, o, x, mesh if split else None), out
 
 
@@ -786,8 +834,9 @@ def mla_prefill(params, x, cfg: ModelConfig, run: RunConfig, *,
     """MLA forward that also emits the latent cache (ckv (B, max(S, pad_to),
     r), kr (B, max(S, pad_to), rope)). The reference computes the latents a
     second time for the cache; here the attention's are kept. Over a mesh
-    with a 'model' axis above 1, this rank's block of the positions
-    (``rules.cache_specs`` splits the latents so)."""
+    with a 'model' axis above 1, this rank's block of the positions where
+    they divide it (``rules.cache_specs`` splits the latents so), else
+    every position."""
     S = x.shape[1]
     if positions is None:
         positions = torch.arange(S, device=x.device)
@@ -795,13 +844,13 @@ def mla_prefill(params, x, cfg: ModelConfig, run: RunConfig, *,
     if pad_to > S:
         ckv = F.pad(ckv, (0, 0, 0, pad_to - S))
         kr = F.pad(kr, (0, 0, 0, pad_to - S))
-    if C.axis_size(mesh, "model") > 1:
+    if positions_split(ckv.shape[1], mesh):
         ckv, kr = _position_block(ckv, mesh), _position_block(kr, mesh)
     return out, (ckv, kr)
 
 
 def mla_decode(params, x, cache, cfg: ModelConfig, run: RunConfig,
-               mesh=None):
+               mesh=None, whole: bool = False):
     """Absorbed-latent decode over the cache {"ckv": (B, Smax, r), "kr":
     (B, Smax, rope), "pos": (B,) int32}: only the compressed latent and the
     rotated key are cached, wuk is absorbed into q and wuv into the output.
@@ -812,7 +861,10 @@ def mla_decode(params, x, cache, cfg: ModelConfig, run: RunConfig,
     Over a mesh with a 'model' axis above 1 the latents are this rank's
     block of the positions: the (B, 1, H, r) latent queries of every head
     are gathered over 'model', the partial softmaxes combined
-    (``_combine``), and this rank's heads go through wuv and wo."""
+    (``_combine``), and this rank's heads go through wuv and wo. Where the
+    latents' positions do not divide 'model' (`whole`), every rank holds
+    and writes all of them and its heads attend to them with no collective
+    in the attention."""
     m = cfg.mla
     B = x.shape[0]
     pos = _batch_rows(cache["pos"], B, mesh)
@@ -825,7 +877,7 @@ def mla_decode(params, x, cache, cfg: ModelConfig, run: RunConfig,
     scale = math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
     split = mla_heads_split(params, cfg, mesh)
     new = {"ckv": ckv, "kr": kr, "pos": cache["pos"] + 1}
-    if C.axis_size(mesh, "model") > 1:
+    if C.axis_size(mesh, "model") > 1 and not whole:
         _write_owned(ckv, pos, mesh, ckv_t[:, 0])
         _write_owned(kr, pos, mesh, kr_t[:, 0])
         H_l = q_lat.shape[2]

@@ -66,9 +66,10 @@ Serving over a mesh: ``init_caches(batch, max_len)`` takes the whole
 batch and returns this rank's blocks of the caches (``cache_specs``, by
 ``rules.cache_specs``: the batch over ('pod', 'data') where it divides,
 the KV or state heads over 'model' where they divide, else a KV cache's
-positions, always MLA's); ``prefill`` takes this rank's block of the
-prompts and writes those blocks, and ``decode_step`` reads and updates
-them in place. The logits are this rank's block, as ``forward``'s.
+positions (and MLA's) where they divide, else the cache whole on every
+rank); ``prefill`` takes this rank's block of the prompts and writes those
+blocks, and ``decode_step`` reads and updates them in place. The logits
+are this rank's block, as ``forward``'s.
 """
 from __future__ import annotations
 
@@ -113,18 +114,6 @@ class ParamTree(nn.Module):
         return out
 
 
-def refuse_tp(cfg: ModelConfig, mesh) -> None:
-    """Raise for the one layout the port has no tensor-parallel form of:
-    MoE impl "dense", which no config uses, over a 'model' axis above 1."""
-    if mesh is None or C.axis_size(mesh, "model") == 1:
-        return
-    if cfg.moe is not None and cfg.moe.impl not in ("ep_tp", "ep_a2a"):
-        raise NotImplementedError(
-            f"{cfg.name} over a 'model' axis of {C.axis_size(mesh, 'model')}:"
-            f" MoE impl {cfg.moe.impl!r} does not split the experts "
-            f"(ROADMAP.md, Queue 1, item 7b)")
-
-
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, run: Optional[RunConfig] = None,
                  device: Optional[Union[str, torch.device]] = None,
@@ -137,7 +126,6 @@ class Model(nn.Module):
         if cfg.family not in PORTED_FAMILIES:
             raise ValueError(f"unknown family {cfg.family!r}; the port holds "
                              f"{PORTED_FAMILIES}")
-        refuse_tp(cfg, mesh)
         self.cfg = cfg
         self.run = run or RunConfig()
         self.mesh = mesh
@@ -158,6 +146,9 @@ class Model(nn.Module):
         self.tree = ParamTree(shapes).to_empty(device=self.device)
         self.vocab_split = mesh is not None and \
             self.specs["embed"][:1] == ("model",)
+        # a rank's cache length -> whether caches of that length that
+        # ``cache_specs`` last laid out are whole over 'model' (decode_step)
+        self._whole_by_length: Dict[int, bool] = {}
 
     # ------------------------------------------------------------------ init
     def _param_shapes(self) -> Dict:
@@ -465,20 +456,32 @@ class Model(nn.Module):
                     quant: Optional[bool] = None) -> Dict:
         """The specs of the caches of `batch` sequences (the whole batch) of
         `max_len` positions over the model's mesh (``rules.cache_specs``).
-        Where the rules would leave a KV or latent cache whole over a
-        'model' axis above 1 (its positions, which the port then splits,
-        do not divide the axis), this raises."""
-        whole = self._whole_caches(batch, max_len, quant)
-        specs = rules.cache_specs(whole, self.mesh, self.run, batch)
-        if C.axis_size(self.mesh, "model") > 1:
-            for path, spec in _flat(specs).items():
-                if path.rsplit(".", 1)[-1] in ("k", "v", "ckv", "kr") and \
-                        "model" not in rules.spec_axes(spec):
-                    raise ValueError(
-                        f"caches of {max_len} positions over a 'model' axis "
-                        f"of {C.axis_size(self.mesh, 'model')}: {path} is "
-                        f"split by positions, which must divide over it")
+        Where neither a KV cache's heads nor its positions divide a 'model'
+        axis above 1 (nor an MLA cache's positions), the rules leave it
+        whole on every rank; the model notes which of its caches' lengths
+        are whole, so that ``decode_step`` reads them so."""
+        specs = rules.cache_specs(self._whole_caches(batch, max_len, quant),
+                                  self.mesh, self.run, batch)
+        n = C.axis_size(self.mesh, "model")
+        if n > 1:
+            whole = not A.positions_split(max_len, self.mesh)
+            self._whole_by_length[max_len if whole else max_len // n] = whole
         return specs
+
+    def _whole_kv(self, caches) -> bool:
+        """Whether the KV or latent caches a rank holds are whole over a
+        'model' axis above 1: from their length, as ``cache_specs`` last
+        laid out caches of that length (``init_caches``, ``prefill``). A
+        length that divides the axis, or that it has not laid out, is a
+        block of positions (or of KV heads)."""
+        n = C.axis_size(self.mesh, "model")
+        for path, t in _flat(caches).items():
+            name = path.rsplit(".", 1)[-1]
+            if n > 1 and name in ("k", "ckv"):
+                length = t.shape[-3] if name == "k" else t.shape[-2]
+                return length % n != 0 and \
+                    self._whole_by_length.get(length, False)
+        return False
 
     def _whole_caches(self, batch: int, max_len: int,
                       quant: Optional[bool] = None, device="meta") -> Dict:
@@ -579,31 +582,36 @@ class Model(nn.Module):
         x = self._embed(params, tokens)
         cfg, run, mesh = self.cfg, self.run, self.mesh
         fsdp = self._fsdp("layers")
+        whole = self._whole_kv(caches)
         if cfg.family == "dense":
             x, caches = T.stack_decode(params["layers"], x, caches, cfg, run,
-                                       kind="dense", mesh=mesh, fsdp=fsdp)
+                                       kind="dense", mesh=mesh, fsdp=fsdp,
+                                       whole=whole)
         elif cfg.family == "moe":
             if "dense_layers" in params:
                 x, _ = T.stack_decode(params["dense_layers"], x,
                                       caches["dense"], cfg, run, kind="dense",
                                       mesh=mesh, d_ff=cfg.moe.d_ff_dense,
-                                      fsdp=self._fsdp("dense_layers"))
+                                      fsdp=self._fsdp("dense_layers"),
+                                      whole=whole)
             x, _ = T.stack_decode(params["layers"], x, caches["moe"], cfg, run,
-                                  kind="moe", mesh=mesh, fsdp=fsdp)
+                                  kind="moe", mesh=mesh, fsdp=fsdp,
+                                  whole=whole)
         elif cfg.family == "ssm":
             x, caches = T.rwkv_stack_decode(params["layers"], x, caches, cfg,
                                             run, mesh, fsdp)
         elif cfg.family == "hybrid":
             x, caches = T.hybrid_stack_decode(params["layers"], x, caches,
-                                              cfg, run, mesh, fsdp)
+                                              cfg, run, mesh, fsdp, whole)
         elif cfg.family == "vlm":
             x, caches = T.vlm_stack_decode(params["layers"], x,
                                            self._extra(batch, "media"),
-                                           caches, cfg, run, mesh, fsdp)
+                                           caches, cfg, run, mesh, fsdp,
+                                           whole)
         else:
             x, caches = T.encdec_decode(params["layers"], x,
                                         self._extra(batch, "enc_out"),
-                                        caches, cfg, run, mesh, fsdp)
+                                        caches, cfg, run, mesh, fsdp, whole)
         return self._logits(params, x), caches
 
 

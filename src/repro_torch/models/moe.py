@@ -31,7 +31,11 @@ and ``capacity_factor``, where the single-device ``moe`` sizes each
 group by its largest count: under the rank-alone transport a count would
 be read from zeros, and static shapes make a rank's peak what it is among
 its peers. Their combines, like ``moe``'s, put each choice's output in
-its own row and sum a token's k rows. The aux loss is the whole batch's
+its own row and sum a token's k rows. impl "dense" (the reference's
+``moe_dense``, dropless) runs ``moe_local`` over the rank's block of the
+experts, its groups sized by their counts as on one device (the routing
+is the rank's own, so the rank-alone transport reads real counts), and
+all-reduces the combine over 'model'. The aux loss is the whole batch's
 (``route`` over the mesh).
 """
 from __future__ import annotations
@@ -270,26 +274,22 @@ class _GatherSlots(torch.autograd.Function):
 def moe(params, x, cfg: ModelConfig, run: RunConfig = None, mesh=None):
     """x: (B, S, d) -> (out, aux). With no mesh (or one without a 'model'
     axis) ``moe_local``; over a mesh with one, ``moe_ep_a2a`` or
-    ``moe_ep`` as ``cfg.moe.impl`` names them (the reference's dispatch).
-    impl "dense" over a 'model' axis above 1 raises (ROADMAP.md item 7b);
-    over one of size 1 it is ``moe_local``."""
+    ``moe_ep`` as ``cfg.moe.impl`` names them (the reference's dispatch),
+    and ``moe_local`` over the rank's experts for impl "dense" (the
+    reference's ``moe_dense``)."""
     if mesh is not None and "model" in mesh.axis_names:
         if cfg.moe.impl == "ep_a2a":
             return moe_ep_a2a(params, x, cfg, run, mesh)
         if cfg.moe.impl == "ep_tp":
             return moe_ep(params, x, cfg, run, mesh)
-        if C.axis_size(mesh, "model") > 1:
-            raise NotImplementedError(
-                f"MoE impl {cfg.moe.impl!r} over a 'model' axis of "
-                f"{C.axis_size(mesh, 'model')}: only 'ep_tp' and 'ep_a2a' "
-                "split the experts (ROADMAP.md, Queue 1, item 7b)")
     return moe_local(params, x, cfg, mesh)
 
 
 def moe_local(params, x, cfg: ModelConfig, mesh=None):
     """x: (B, S, d) -> (out, aux): ``moe_dense``'s function, dropless (over
-    a mesh without a 'model' axis: on this rank's tokens, with the whole
-    batch's aux).
+    a mesh: on this rank's tokens, with the whole batch's aux; where
+    'model' splits the experts, over this rank's block of them, every
+    other choice's row 0, the combine all-reduced over 'model').
 
     The capacity dispatch of ``_dispatch_local`` over all experts, taken
     group by group (``_expert_groups``): each group of consecutive experts
@@ -306,27 +306,40 @@ def moe_local(params, x, cfg: ModelConfig, mesh=None):
     gates and summed over k."""
     m = cfg.moe
     B, S, d = x.shape
-    T, k, E = B * S, m.top_k, m.n_experts
+    T, k = B * S, m.top_k
     xt = x.reshape(T, d)
     gates, idx, aux = route(params["router"], xt, m, mesh)
-    order, e_s, rank, counts = _sort_choices(idx.reshape(-1), E)
+    if mesh is None:
+        wg, wu, wd, split = params["w_gate"], params["w_up"], \
+            params["w_down"], False
+    else:
+        wg, wu, wd, split = _experts(params, m, mesh)
+    E = wg.shape[0]
+    keys = idx.reshape(-1)
+    if split:
+        xt = C.enter_split(xt, mesh, "model")
+        gates = C.enter_split(gates, mesh, "model")
+        keys = keys - C.axis_index(mesh, "model") * E
+        keys = torch.where((keys >= 0) & (keys < E), keys,
+                           torch.full_like(keys, E))   # sorted last, no row
+    order, e_s, rank, counts = _sort_choices(keys, E)
     tok = order // k                                # the choice's token
-    y = torch.empty((T * k, d), dtype=x.dtype, device=x.device)
-    for e0, n, C, s0, s1 in _expert_groups(counts.tolist(),
-                                           d * x.element_size()):
-        local = (e_s[s0:s1] - e0) * C + rank[s0:s1]
-        xb = _GatherSlots.apply(xt, local, tok[s0:s1], n * C)
+    y = (torch.zeros if split else torch.empty)(
+        (T * k, d), dtype=x.dtype, device=x.device)
+    for e0, n, cap, s0, s1 in _expert_groups(counts.tolist(),
+                                             d * x.element_size()):
+        local = (e_s[s0:s1] - e0) * cap + rank[s0:s1]
+        xb = _GatherSlots.apply(xt, local, tok[s0:s1], n * cap)
         ws = slice(e0, e0 + n)
-        yb = _local_expert_ffn(params["w_gate"][ws], params["w_up"][ws],
-                               params["w_down"][ws], xb.view(n, C, d))
-        y[s0:s1] = yb.view(n * C, d)[local]
+        yb = _local_expert_ffn(wg[ws], wu[ws], wd[ws], xb.view(n, cap, d))
+        y[s0:s1] = yb.view(n * cap, d)[local]
     inverse = torch.empty_like(order)
     inverse[order] = torch.arange(T * k, device=x.device)
     y = y[inverse].view(T, k, d)
-    out = (y * gates[..., None]).sum(dim=1).reshape(B, S, d)
-    if m.n_shared_experts:
-        out = out + L.mlp(params["shared"], x, "swiglu")
-    return out, aux
+    out = (y * gates[..., None]).sum(dim=1)
+    if split:
+        out = C.all_reduce(out, mesh, "model")
+    return out.reshape(B, S, d) + _shared(params, x, cfg, mesh), aux
 
 
 # ---------------------------------------------------------------------------

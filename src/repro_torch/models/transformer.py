@@ -139,18 +139,21 @@ def block(params, x, cfg: ModelConfig, run: RunConfig, *, kind="dense",
 
 
 def block_decode(params, x, cache, cfg: ModelConfig, run: RunConfig, *,
-                 kind="dense", media_kv=None, mesh=None, d_ff=None):
+                 kind="dense", media_kv=None, mesh=None, d_ff=None,
+                 whole: bool = False):
     """One-token decode through a block; returns (x, new_cache). The
     cache's tensors are updated in place (see attention.gqa_decode and
-    attention.mla_decode). A cross block has no cache: it hands back the
-    one it was given."""
+    attention.mla_decode; `whole`: a cache that the rules leave whole over
+    'model'). A cross block has no cache: it hands back the one it was
+    given."""
     h = L.rms_norm(x, params["ln1"], cfg.norm_eps)
     if kind == "cross":
         h = A.cross_attn(params["attn"], h, media_kv, run, cfg=cfg, mesh=mesh)
         new_cache = cache
     else:
         decode = A.mla_decode if _mla(cfg) else A.gqa_decode
-        h, new_cache = decode(params["attn"], h, cache, cfg, run, mesh)
+        h, new_cache = decode(params["attn"], h, cache, cfg, run, mesh,
+                              whole)
     x = x + h
     h, _ = _ffn(params, L.rms_norm(x, params["ln2"], cfg.norm_eps), cfg, kind,
                 run, mesh, d_ff)
@@ -457,7 +460,7 @@ def stack(params, x, cfg, run, *, kind="dense", positions=None, causal=True,
 
 
 def stack_decode(params, x, caches, cfg, run, *, kind="dense", mesh=None,
-                 d_ff=None, fsdp: Optional[Fsdp] = None):
+                 d_ff=None, fsdp: Optional[Fsdp] = None, whole: bool = False):
     """One token through a stacked group, threading per-layer caches.
     caches: dict of tensors stacked on axis 0; k and v are updated in place
     and `pos` is rewritten in place, so the dict handed back holds the same
@@ -465,7 +468,8 @@ def stack_decode(params, x, caches, cfg, run, *, kind="dense", mesh=None,
     for i, (lp, plan) in enumerate(layer_slices(params, fsdp)):
         cache = tree_map(lambda a: a[i], caches)
         x, new_cache = block_decode(gather_layer(lp, plan), x, cache, cfg,
-                                    run, kind=kind, mesh=mesh, d_ff=d_ff)
+                                    run, kind=kind, mesh=mesh, d_ff=d_ff,
+                                    whole=whole)
         caches["pos"][i].copy_(new_cache["pos"])
     return x, caches
 
@@ -664,7 +668,7 @@ def hybrid_stack(params, x, cfg, run, *, positions=None, mesh=None,
 
 
 def hybrid_stack_decode(params, x, caches, cfg, run, mesh=None,
-                        fsdp: Optional[Fsdp] = None):
+                        fsdp: Optional[Fsdp] = None, whole: bool = False):
     """caches: {"mamba": (G, period, ...) Mamba2 caches, "attn": (G, ...) KV
     caches}, updated in place and handed back."""
     mamba, shared = params["mamba"], params["shared"]
@@ -681,7 +685,7 @@ def hybrid_stack_decode(params, x, caches, cfg, run, mesh=None,
         x, new = block_decode(gather_layer(*sets[g % len(sets)]), x,
                               tree_map(lambda a: a[g], caches["attn"]), cfg,
                               run, kind="dense", mesh=mesh,
-                              d_ff=_shared_d_ff(cfg))
+                              d_ff=_shared_d_ff(cfg), whole=whole)
         caches["attn"]["pos"][g].copy_(new["pos"])
     return x, caches
 
@@ -735,7 +739,7 @@ def vlm_stack(params, x, media, cfg, run, *, positions=None, mesh=None,
 
 
 def vlm_stack_decode(params, x, media, caches, cfg, run, mesh=None,
-                     fsdp: Optional[Fsdp] = None):
+                     fsdp: Optional[Fsdp] = None, whole: bool = False):
     """caches: the self-attention blocks' KV caches, leaves
     (G, period - 1, B, ...), updated in place and handed back."""
     selfp, crossp = params["self"], params["cross"]
@@ -745,7 +749,7 @@ def vlm_stack_decode(params, x, media, caches, cfg, run, mesh=None,
         for i in range(n_self):
             x, new = block_decode(gather_layer(*selfs[g * n_self + i]), x,
                                   tree_map(lambda a: a[g, i], caches), cfg,
-                                  run, kind="dense", mesh=mesh)
+                                  run, kind="dense", mesh=mesh, whole=whole)
             caches["pos"][g, i].copy_(new["pos"])
         cp = gather_layer(*cross)
         x, _ = block_decode(cp, x, None, cfg, run, kind="cross", mesh=mesh,
@@ -841,14 +845,14 @@ def encdec_apply(params, frames, tokens_x, cfg, run, *, positions=None,
 
 
 def encdec_decode(params, x, enc_out, caches, cfg, run, mesh=None,
-                  fsdp: Optional[Fsdp] = None):
+                  fsdp: Optional[Fsdp] = None, whole: bool = False):
     """One token through the decoder; caches: the self-attention KV caches,
     leaves (n_layers, B, ...), updated in place and handed back."""
     for i, slices in enumerate(layer_slices(params["dec"],
                                             _sub(fsdp, "dec"))):
         lp = gather_layer(*slices)
         h, new = block_decode(lp, x, tree_map(lambda a: a[i], caches), cfg,
-                              run, kind="dense", mesh=mesh)
+                              run, kind="dense", mesh=mesh, whole=whole)
         caches["pos"][i].copy_(new["pos"])
         x = h + _dec_cross(lp, h, enc_out, cfg, run, mesh)
     return x, caches

@@ -19,6 +19,7 @@ from repro_torch.kernels.ssd import TILE, ssd, ssd_plain
 from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
 from repro_torch.models import Model
 from repro_torch.models import moe as M
+from repro_torch.models.attention import quantize_caches
 from repro_torch.models.rwkv import wkv_recurrent
 from repro_torch.models.ssm import ssd_recurrent
 from repro_torch.train.step import loss_and_grads
@@ -1069,6 +1070,105 @@ def test_a_rank_alone_steps_on_the_card(card):
                mesh=mesh)()
     torch.cuda.synchronize()
     assert rmsnorm_backward.launches > before
+
+
+# the three layouts of a 'model' axis that take neither the KV heads nor
+# the positions as they are split elsewhere: (arch, MoE impl, mesh, cache
+# positions, int8 cache)
+LAYOUTS = {"int8_by_positions": ("deepseek-7b", None, (1, 4), 16, True),
+           "whole_cache": ("deepseek-7b", None, (1, 4), 14, False),
+           "moe_dense": ("olmoe-1b-7b", "dense", (1, 2), 16, False)}
+LAYOUT_STEPS, LAYOUT_PROMPT = 4, 6
+
+
+def _layout_cfg(arch, impl):
+    from dataclasses import replace
+    cfg = get_arch(arch).reduced(n_layers=2)
+    if impl is not None:
+        cfg = replace(cfg, moe=replace(cfg.moe, impl=impl))
+    return cfg
+
+
+def _serve_layout(model, prompt, max_len, quant, steps=None):
+    """Prefill (its caches quantized to int8 for `quant`), then LAYOUT_STEPS decode steps (fed `steps`, else the
+    greedy tokens): [prefill logits, each step's logits], the tokens fed."""
+    lg, caches = model.prefill({"tokens": prompt}, max_len)
+    if quant:
+        caches = quantize_caches(caches)
+    out, fed = [lg.float().cpu()], []
+    for i in range(LAYOUT_STEPS):
+        tok = steps[i] if steps is not None else \
+            lg[:, -1, :model.cfg.vocab_size].argmax(-1)[:, None].cpu()
+        fed.append(tok)
+        lg, caches = model.decode_step({"tokens": tok}, caches)
+        out.append(lg.float().cpu())
+    return out, fed
+
+
+def _layout_rank(rank, layout, store, params, prompt, steps, conn):
+    """A rank of the layout's gloo world on the card: its blocks of the
+    weights, its logits blocks."""
+    from repro_torch.configs import MeshConfig
+    from repro_torch.convert import params_from_numpy, shard_params
+    from repro_torch.launch.mesh import make_mesh, shutdown
+    arch, impl, shape, max_len, quant = LAYOUTS[layout]
+    torch.cuda.set_device(0)
+    mesh = make_mesh(MeshConfig(shape, ("data", "model")), "gloo", "cuda",
+                     init_method=f"file://{store}", rank=rank, timeout_s=120)
+    run = RunConfig(attn_impl="kernel", compute_dtype="float32")
+    model = Model(_layout_cfg(arch, impl), run, "cuda", mesh)
+    params_from_numpy(shard_params(params, model.specs, mesh), model)
+    out, _ = _serve_layout(model, prompt, max_len, quant, steps)
+    conn.send([t.numpy() for t in out])
+    shutdown(mesh)
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_sharded_serving_layouts_on_the_card(card, tmp_path, layout):
+    """deepseek-7b's int8 cache split by positions and its whole cache
+    (positions that do not divide) on (1, 4), olmoe-1b-7b's MoE impl
+    "dense" on (1, 2), reduced, float32: gloo ranks sharing the card
+    against the one-device path on the card, logits within 1e-4 (int8:
+    1e-3), the greedy tokens the one-device path fed equal."""
+    import multiprocessing
+    from repro_torch.convert import params_to_numpy
+    from repro_torch.sharding import rules
+    arch, impl, shape, max_len, quant = LAYOUTS[layout]
+    cfg = _layout_cfg(arch, impl)
+    run = RunConfig(attn_impl="kernel", compute_dtype="float32")
+    one = Model(cfg, run, "cuda").init(seed=0)
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (4, LAYOUT_PROMPT)).astype(np.int32))
+    want, fed = _serve_layout(one, prompt, max_len, quant)
+    params = params_to_numpy(one)
+    del one
+    ctx = multiprocessing.get_context("spawn")
+    procs, conns = [], []
+    for rank in range(shape[0] * shape[1]):
+        parent, child = ctx.Pipe()
+        proc = ctx.Process(target=_layout_rank, daemon=True, args=(
+            rank, layout, str(tmp_path / "store"), params, prompt, fed, child))
+        proc.start()
+        procs.append(proc)
+        conns.append(parent)
+    got = []
+    for conn in conns:
+        assert conn.poll(600), "a rank gave no answer"
+        got.append(conn.recv())
+    for proc in procs:
+        proc.join(60)
+        assert proc.exitcode == 0
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.configs import MeshConfig
+    mshape = MeshShape(MeshConfig(shape, ("data", "model")))
+    tol = 1e-3 if quant else 1e-4
+    V = cfg.vocab_size
+    for i, w in enumerate(want):
+        g = rules.gather_tensor([r[i] for r in got], (None, None, "model"),
+                                mshape)
+        np.testing.assert_allclose(g, w.numpy(), atol=tol, rtol=tol)
+        np.testing.assert_array_equal(g[:, -1, :V].argmax(-1),
+                                      w[:, -1, :V].argmax(-1).numpy())
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,9 @@
 processes, against the JAX package on one device: sharded train steps
 (tensor, data and expert parallelism, ZeRO-1), the replicated KV heads of
 the divisibility fallback, moe_ep and moe_ep_a2a, the GPipe pipeline, the
-elastic restore, global_norm over a mesh, the rank-alone transport and the
-one layout the port refuses (MoE impl "dense" over a 'model' axis).
+elastic restore, global_norm over a mesh, the rank-alone transport, and
+MoE impl "dense" over a 'model' axis (the reference's ``moe_dense`` over
+each rank's block of the experts).
 
 Each world (``test_torch_parity.World``) is started once for the module
 and given several cases."""
@@ -120,6 +121,26 @@ def case_moe(mesh, cfg, params, x):
             "aux": float(aux), "collectives": C.stats()}
 
 
+def case_moe_grads(mesh, cfg, params, x, r):
+    """``moe`` on this rank's rows of x and blocks of the weights, then the
+    gradients of sum(out * r) over them: out, aux, x's gradient and each
+    leaf's."""
+    run = RunConfig(compute_dtype="float32")
+    specs = rules.param_specs(params, mesh, run)
+    local = {k: torch.tensor(v, requires_grad=True)
+             for k, v in shard_params(params, specs, mesh).items()}
+    spec = rules.batch_spec(mesh, 3)
+    xl = rules.shard_tensor(torch.as_tensor(x), spec, mesh).clone()
+    xl.requires_grad_(True)
+    out, aux = M.moe(local, xl, cfg, run, mesh)
+    (out * rules.shard_tensor(torch.as_tensor(r), spec, mesh)).sum() \
+        .backward()
+    return {"out": out.detach().numpy(), "aux": float(aux),
+            "grad_x": xl.grad.numpy(),
+            "grads": {k: t.grad.numpy() for k, t in local.items()},
+            "collectives": C.stats()}
+
+
 def case_pipeline(mesh, W, x, n_micro):
     n, i = C.axis_size(mesh, "pipe"), C.axis_index(mesh, "pipe")
     per = W.shape[0] // n
@@ -158,6 +179,7 @@ def case_save(mesh, full, spec, directory):
 
 
 CASES = {"train_step": case_train_step, "moe": case_moe,
+         "moe_grads": case_moe_grads,
          "local_mesh": case_local_mesh,
          "pipeline": case_pipeline, "global_norm": case_global_norm,
          "save": case_save}
@@ -177,11 +199,19 @@ TRAIN_ARCHS = {
     "zamba2-7b": dict(),
     "deepseek-v3-671b": dict(n_layers=2),
 }
+# a variant of an arch: (arch, fields of its MoEConfig)
+VARIANTS = {"olmoe-1b-7b-dense": ("olmoe-1b-7b", dict(impl="dense"))}
 
 
 def configs(arch):
+    arch, moe_over = VARIANTS.get(arch, (arch, {}))
     over = TRAIN_ARCHS[arch]
     jcfg, tcfg = jax_arch(arch).reduced(**over), get_arch(arch).reduced(**over)
+    if moe_over:
+        jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
+            jcfg.moe, **moe_over))
+        tcfg = dataclasses.replace(tcfg, moe=dataclasses.replace(
+            tcfg.moe, **moe_over))
     if jcfg.moe is not None:
         # ample capacity: nothing drops, as moe_dense drops nothing
         cap = float(jcfg.moe.n_experts)
@@ -367,25 +397,68 @@ def test_moe_expert_parallel_matches_moe_dense(worlds, impl):
     assert results[0]["collectives"][kind]["calls"] > 0
 
 
-def test_dense_moe_impl_is_refused_over_a_model_axis():
-    """impl "dense" has no split form of the experts: over a 'model' axis
-    above 1 the model and ``moe`` raise, naming item 7b; over a 'model'
-    axis of 1 ``moe`` runs the local dispatch on the rank's tokens."""
-    cfg = get_arch("olmoe-1b-7b").reduced()
-    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
-                                                           impl="dense"))
+def test_dense_moe_impl_is_refused_over_a_model_axis(worlds):
+    """impl "dense" (the config's default) over a 'model' axis: the model
+    builds with the experts split over 'model', and on "2x2" ``moe`` runs
+    the dropless dispatch over each rank's block of the experts and
+    all-reduces the combine: out and aux within TOL of JAX ``moe_dense``'s,
+    and the gradients of sum(out * r) as ``jax.grad`` gives them (x's on
+    each rank's rows; each weight block's summed over the data ranks that
+    hold it). Over a 'model' axis of 1 ``moe`` is the local dispatch on
+    the rank's tokens."""
+    jcfg, tcfg = configs("olmoe-1b-7b-dense")
     tp = Mesh.alone(WORLDS["1x2"], 0, "cpu")
-    with pytest.raises(NotImplementedError, match="7b"):
-        Model(cfg, RunConfig(), "meta", tp)
-    params = M.init_moe(torch.Generator().manual_seed(0), cfg)
-    x = torch.randn(2, 4, cfg.d_model, generator=torch.Generator()
-                    .manual_seed(1))
-    with pytest.raises(NotImplementedError, match="7b"):
-        M.moe(params, x, cfg, RunConfig(), tp)
+    model = Model(tcfg, RunConfig(), "meta", tp)
+    assert model.specs["layers"]["moe"]["w_gate"] == (None, "model", None,
+                                                      None)
+    params = to_numpy(JM.init_moe(jax.random.PRNGKey(0), jcfg))
+    rng = np.random.default_rng(1)
+    x = 0.5 * rng.standard_normal((4, 16, jcfg.d_model), dtype=np.float32)
+    r = rng.standard_normal(x.shape, dtype=np.float32)
+
+    def loss(p, xx):
+        out, _ = JM.moe_dense(p, xx, jcfg)
+        return jnp.sum(out * r)
+
+    want, want_aux = JM.moe_dense(params, jnp.asarray(x), jcfg)
+    gp, gx = jax.grad(loss, argnums=(0, 1))(
+        jax.tree.map(jnp.asarray, params), jnp.asarray(x))
+    gp = to_numpy(gp)
+    results = worlds("2x2").run("moe_grads", cfg=tcfg, params=params, x=x,
+                                r=r)
+    shape = MeshShape(WORLDS["2x2"])
+    bspec = rules.batch_spec(shape, 3)
+    pspecs = rules.param_specs(params, shape, RunConfig())
+    for rank, res in enumerate(results):
+        for key, ref in (("out", np.asarray(want)), ("grad_x", np.asarray(gx))):
+            err = np.abs(res[key] - rank_block("2x2", rank, ref, bspec))
+            assert float(err.max()) < TOL, (rank, key, float(err.max()))
+        assert abs(res["aux"] - float(want_aux)) < TOL
+        m = shape.coords_of(rank)["model"]
+        for leaf, ref in gp.items():
+            got = sum(other["grads"][leaf] for other_rank, other in
+                      enumerate(results)
+                      if shape.coords_of(other_rank)["model"] == m)
+            err = np.abs(got - rank_block("2x2", rank, ref, pspecs[leaf]))
+            assert float(err.max()) < TOL, (rank, leaf, float(err.max()))
+    assert results[0]["collectives"]["all_reduce"]["calls"] > 0
+    mp = M.init_moe(torch.Generator().manual_seed(0), tcfg)
+    xt = torch.randn(2, 4, tcfg.d_model, generator=torch.Generator()
+                     .manual_seed(1))
     dp = Mesh.alone(WORLDS["2x1"], 0, "cpu")
-    out, _ = M.moe(params, x, cfg, RunConfig(), dp)
-    want, _ = M.moe_local(params, x, cfg)
-    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    out, _ = M.moe(mp, xt, tcfg, RunConfig(), dp)
+    local, _ = M.moe_local(mp, xt, tcfg)
+    torch.testing.assert_close(out, local, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("world_name", ["1x2", "2x2"])
+def test_dense_moe_impl_trains_over_a_model_axis(worlds, world_name):
+    """The reduced olmoe-1b-7b with impl "dense": two sharded train steps
+    against the reference's one-device steps (its moe is ``moe_dense``):
+    the loss (the whole batch's aux), the parameters and the first
+    moments of every block within TOL."""
+    results = run_train(worlds, world_name, "olmoe-1b-7b-dense")
+    assert results[0]["collectives"]["all_reduce"]["calls"] > 0
 
 
 def test_pipeline_matches_the_sequential_stack(worlds):

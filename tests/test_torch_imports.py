@@ -12,8 +12,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
-EXAMPLES = [ROOT / "examples" / "gpu_advisor_torch.py",
-            ROOT / "examples" / "serve_demo_torch.py",
+TORCH_EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
+EXAMPLES = TORCH_EXAMPLES + [
             ROOT / "benchmarks" / "torch_train_step_memory.py",
             ROOT / "benchmarks" / "torch_loss_backward_peak.py",
             ROOT / "benchmarks" / "torch_serve_profile.py"]
@@ -83,6 +83,9 @@ def test_sources_are_found():
             "src/repro_torch/launch/mesh.py",
             "examples/gpu_advisor_torch.py",
             "examples/serve_demo_torch.py",
+            "examples/mesh_advisor_torch.py",
+            "examples/quickstart_torch.py",
+            "examples/profile_and_select_torch.py",
             "benchmarks/torch_train_step_memory.py",
             "benchmarks/torch_loss_backward_peak.py",
             "benchmarks/torch_serve_profile.py"} <= names
@@ -104,6 +107,23 @@ def test_package_imports_with_jax_and_repro_blocked():
             "    sys.modules[name] = None\n"
             f"for name in {modules!r}:\n"
             "    importlib.import_module(name)\n"
+            "assert not [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro') and sys.modules[m] is not None]\n")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=300,
+                   env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
+
+
+@pytest.mark.parametrize("path", TORCH_EXAMPLES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_each_example_imports_with_jax_and_repro_blocked(path):
+    """An example of the port loads (its main not run) in a process where
+    `jax` and `repro` cannot be imported at all, and none is left
+    imported."""
+    code = ("import sys, importlib.util\n"
+            "for name in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[name] = None\n"
+            f"spec = importlib.util.spec_from_file_location('ex', {str(path)!r})\n"
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "assert not [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro') and sys.modules[m] is not None]\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=300,

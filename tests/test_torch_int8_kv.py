@@ -308,3 +308,27 @@ def test_launcher_serves_with_an_int8_cache(capsys):
                               "--max-new", "4", "--max-len", "16"])
     assert len(done) == 3 and all(len(r.out_tokens) == 4 for r in done)
     assert "kv=int8" in capsys.readouterr().out
+
+
+def test_quantize_caches_quantizes_every_gqa_cache_of_a_tree():
+    """``quantize_caches`` of a nested cache tree (the MoE family's dense
+    and moe caches): each k and v as the reference's quantize_kv gives it,
+    bit for bit, its scales beside it; every other leaf the same tensor."""
+    rng = np.random.default_rng(3)
+    tree = {name: {"k": rng.standard_normal((2, B, S, 2, 16), np.float32),
+                   "v": rng.standard_normal((2, B, S, 2, 16), np.float32),
+                   "pos": np.full((2, B), 4, np.int32)}
+            for name in ("dense", "moe")}
+    tt = {name: {k: torch.from_numpy(v) for k, v in c.items()}
+          for name, c in tree.items()}
+    got = TA.quantize_caches(tt)
+    for name, c in tree.items():
+        assert set(got[name]) == {"k", "v", "k_scale", "v_scale", "pos"}
+        assert got[name]["pos"] is tt[name]["pos"]
+        for leaf in ("k", "v"):
+            q, s = JA.quantize_kv(jnp.asarray(c[leaf]))
+            np.testing.assert_array_equal(got[name][leaf].numpy(),
+                                          np.asarray(q))
+            np.testing.assert_array_equal(
+                got[name][leaf + "_scale"].float().numpy(),
+                np.asarray(s, np.float32))
