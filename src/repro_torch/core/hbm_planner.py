@@ -48,6 +48,7 @@ from repro_torch.core.selector import Selection, select_bfa
 from repro_torch.configs.base import MeshConfig
 from repro_torch.launch.dryrun import build_step
 from repro_torch.launch.mesh import Mesh
+from repro_torch.telemetry.spans import traced
 
 GiB = 1024 ** 3
 # What an NVIDIA H100 80GB HBM3 (700 W) held beyond the allocator's peak at
@@ -130,9 +131,10 @@ class HBMPlanner:
         a profile mesh, rank 0's of the job sharded over it, run alone."""
         mesh = None if profile_mesh is None else Mesh.alone(
             profile_mesh, 0, device)
-        job = build_step(cfg, shape, run, device, mesh=mesh)
-        return CUDAMemoryProfiler().profile(job, cfg.n_layers,
-                                            device).job_mem_bytes
+        with traced("planner.point", depth=cfg.n_layers):
+            job = build_step(cfg, shape, run, device, mesh=mesh)
+            return CUDAMemoryProfiler().profile(job, cfg.n_layers,
+                                                device).job_mem_bytes
 
     @staticmethod
     def depth_ladder(cfg: ModelConfig,

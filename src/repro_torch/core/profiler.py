@@ -30,6 +30,7 @@ from typing import Callable, List, Optional, Union
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.telemetry.spans import traced
 
 GiB = 1024 ** 3
 _PAGE = os.sysconf("SC_PAGE_SIZE")
@@ -157,10 +158,11 @@ def _release_cached(device: torch.device) -> None:
     (allocated through the caching allocator at a handle's first product and
     kept for the life of the process, so that the first profile alone would
     pay for them) and hand cached blocks back to CUDA."""
-    gc.collect()
-    torch._C._cuda_clearCublasWorkspaces()
-    with torch.cuda.device(device):
-        torch.cuda.empty_cache()
+    with traced("planner.release"):
+        gc.collect()
+        torch._C._cuda_clearCublasWorkspaces()
+        with torch.cuda.device(device):
+            torch.cuda.empty_cache()
 
 
 class CUDAMemoryProfiler:

@@ -98,6 +98,7 @@ from repro_torch.launch.presets import preset_run
 from repro_torch.launch.roofline import model_flops, roofline_from_costs
 from repro_torch.models.model import Model
 from repro_torch.optim import AdamWConfig
+from repro_torch.telemetry.spans import traced
 from repro_torch.train.step import init_train_state, make_train_step
 
 ONE_DEVICE = MeshConfig((1, 1), ("data", "model"))
@@ -154,28 +155,42 @@ def prepare_step(cfg: ModelConfig, shape: ShapeConfig,
         return batch
 
     def build() -> Built:
-        """Weights, state and inputs on the device -> the step to run."""
-        generator = torch.Generator(device=device)
-        generator.manual_seed(seed)
-        model = Model(cfg, run, device=device, mesh=mesh)
-        if shape.mode == "train":
-            acfg = AdamWConfig(moment_dtype=run.moment_dtype,
-                               keep_master=run.param_dtype != "float32")
-            state = init_train_state(model, seed, acfg)
-            batch = {**inputs(generator, S), "labels": tokens(generator, S)}
-            return Built(model, _tensors((state, batch)),
-                         lambda: make_train_step(model, acfg)(state,
-                                                              batch)[1])
-        model.init(seed=seed)
-        if shape.mode == "prefill":
-            batch = inputs(generator, S)
-            return Built(model, _tensors((model.params, batch)),
-                         lambda: model.prefill(batch, S))
-        caches = model.init_caches(shape.global_batch if mesh is not None
-                                   else B, S)
-        batch = inputs(generator, 1)
-        return Built(model, _tensors((model.params, batch, caches)),
-                     lambda: model.decode_step(batch, caches))
+        """Weights, state and inputs on the device -> the step to run. The
+        build and the step are the ranges "planner.build" and "planner.step"
+        while a profiler records (``telemetry.traced``); the step's closure
+        names its arguments (a benchmark reads `state` and `batch` there)."""
+        with traced("planner.build"):
+            generator = torch.Generator(device=device)
+            generator.manual_seed(seed)
+            model = Model(cfg, run, device=device, mesh=mesh)
+            if shape.mode == "train":
+                acfg = AdamWConfig(moment_dtype=run.moment_dtype,
+                                   keep_master=run.param_dtype != "float32")
+                state = init_train_state(model, seed, acfg)
+                batch = {**inputs(generator, S),
+                         "labels": tokens(generator, S)}
+
+                def train():
+                    with traced("planner.step"):
+                        return make_train_step(model, acfg)(state, batch)[1]
+                return Built(model, _tensors((state, batch)), train)
+            model.init(seed=seed)
+            if shape.mode == "prefill":
+                batch = inputs(generator, S)
+
+                def prefill():
+                    with traced("planner.step"):
+                        return model.prefill(batch, S)
+                return Built(model, _tensors((model.params, batch)), prefill)
+            caches = model.init_caches(shape.global_batch if mesh is not None
+                                       else B, S)
+            batch = inputs(generator, 1)
+
+            def decode():
+                with traced("planner.step"):
+                    return model.decode_step(batch, caches)
+            return Built(model, _tensors((model.params, batch, caches)),
+                         decode)
 
     return build
 

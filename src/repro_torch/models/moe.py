@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, MoEConfig, RunConfig
 from repro_torch.models import layers as L
 from repro_torch.sharding import collectives as C
+from repro_torch.telemetry.spans import traced
 
 
 # ---------------------------------------------------------------------------
@@ -326,8 +327,9 @@ def moe_local(params, x, cfg: ModelConfig, mesh=None):
     tok = order // k                                # the choice's token
     y = (torch.zeros if split else torch.empty)(
         (T * k, d), dtype=x.dtype, device=x.device)
-    for e0, n, cap, s0, s1 in _expert_groups(counts.tolist(),
-                                             d * x.element_size()):
+    with traced("moe.count_wait"):
+        on_host = counts.tolist()
+    for e0, n, cap, s0, s1 in _expert_groups(on_host, d * x.element_size()):
         local = (e_s[s0:s1] - e0) * cap + rank[s0:s1]
         xb = _GatherSlots.apply(xt, local, tok[s0:s1], n * cap)
         ws = slice(e0, e0 + n)

@@ -37,6 +37,7 @@ layer's gradient when that layer's backward ends.
 from __future__ import annotations
 
 import math
+from contextlib import nullcontext
 from dataclasses import dataclass
 from functools import partial
 from typing import Dict, Optional
@@ -53,6 +54,7 @@ from repro_torch.models import rwkv as R
 from repro_torch.models import ssm as SSM
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding.rules import map_with_path
+from repro_torch.telemetry.spans import traced
 
 
 def tree_map(fn, tree):
@@ -164,14 +166,18 @@ def block_prefill(params, x, cfg: ModelConfig, run: RunConfig, *,
                   kind="dense", positions=None, pad_to=0, mesh=None,
                   d_ff=None):
     """Block forward that also returns the cache contents: (k, v) for GQA,
-    (ckv, kr) for MLA (over a mesh, this rank's blocks of them)."""
+    (ckv, kr) for MLA (over a mesh, this rank's blocks of them). The
+    attention and a MoE block's experts are the ranges "prefill.attention"
+    and "prefill.moe" while a profiler records (``telemetry.traced``)."""
     h = L.rms_norm(x, params["ln1"], cfg.norm_eps)
     prefill = A.mla_prefill if _mla(cfg) else A.gqa_prefill
-    h, kv = prefill(params["attn"], h, cfg, run, positions=positions,
-                    pad_to=pad_to, mesh=mesh)
+    with traced("prefill.attention"):
+        h, kv = prefill(params["attn"], h, cfg, run, positions=positions,
+                        pad_to=pad_to, mesh=mesh)
     x = x + h
-    h, _ = _ffn(params, L.rms_norm(x, params["ln2"], cfg.norm_eps), cfg, kind,
-                run, mesh, d_ff)
+    h = L.rms_norm(x, params["ln2"], cfg.norm_eps)
+    with traced("prefill.moe") if kind == "moe" else nullcontext():
+        h, _ = _ffn(params, h, cfg, kind, run, mesh, d_ff)
     return x + h, kv
 
 

@@ -19,6 +19,10 @@ registry by tests/test_telemetry.py).
                a bounded `TraceRing` when the root closes. Every span
                carries trace/span/parent ids; `span(..., parent=ctx)`
                adopts a REMOTE parent across process edges.
+               `traced(name, **attrs)`: a range on the device's timeline
+               (`torch.profiler.record_function`) while a profiler
+               records, else the shared no-op (one flag check);
+               `traced_ranges()` keeps their host intervals.
   sampling.py  `AdaptiveSampler`: raises the pipeline's warm-path
                1-in-8 sampling toward 1-in-1 while windowed stage p99
                drifts past a gate, decays back on recovery (hysteresis);
@@ -27,7 +31,7 @@ registry by tests/test_telemetry.py).
                (`render_prometheus`, with OpenMetrics exemplars); fleet
                aggregation by publishing periodic snapshots into the
                reserved `__telemetry__` namespace of any
-               `repro.state.StateBackend` (`publish_snapshot` /
+               `repro_torch.state.StateBackend` (`publish_snapshot` /
                `TelemetryPublisher` / `fleet_snapshot` /
                `aggregate_fleet`), trace forests into `__traces__`
                (`publish_traces` / `fleet_traces`), and cross-process
@@ -61,7 +65,7 @@ Distributed tracing (how one request becomes ONE tree):
     trace root, inherited by descendants) and span_id; the propagation
     token is `current_trace_context()` == {"trace_id", "span_id"}.
   * Wire: clients stamp the token as a `trace` field on newline-JSON
-    frames (repro.state.transport.TRACE_FIELD, unix AND tcp); a frame
+    frames (repro_torch.state.transport.TRACE_FIELD, unix AND tcp); a frame
     WITHOUT the field is an old client and gets byte-identical legacy
     behavior. `AllocationEndpoint.handle(trace=ctx)` is the same hop
     one level up, and replies carry `trace_id`.
@@ -98,7 +102,7 @@ Where each span/metric hangs (the observability map):
   (repro_torch.pipeline)     store_hits,denied}` + `acquisition.profile_
                        seconds` — the LRU -> store -> fresh tier heat.
   ProfilingBudget      counters `budget.{reserved_points,refunded_
-  (repro.profiling)    points,charged_seconds,denials}` — envelope
+  (repro_torch.profiling) points,charged_seconds,denials}` — envelope
                        accounting is auditable: charged vs refunded.
   AllocationService    histograms `service.batch.size`, `service.queue_
   (repro_torch.allocator)    wait.seconds`, `service.request.seconds`;
@@ -108,7 +112,7 @@ Where each span/metric hangs (the observability map):
                        `service.metrics()` returns the snapshot;
                        `AllocationEndpoint.metrics()` is the wire form.
   CrispyDaemon         histograms `daemon.op.<op>.seconds` per request
-  (repro.state)        op — batch frames time each sub-op into the same
+  (repro_torch.state)  op — batch frames time each sub-op into the same
                        histograms and record their width (ops per
                        frame) in `daemon.batch.size`; counters
                        `daemon.{frames,bytes_in,auth_
@@ -118,12 +122,29 @@ Where each span/metric hangs (the observability map):
                        (`DaemonBackend.metrics()`), and optionally
                        auto-published to the daemon's own backend with
                        `--telemetry-interval S`.
+  HBMPlanner           `traced` ranges, on the profiler's timeline only:
+  (repro_torch.core)   `planner.point` (a ladder point's whole profile,
+                       args depth), `planner.release` (gc.collect, the
+                       cuBLAS workspaces' clear and empty_cache, twice a
+                       point), and inside `launch.dryrun.prepare_step`
+                       `planner.build` (the model, its state or weights,
+                       the inputs) and `planner.step` (the step as
+                       `Built.run` enqueues it).
+  Model.prefill        `traced` ranges: `prefill.attention` (a layer's
+  (repro_torch.models) attention), `prefill.moe` (a MoE layer's experts)
+                       and, inside it, `moe.count_wait` (the dispatch's
+                       wait for its expert counts on the host).
+                       `portbench/` reads them in its traced runs:
+                       `release.plan` and `moe_wait.prefill` from
+                       `traced_ranges()`, and `portbench.spantrace` the
+                       whole table from the profiler's events.
 
-`benchmarks/load_tiers.py` drives the instrumented service across
+`benchmarks/load_tiers.py` (the JAX package's benchmark: it imports and
+measures `repro`, not the port) drives the instrumented service across
 request-mix tiers and records p50/p99 latency + throughput (plus key
-counters) to `BENCH_load.json` — the perf trajectory across PRs.
+counters) to `BENCH_load.json`.
 
-A copy of the JAX package's ``repro/telemetry/``.
+A copy of the JAX package's ``repro/telemetry/``, but for `traced`.
 """
 from repro_torch.telemetry.export import (KEY_FIELDS, TELEMETRY_NS, TRACES_NS,
                                     TelemetryPublisher, aggregate_fleet,
@@ -142,7 +163,8 @@ from repro_torch.telemetry.sampling import (AdaptiveSampler, FixedSampler,
                                       resolve_sampler)
 from repro_torch.telemetry.spans import (Span, TraceRing, current_span,
                                    current_trace_context, default_ring,
-                                   new_span_id, span, span_if)
+                                   new_span_id, span, span_if, traced,
+                                   traced_ranges)
 
 __all__ = [
     "AdaptiveSampler", "Counter", "DEFAULT_BUCKETS", "FixedSampler",
@@ -155,5 +177,5 @@ __all__ = [
     "publish_snapshot", "publish_traces", "quantile_from_buckets",
     "render_json", "render_prometheus", "resolve_sampler",
     "set_default_registry", "shard_heat", "span", "span_if",
-    "stitch_fleet_traces",
+    "stitch_fleet_traces", "traced", "traced_ranges",
 ]

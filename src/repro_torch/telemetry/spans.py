@@ -41,17 +41,28 @@ production hot paths; instrumented code that wants a zero-cost off
 switch uses `span_if(enabled, ...)`, which degrades to a shared no-op
 context manager.
 
+`traced("name", **attrs)` is the other kind of range: one on the
+device's timeline. While a `torch.profiler` records, it opens a
+`torch.profiler.record_function` range of that name (a user annotation
+in the profiler's trace, on the clock of its device events) and keeps
+the range's host interval on `time.monotonic` (`traced_ranges()`);
+otherwise it hands back the shared no-op context manager, for the cost
+of one flag check. It never imports torch: a process that has not
+loaded torch runs no profiler.
+
 `current_trace_context()` returns the innermost open span's
 `{"trace_id", "span_id"}` (or None) — the propagation token clients
 stamp onto wire frames (see repro.state.transport.TRACE_FIELD) and
 `StructuredLogger` stamps onto log lines.
 
-A copy of the JAX package's ``repro/telemetry/spans.py``.
+A copy of the JAX package's ``repro/telemetry/spans.py``, but for
+`traced`, the port's own.
 """
 from __future__ import annotations
 
 import contextvars
 import random
+import sys
 import threading
 import time
 from collections import deque
@@ -252,3 +263,43 @@ def span_if(enabled: bool, name: str, ring: Optional[TraceRing] = None,
     if not enabled:
         return _NULL_SPAN
     return _SpanContext(name, ring, parent, attrs)
+
+
+class _Traced:
+    """A ``record_function`` range that keeps its host interval."""
+
+    __slots__ = ("_name", "_range", "_t0")
+
+    def __init__(self, name: str, record_range):
+        self._name = name
+        self._range = record_range
+
+    def __enter__(self):
+        self._range.__enter__()
+        self._t0 = time.monotonic()
+
+    def __exit__(self, *exc):
+        _traced.append((self._name, self._t0, time.monotonic()))
+        self._range.__exit__(*exc)
+
+
+# (name, start, end) of the last ranges `traced` closed, time.monotonic
+_traced: "deque[tuple]" = deque(maxlen=1 << 20)
+
+
+def traced(name: str, **attrs):
+    """A ``record_function`` range `name` while a ``torch.profiler``
+    records (`attrs` become its args, "key=value" joined by commas), else
+    the shared no-op context manager."""
+    profiler = sys.modules.get("torch.autograd.profiler")
+    if profiler is None or not profiler._is_profiler_enabled:
+        return _NULL_SPAN
+    args = ",".join(f"{k}={v}" for k, v in attrs.items()) or None
+    return _Traced(name, profiler.record_function(name, args))
+
+
+def traced_ranges() -> List[tuple]:
+    """(name, start, end) on ``time.monotonic`` of the ranges `traced`
+    opened and closed while a profiler recorded, the last 2**20, oldest
+    first."""
+    return list(_traced)
