@@ -42,7 +42,8 @@ from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.core.catalog import ClusterConfig, gpu_catalog
 from repro_torch.core.history import ExecutionHistory
 from repro_torch.core.memory_model import LinearMemoryModel, fit_memory_model
-from repro_torch.core.profiler import CUDAMemoryProfiler, ProfileResult
+from repro_torch.core.profiler import (CUDAMemoryProfiler, ProfileResult,
+                                       ladder_scope)
 from repro_torch.core.sampling import integer_ladder
 from repro_torch.core.selector import Selection, select_bfa
 from repro_torch.configs.base import MeshConfig
@@ -163,10 +164,13 @@ class HBMPlanner:
         n_dev = 1 if profile_mesh is None else profile_mesh.n_devices
         ladder = self.depth_ladder(cfg, anchor_layers)
         mems = []
-        for L in ladder:
-            small = _reduced_depth(cfg, L)
-            mems.append(self.profile_memory(small, shape, run, device,
-                                            profile_mesh))
+        # the points of one answer share the caching allocator's cache:
+        # the first starts cold, the last hands it back (core/profiler.py)
+        with ladder_scope(len(ladder)):
+            for L in ladder:
+                small = _reduced_depth(cfg, L)
+                mems.append(self.profile_memory(small, shape, run, device,
+                                                profile_mesh))
         # fit vs the *effective* layer counts after family rounding
         eff = [_reduced_depth(cfg, L).n_layers for L in ladder]
         model = fit_memory_model(eff, mems)

@@ -14,6 +14,16 @@ the CUDA caching allocator's peak of allocated bytes over that step
 predicts the buffers, this measures what the step really allocated. The
 device is the card; the profiler refuses any other.
 
+The release around a profile (``_release_cached``): alone, a profile
+collects garbage, clears cuBLAS's workspaces and hands every cached block
+back to CUDA before and after its job. Inside ``ladder_scope`` (one planner
+answer's ladder) only the scope's first point starts from that full
+release and only its last point hands the cache back; between them a point
+clears the workspaces, keeps the cached blocks for the next point, and
+collects garbage only where its job left bytes allocated. Allocated bytes
+count blocks, not the segments that hold them, so a point that starts on
+the cache reads the bytes a cold one reads.
+
 ``ProfileResult`` and ``RSSProfiler`` are copies of the JAX package's
 ``repro/core/profiler.py``.
 """
@@ -24,12 +34,15 @@ import gc
 import os
 import threading
 import time
+from contextlib import contextmanager
+from contextvars import ContextVar
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional, Union
+from typing import Callable, Iterator, List, Optional, Union
 
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.telemetry.metrics import default_registry
 from repro_torch.telemetry.spans import traced
 
 GiB = 1024 ** 3
@@ -153,16 +166,66 @@ class CUDAProfileResult(ProfileResult):
         return self.device_used_bytes - self.peak_mem_bytes
 
 
-def _release_cached(device: torch.device) -> None:
-    """Free what no tensor holds: collect garbage, drop cuBLAS's workspaces
-    (allocated through the caching allocator at a handle's first product and
-    kept for the life of the process, so that the first profile alone would
-    pay for them) and hand cached blocks back to CUDA."""
+def _release_cached(device: torch.device, hand_back: bool = True,
+                    base: Optional[int] = None) -> None:
+    """Free what no tensor holds: drop cuBLAS's workspaces (allocated
+    through the caching allocator at a handle's first product and kept for
+    the life of the process, so that the first profile alone would pay for
+    them), collect garbage, and hand cached blocks back to CUDA. With
+    `base`, garbage is collected only where more than `base` bytes are
+    still allocated once the workspaces are gone; without `hand_back`, the
+    cached blocks stay for the next point."""
     with traced("planner.release"):
-        gc.collect()
         torch._C._cuda_clearCublasWorkspaces()
-        with torch.cuda.device(device):
-            torch.cuda.empty_cache()
+        if base is None or torch.cuda.memory_allocated(device) > base:
+            gc.collect()
+            default_registry().counter("planner.gc_runs").inc()
+        if hand_back:
+            with torch.cuda.device(device):
+                torch.cuda.empty_cache()
+            default_registry().counter("planner.cache_handbacks").inc()
+
+
+@dataclass
+class _Ladder:
+    """An open ``ladder_scope``."""
+    points: int                              # profiles still to come
+    device: Optional[torch.device] = None    # the card, from its first one
+    retries: int = 0                         # num_alloc_retries then
+    held: bool = False                       # a finished point's cache kept
+
+
+_LADDER: ContextVar[Optional[_Ladder]] = ContextVar("ladder", default=None)
+
+
+def _alloc_retries(device: torch.device) -> int:
+    return torch.cuda.memory_stats(device).get("num_alloc_retries", 0)
+
+
+@contextmanager
+def ladder_scope(points: int) -> Iterator[None]:
+    """The next `points` profiles of this thread on one card are one
+    ladder: the first starts cold, each later one on the cache the one
+    before it left, and the last hands the cache back, as does the scope's
+    end where a job raised first. Nothing happens on the card until a
+    profile runs there, so on another device the scope does nothing.
+    Counters of ``telemetry.default_registry()``: ``planner.points_warm``
+    (profiles begun on a held cache), ``planner.cache_handbacks`` and
+    ``planner.gc_runs`` (the releases' ``empty_cache`` calls and
+    collections, in or out of a scope) and ``planner.alloc_retries`` (the
+    allocator's own frees of the cache to satisfy a request, over the
+    scope)."""
+    ladder = _Ladder(points)
+    token = _LADDER.set(ladder)
+    try:
+        yield
+    finally:
+        _LADDER.reset(token)
+        if ladder.device is not None:
+            default_registry().counter("planner.alloc_retries").inc(
+                _alloc_retries(ladder.device) - ladder.retries)
+            if ladder.held:
+                _release_cached(ladder.device)
 
 
 class CUDAMemoryProfiler:
@@ -172,7 +235,14 @@ class CUDAMemoryProfiler:
     job may reset the peak statistics once it has built its inputs
     (``launch.dryrun.build_step`` does), so that the reading is the step's
     peak with them live. Memory still allocated after the job raises: a
-    leak between ladder points would bend the fit."""
+    leak between ladder points would bend the fit.
+
+    Alone, a profile releases fully before and after its job. Inside a
+    ``ladder_scope`` a point other than the first begins on the cache its
+    predecessor left: its peak of allocated bytes is the cold reading, but
+    its ``reserved_mem_bytes`` and ``device_used_bytes`` include the held
+    cache. Nothing fits those two, and a profile alone reads them as
+    before."""
 
     def profile(self, job: Callable[[], object], size: float,
                 device: Optional[Union[str, torch.device]] = None
@@ -181,8 +251,21 @@ class CUDAMemoryProfiler:
         if device.type != "cuda":
             raise ValueError(f"CUDAMemoryProfiler measures a CUDA device, "
                              f"not {device}")
+        ladder = _LADDER.get()
+        if ladder is not None and ladder.device is None:
+            ladder.device, ladder.retries = device, _alloc_retries(device)
+        if ladder is not None and ladder.device != device:
+            ladder = None
         torch.cuda.synchronize(device)
-        _release_cached(device)
+        if ladder is not None and ladder.held:
+            _release_cached(device, hand_back=False,
+                            base=torch.cuda.memory_allocated(device))
+            default_registry().counter("planner.points_warm").inc()
+        else:
+            _release_cached(device)
+        if ladder is not None:
+            ladder.points -= 1
+            ladder.held = True
         base = torch.cuda.memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
         t0 = time.monotonic()
@@ -192,7 +275,11 @@ class CUDAMemoryProfiler:
         peak = torch.cuda.max_memory_allocated(device)
         reserved = torch.cuda.max_memory_reserved(device)
         free, total = torch.cuda.mem_get_info(device)
-        _release_cached(device)
+        if ladder is None:
+            _release_cached(device)
+        else:
+            ladder.held = ladder.points > 0
+            _release_cached(device, hand_back=not ladder.held, base=base)
         left = torch.cuda.memory_allocated(device) - base
         if left != 0:
             raise RuntimeError(

@@ -124,12 +124,23 @@ Where each span/metric hangs (the observability map):
                        `--telemetry-interval S`.
   HBMPlanner           `traced` ranges, on the profiler's timeline only:
   (repro_torch.core)   `planner.point` (a ladder point's whole profile,
-                       args depth), `planner.release` (gc.collect, the
-                       cuBLAS workspaces' clear and empty_cache, twice a
-                       point), and inside `launch.dryrun.prepare_step`
-                       `planner.build` (the model, its state or weights,
-                       the inputs) and `planner.step` (the step as
-                       `Built.run` enqueues it).
+                       args depth), `planner.release` (twice a point:
+                       the cuBLAS workspaces' clear always; gc.collect
+                       and empty_cache at an answer's first point, which
+                       starts cold, and empty_cache again at its last;
+                       between them gc.collect only where a job left
+                       bytes allocated; a profile alone does all three
+                       before and after), and inside
+                       `launch.dryrun.prepare_step` `planner.build` (the
+                       model, its state or weights, the inputs) and
+                       `planner.step` (the step as `Built.run` enqueues
+                       it). Counters (`core.profiler.ladder_scope`):
+                       `planner.points_warm` (points begun on the held
+                       cache, 4 an answer of five), `planner.cache_
+                       handbacks` (empty_cache calls, 2), `planner.gc_
+                       runs` (collections, 1) and `planner.alloc_retries`
+                       (the allocator's own frees of its cache over an
+                       answer, `num_alloc_retries`; 0 where it fits).
   Model.prefill        `traced` ranges: `prefill.attention` (a layer's
   (repro_torch.models) attention), `prefill.moe` (a MoE layer's experts)
                        and, inside it, `moe.count_wait` (the dispatch's

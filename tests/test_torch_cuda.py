@@ -938,6 +938,53 @@ def test_gpu_profile_fn_answers_a_request_as_the_planner_does(card):
     assert wire["config"] == rep.selection.config.name
 
 
+@pytest.mark.parametrize("B,S", [(2, 2048), (1, 4096), (4, 1024)])
+def test_a_ladder_on_the_held_cache_reads_the_cold_bytes(card, B, S):
+    """deepseek-7b at full width, float32 AdamW, blocked attention, remat
+    "boundaries" (the plan cell's job): each point of an answer, which
+    begins on the cache its predecessor left, reads the bytes a profile
+    alone reads at that depth, to the byte; the requirement and the
+    selection follow; the answer leaves the card's reserve as it found it,
+    after 4 warm points, 2 hand-backs, 1 collection and no retry of the
+    allocator."""
+    import gc
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core.hbm_planner import HBMPlanner, _reduced_depth
+    from repro_torch.telemetry.metrics import (MetricsRegistry,
+                                               set_default_registry)
+    cfg = get_arch("deepseek-7b")
+    run = RunConfig(attn_impl="blocked", remat="boundaries",
+                    param_dtype="float32", compute_dtype="float32")
+    shape = ShapeConfig(f"train_b{B}_s{S}", S, B, "train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(card)
+    registry = MetricsRegistry()
+    previous = set_default_registry(registry)
+    try:
+        warm = HBMPlanner().plan(cfg, shape, card, run=run)
+        counters = registry.snapshot()["counters"]
+    finally:
+        set_default_registry(previous)
+    assert torch.cuda.memory_reserved(card) == reserved
+    assert counters["planner.points_warm"] == 4
+    assert counters["planner.cache_handbacks"] == 2
+    assert counters["planner.gc_runs"] == 1
+    assert counters["planner.alloc_retries"] == 0
+    planner = HBMPlanner()
+    cold = {d: planner.profile_memory(_reduced_depth(cfg, d), shape, run,
+                                      card) for d in warm.ladder}
+    print(f"B={B} S={S}: warm {warm.per_dev_bytes}, cold "
+          f"{[cold[d] for d in warm.ladder]}")
+    assert warm.per_dev_bytes == [cold[d] for d in warm.ladder]
+    planner.profile_memory = lambda small, *args, **kwargs: \
+        cold[small.n_layers]
+    want = planner.plan(cfg, shape, card, run=run)
+    assert warm.requirement_gib == want.requirement_gib
+    assert warm.selection.config.scale_out == want.selection.config.scale_out
+    assert warm.selection.config.name == want.selection.config.name
+
+
 # -- the MoE family's training and the chunked AdamW update -------------------
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b"])
